@@ -1,0 +1,13 @@
+"""PyTorch/CUDA port of the CP-APR tensor-decomposition package ``repro``.
+
+The JAX package ``repro`` is the reference; this package imports neither
+it nor JAX.  Its entry points run on the card (``device="cuda"``) unless
+the caller asks for ``device="cpu"``, where the kernels' plain versions
+run.  This slice holds the single-device CP-APR MU solve
+(:func:`repro_torch.core.cpapr_mu`) with Φ and the fused Φ -> MU step as
+hand-written CUDA kernels (:mod:`repro_torch.kernels.phi`).
+"""
+from . import core
+from .core import CPAPRConfig, CPAPRResult, cpapr_mu
+
+__all__ = ["CPAPRConfig", "CPAPRResult", "core", "cpapr_mu"]

@@ -1,0 +1,57 @@
+"""Carry a problem's state across from numpy arrays to the port.
+
+A CP-APR solve has no weights: its parameters are the tensor, the
+starting model and the parallel policy.  These converters take them as
+numpy arrays or plain dicts (as the JAX package's objects give them up
+through ``numpy.asarray`` and ``dataclasses.asdict``) and build the
+port's objects on a device, so both packages solve the same problem from
+the same start.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from .policy import PhiPolicy
+from .sparse_tensor import KTensor, SparseTensor
+
+__all__ = ["ktensor_from_numpy", "policy_from_dict", "sparse_tensor_from_numpy"]
+
+
+def sparse_tensor_from_numpy(shape: Sequence[int], indices, values,
+                             device="cuda") -> SparseTensor:
+    """A :class:`SparseTensor` from (nnz, N) indices and (nnz,) values.
+
+    Indices become int64; values keep their floating dtype.  The arrays
+    are copied, never shared with the caller's buffers.
+    """
+    dev = resolve_device(device)
+    return SparseTensor(
+        shape=tuple(int(s) for s in shape),
+        indices=torch.as_tensor(np.array(indices), dtype=torch.int64,
+                                device=dev),
+        values=torch.as_tensor(np.array(values), device=dev),
+    )
+
+
+def ktensor_from_numpy(lam, factors: Sequence, device="cuda") -> KTensor:
+    """A :class:`KTensor` from ``lam`` (R,) and per-mode (I_n, R) factors,
+    dtypes kept."""
+    dev = resolve_device(device)
+    return KTensor(
+        lam=torch.as_tensor(np.array(lam), device=dev),
+        factors=tuple(torch.as_tensor(np.array(f), device=dev)
+                      for f in factors),
+    )
+
+
+def policy_from_dict(d: dict) -> PhiPolicy:
+    """A :class:`PhiPolicy` from its field dict; strategy ``"pallas"``
+    becomes ``"cuda"``, so stored policies carry over."""
+    fields = dict(d)
+    if fields.get("strategy") == "pallas":
+        fields["strategy"] = "cuda"
+    return PhiPolicy(**fields)

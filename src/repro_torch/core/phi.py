@@ -1,0 +1,337 @@
+"""Φ^(n) kernel: the CP-APR MU hot spot (paper Fig. 2).
+
+    Φ^(n) = (X_(n) (/) max(B Π, eps)) Π^T        (Alg. 2)
+
+computed one nonzero at a time (never materializing X_(n) or Π):
+
+    s_j   = <B[i_j, :], pi[j, :]>          # model value at nonzero j
+    w_j   = x_j / max(s_j, eps)
+    Φ[i_j, :] += w_j * pi[j, :]            # reduction by row -> conflicts
+
+Strategies:
+
+  * ``scatter``  — ``index_add_`` on the nonzeros in any order: the
+    paper's GPU Alg. 3 (atomic per nonzero).
+  * ``segment``  — ``index_add_`` on the sorted stream: the paper's CPU
+    Alg. 4 ordering.
+  * ``blocked``  — a plain torch emulation of the blocked schedule: per
+    grid step partial windows, combined over the steps of a row block.
+  * ``cuda``     — the blocked schedule in the hand-written Hopper kernels
+    (:mod:`repro_torch.kernels.phi`).  ``"pallas"`` is read as an alias,
+    so stored policies of the JAX package carry over.  On CPU tensors the
+    kernel wrapper computes its plain version.
+
+``sharded``, ``grid`` and ``dense`` belong to later slices of the port
+and raise ``NotImplementedError``.
+
+PPA perturbations (paper Sec. 3.3), via ``perturb`` (plain strategies
+only; wrong on purpose, for benchmarks):
+
+  * ``no_conflict``   — drop the keyed reduction (uniform-segment sum).
+  * ``perfect_reuse`` — clamp every gather index to row 0.
+
+:func:`phi_mu_step` is the fused inner step — Φ, the KKT check and
+``B <- B*Φ`` (applied only while viol > tol) — for every strategy.
+``vals_e``/``pi_e`` accept pre-expanded layout tensors so the solver can
+hoist the Π expansion out of the inner loop.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+from ..device import check_on_device, resolve_device
+from .layout import BlockedLayout, build_blocked_layout, mode_run_stats, pad_rows
+from .pi import pi_rows
+from .policy import default_policy, heuristic_policy
+from .sparse_tensor import ModeView
+
+__all__ = [
+    "PHI_STRATEGIES",
+    "canonical_strategy",
+    "expand_to_layout",
+    "phi_flops_words",
+    "phi_from_rows",
+    "phi_mode",
+    "phi_mu_step",
+]
+
+PHI_STRATEGIES = ("scatter", "segment", "blocked", "cuda")
+# later slices of the port, each with its ROADMAP item
+_LATER = {
+    "sharded": "ROADMAP A8 (multi-device)",
+    "grid": "ROADMAP A8 (multi-device)",
+    "dense": "ROADMAP A6 (dense tier, kernels B4-B6)",
+}
+_ALIASES = {"pallas": "cuda"}
+
+
+def canonical_strategy(strategy: str) -> str:
+    """Map an alias (``"pallas"``) to the port's strategy name and reject
+    the strategies that later slices will add."""
+    s = _ALIASES.get(strategy, strategy)
+    if s in _LATER:
+        raise NotImplementedError(
+            f"strategy {strategy!r} is not ported yet: {_LATER[s]}")
+    if s not in PHI_STRATEGIES:
+        raise ValueError(f"unknown strategy {strategy!r}")
+    return s
+
+
+# ---------------------------------------------------------------------------
+# Roofline operation counts (paper Eqs. 3-8)
+# ---------------------------------------------------------------------------
+
+
+def phi_flops_words(nnz: int, rank: int, variant: str = "gpu", v: int = 32) -> tuple:
+    """(W FLOPs, Q words) for Φ^(n), per paper Eqs. 3-4 / 6-7.
+
+    ``variant='gpu'``: W = nnz(4R+2), Q = nnz(5R+2)   -> I = 0.125 @ R->inf
+    ``variant='cpu'``: W = nnz(4R+R/V+3), Q = nnz(6R+2R/V+3) -> I ~ 0.27
+    """
+    if variant == "gpu":
+        return nnz * (4 * rank + 2), nnz * (5 * rank + 2)
+    if variant == "cpu":
+        w = nnz * (4 * rank + rank / v + 3)
+        q = nnz * (6 * rank + 2 * rank / v + 3)
+        return w, q
+    raise ValueError(variant)
+
+
+# ---------------------------------------------------------------------------
+# Plain strategies
+# ---------------------------------------------------------------------------
+
+
+def _uniform_segment_sum(contrib: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """PPA 'no_conflict': keep the FLOPs/stream, drop the keyed reduce."""
+    nnz, r = contrib.shape
+    group = max(1, -(-nnz // n_rows))  # ceil
+    pad = group * n_rows - nnz
+    c = torch.cat([contrib, contrib.new_zeros((pad, r))])
+    return c.reshape(n_rows, group, r).sum(dim=1)
+
+
+def _phi_unblocked(rows, vals, pi, b, n_rows: int, eps: float,
+                   perturb: str | None = None) -> torch.Tensor:
+    """``scatter`` and ``segment``: one ``index_add_`` over the stream
+    (the stream's order is the only difference between the two)."""
+    if perturb == "perfect_reuse":
+        rows = torch.zeros_like(rows)
+    s = torch.sum(b[rows] * pi, dim=1)
+    w = vals / torch.clamp_min(s, eps)
+    contrib = w[:, None] * pi
+    if perturb == "no_conflict":
+        return _uniform_segment_sum(contrib, n_rows)
+    out = torch.zeros((n_rows, pi.shape[1]), dtype=pi.dtype, device=pi.device)
+    return out.index_add_(0, rows, contrib)
+
+
+def _phi_blocked_core(vals, pi, local_rows, grid_rb, b_win, *,
+                      block_nnz: int, block_rows: int, n_row_blocks: int,
+                      eps: float, perturb: str | None = None) -> torch.Tensor:
+    """Plain emulation of the blocked schedule: tensors in, padded window
+    out.  Each grid step reduces its ``block_nnz`` nonzeros into a
+    (block_rows, R) partial window; the partials of the steps of one row
+    block are then summed (the TPU kernel's output-block revisit).
+
+      vals:       (n_grid*block_nnz,)   layout-expanded values
+      pi:         (n_grid*block_nnz, R) layout-expanded Π rows
+      local_rows: (n_grid*block_nnz,)   row within the step's row block
+      grid_rb:    (n_grid,)             row block per grid step
+      b_win:      (n_row_blocks*block_rows, R) zero-padded B window
+    """
+    bn, br = block_nnz, block_rows
+    g = vals.shape[0] // bn
+    r = pi.shape[1]
+    lrow = local_rows.long()
+    rb = grid_rb.long()
+    if perturb == "perfect_reuse":
+        lrow = torch.zeros_like(lrow)
+        rb = torch.zeros_like(rb)
+    rows = torch.repeat_interleave(rb, bn) * br + lrow
+    s = torch.sum(b_win[rows] * pi, dim=1)
+    w = torch.where(vals > 0, vals / torch.clamp_min(s, eps),
+                    torch.zeros_like(vals))
+    contrib = (w[:, None] * pi).reshape(g, bn, r)
+    if perturb == "no_conflict":  # uniform write, no keyed reduce
+        partial = contrib[:, :br, :]
+        if partial.shape[1] < br:
+            partial = torch.cat(
+                [partial, partial.new_zeros((g, br - partial.shape[1], r))],
+                dim=1)
+    else:
+        step_rows = (torch.arange(g, device=vals.device)[:, None] * br
+                     + lrow.reshape(g, bn)).reshape(-1)
+        partial = torch.zeros((g * br, r), dtype=pi.dtype, device=pi.device)
+        partial = partial.index_add_(0, step_rows, contrib.reshape(-1, r))
+        partial = partial.reshape(g, br, r)
+    phi = torch.zeros((n_row_blocks, br, r), dtype=pi.dtype, device=pi.device)
+    phi.index_add_(0, rb, partial)  # cross-step combine
+    return phi.reshape(n_row_blocks * br, r)
+
+
+def _phi_blocked_padded(layout: BlockedLayout, vals_e, pi_e, b, eps,
+                        perturb=None) -> torch.Tensor:
+    lt = layout.on(b.device)
+    return _phi_blocked_core(
+        vals_e, pi_e, lt.local_rows, lt.grid_rb,
+        pad_rows(b, layout.n_rows_pad),
+        block_nnz=layout.block_nnz, block_rows=layout.block_rows,
+        n_row_blocks=layout.n_row_blocks, eps=eps, perturb=perturb,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Public entry points
+# ---------------------------------------------------------------------------
+
+
+def expand_to_layout(layout: BlockedLayout, vals, pi) -> tuple:
+    """Expand sorted per-nonzero tensors into the padded layout order."""
+    lt = layout.on(pi.device)
+    n_slots = lt.gather.shape[0]
+    if vals.shape[0] == 0:  # gathering from a 0-row operand is ill-formed
+        return (vals.new_zeros((n_slots,)),
+                pi.new_zeros((n_slots, pi.shape[1])))
+    vals_e = torch.where(lt.valid, vals[lt.gather], vals.new_zeros(()))
+    pi_e = torch.where(lt.valid[:, None], pi[lt.gather], pi.new_zeros(()))
+    return vals_e, pi_e
+
+
+def _resolve_layout(rows, n_rows, layout, vals, pi, vals_e, pi_e):
+    """Default layout + expansion for the blocked/cuda strategies.
+
+    Without a layout the blocking comes from the heuristic's CPU branch
+    for CPU tensors (as the JAX package does on its CPU backend) and
+    from :func:`default_policy` (256 x 256) on the card, until the port
+    has an H100 branch of the heuristic.  Pre-expanded ``vals_e``/``pi_e``
+    pass through untouched so the solver's inner loop never re-gathers.
+    """
+    if layout is None:
+        rows_np = rows.detach().cpu().numpy()
+        if pi.device.type == "cpu":
+            pol = heuristic_policy(
+                int(rows_np.shape[0]), n_rows, int(pi.shape[1]),
+                platform="cpu", stats=mode_run_stats(rows_np, n_rows),
+            )
+        else:
+            pol = default_policy(int(pi.shape[1]))
+        layout = build_blocked_layout(
+            rows_np, n_rows, block_nnz=pol.block_nnz, block_rows=pol.block_rows
+        )
+        vals_e = pi_e = None  # any pre-expansion matched a different layout
+    if vals_e is None or pi_e is None:
+        vals_e, pi_e = expand_to_layout(layout, vals, pi)
+    return layout, vals_e, pi_e
+
+
+def phi_from_rows(
+    rows: torch.Tensor,
+    vals: torch.Tensor,
+    pi: torch.Tensor,
+    b: torch.Tensor,
+    n_rows: int,
+    eps: float = 1e-10,
+    strategy: str = "segment",
+    layout: BlockedLayout | None = None,
+    perturb: str | None = None,
+    vals_e: torch.Tensor | None = None,
+    pi_e: torch.Tensor | None = None,
+    device="cuda",
+) -> torch.Tensor:
+    """Φ^(n) from pre-gathered Π rows.  ``rows`` sorted unless 'scatter'.
+
+    For ``blocked``/``cuda``, optional ``vals_e``/``pi_e`` are the
+    layout-expanded tensors (see :func:`expand_to_layout`); pass them to
+    skip per-call re-expansion.  Every tensor must lie on ``device``.
+    """
+    dev = resolve_device(device)
+    check_on_device("phi_from_rows", dev, rows, vals, pi, b, vals_e, pi_e)
+    strategy = canonical_strategy(strategy)
+    eps = float(eps)
+    if strategy in ("scatter", "segment"):
+        return _phi_unblocked(rows, vals, pi, b, n_rows, eps, perturb)
+    layout, vals_e, pi_e = _resolve_layout(rows, n_rows, layout, vals, pi,
+                                           vals_e, pi_e)
+    if strategy == "blocked":
+        return _phi_blocked_padded(layout, vals_e, pi_e, b, eps,
+                                   perturb)[:n_rows]
+    if perturb is not None:
+        raise ValueError("perturb is not supported for strategy='cuda'")
+    from ..kernels.phi import ops as phi_ops
+
+    return phi_ops.phi_blocked(layout, vals_e, pi_e, b, eps)[:n_rows]
+
+
+def _mu_epilogue(b: torch.Tensor, phi: torch.Tensor, tol: float) -> tuple:
+    """Shared unblocked epilogue: KKT violation + conditional MU update.
+
+    ``B`` is left untouched on the iteration that detects convergence
+    (viol <= tol), matching Chi & Kolda's check-before-update semantics.
+    """
+    viol = torch.max(torch.abs(torch.minimum(b, 1.0 - phi)))
+    return torch.where(viol > tol, b * phi, b), viol
+
+
+def phi_mu_step(
+    rows: torch.Tensor,
+    vals: torch.Tensor,
+    pi: torch.Tensor,
+    b: torch.Tensor,
+    n_rows: int,
+    eps: float = 1e-10,
+    tol: float = 1e-4,
+    strategy: str = "segment",
+    layout: BlockedLayout | None = None,
+    vals_e: torch.Tensor | None = None,
+    pi_e: torch.Tensor | None = None,
+    device="cuda",
+) -> tuple:
+    """One fused CP-APR inner MU step: ``(B', viol)``.
+
+    Computes Φ^(n), the KKT violation ``max |min(B, 1 - Φ)|`` and the
+    multiplicative update ``B' = B * Φ`` (applied only while
+    ``viol > tol``).  ``viol`` stays a 0-d tensor on the device.  For
+    ``cuda`` the update runs in the fused kernels; the padded region of
+    B and Φ is zero, so it adds nothing to the violation or to ``B*Φ``.
+    """
+    dev = resolve_device(device)
+    check_on_device("phi_mu_step", dev, rows, vals, pi, b, vals_e, pi_e)
+    strategy = canonical_strategy(strategy)
+    eps = float(eps)
+    if strategy in ("scatter", "segment"):
+        return _mu_epilogue(b, _phi_unblocked(rows, vals, pi, b, n_rows, eps),
+                            tol)
+    layout, vals_e, pi_e = _resolve_layout(rows, n_rows, layout, vals, pi,
+                                           vals_e, pi_e)
+    if strategy == "blocked":
+        phi_pad = _phi_blocked_padded(layout, vals_e, pi_e, b, eps)
+        b_new_pad, viol = _mu_epilogue(pad_rows(b, layout.n_rows_pad),
+                                       phi_pad, tol)
+        return b_new_pad[:n_rows], viol
+    from ..kernels.phi import ops as phi_ops
+
+    mu_pad, viol = phi_ops.phi_mu_blocked(layout, vals_e, pi_e, b, eps)
+    return torch.where(viol > tol, mu_pad[:n_rows], b), viol
+
+
+def phi_mode(
+    mv: ModeView,
+    factors: Sequence[torch.Tensor],
+    b: torch.Tensor,
+    eps: float = 1e-10,
+    strategy: str = "segment",
+    layout: BlockedLayout | None = None,
+    perturb: str | None = None,
+    device="cuda",
+) -> torch.Tensor:
+    """Full Φ^(n) for a mode view: Π gather-product then reduction."""
+    idx = mv.sorted_idx
+    if perturb == "perfect_reuse":
+        idx = torch.zeros_like(idx)
+    pi = pi_rows(idx, factors, mv.mode)
+    return phi_from_rows(mv.rows, mv.sorted_vals, pi, b, n_rows=mv.n_rows,
+                         eps=eps, strategy=strategy, layout=layout,
+                         perturb=perturb, device=device)

@@ -1,0 +1,131 @@
+"""Where a steady CP-APR sweep's time goes on the card (torch.profiler).
+
+  PYTHONPATH=src python -m repro_torch.perf.trace --tensor uber --rank 16
+
+Makes the tensor from the seed and runs a warm-up solve.  Then:
+
+* an unprofiled solve of ``1 + --sweeps`` sweeps gives the steady sweep's
+  host seconds (median of the sweeps after the first);
+* two profiled solves, of 1 and of ``1 + --sweeps`` sweeps, are
+  subtracted, so the solve's set-up (validation, sorts, layouts, their
+  host<->device copies) and the first sweep cancel, leaving the device
+  time per steady sweep by kernel name and the device-busy time (the
+  union of all device intervals).
+
+The idle share is ``1 - busy / steady sweep seconds``: the part of a
+sweep the card spends waiting for the host.  ``--json`` also writes the
+numbers to a file.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+
+import torch
+
+from ..core.cpapr import CPAPRConfig, cpapr_mu
+from ..data.tensors import TENSOR_NAMES, make_tensor
+from ..device import resolve_device
+
+__all__ = ["busy_us", "main", "sweep_breakdown"]
+
+
+def busy_us(intervals: list) -> float:
+    """Length of the union of ``(start, end)`` intervals (microseconds)."""
+    total, end = 0.0, float("-inf")
+    for s, e in sorted(intervals):
+        if s > end:
+            total += e - s
+            end = e
+        elif e > end:
+            total += e - end
+            end = e
+    return total
+
+
+def _profiled(t, rank: int, seed: int, cfg: CPAPRConfig, dev) -> tuple:
+    """(device busy µs, {kernel name: µs}) of one solve."""
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=acts) as prof:
+        cpapr_mu(t, rank, seed=seed, config=cfg, device=dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    on_device = [e for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_name: dict = {}
+    for e in on_device:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    spans = [(e.time_range.start, e.time_range.end) for e in on_device]
+    return busy_us(spans), by_name
+
+
+def _breakdown(t, rank: int, seed: int, sweeps: int, max_inner: int,
+               strategy: str, dev) -> dict:
+    def cfg(n_outer):
+        return CPAPRConfig(rank=rank, max_outer=n_outer, max_inner=max_inner,
+                           strategy=strategy)
+
+    cpapr_mu(t, rank, seed=seed, config=cfg(1), device=dev)  # warm-up
+    res = cpapr_mu(t, rank, seed=seed, config=cfg(1 + sweeps), device=dev)
+    steady_s = statistics.median(res.sweep_seconds[1:])
+    busy1, k1 = _profiled(t, rank, seed, cfg(1), dev)
+    busy_n, k_n = _profiled(t, rank, seed, cfg(1 + sweeps), dev)
+    per_sweep = {name: (us - k1.get(name, 0.0)) / sweeps / 1e6
+                 for name, us in k_n.items()}
+    busy_s = (busy_n - busy1) / sweeps / 1e6
+    return {
+        "nnz": t.nnz, "rank": rank, "strategy": strategy,
+        "inner_iters": res.inner_iters,
+        "steady_sweep_s": steady_s,
+        "device_busy_per_sweep_s": busy_s,
+        "device_idle_share": 1.0 - busy_s / steady_s,
+        "kernel_s_per_sweep": dict(sorted(per_sweep.items(),
+                                          key=lambda kv: -kv[1])),
+    }
+
+
+def sweep_breakdown(tensor: str = "uber", scale: float = 1.0, rank: int = 16,
+                    seed: int = 0, sweeps: int = 2, max_inner: int = 10,
+                    strategy: str = "cuda", device="cuda") -> dict:
+    """The steady-sweep breakdown of one tensor on the card."""
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        raise RuntimeError("sweep_breakdown measures the card: device must "
+                           "be a CUDA device")
+    t, _ = make_tensor(tensor, scale=scale, rank=rank, seed=seed, device=dev)
+    out = _breakdown(t, rank, seed, sweeps, max_inner, strategy, dev)
+    out["tensor"] = tensor
+    out["card"] = torch.cuda.get_device_name(dev)
+    return out
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--tensor", default="uber", choices=TENSOR_NAMES)
+    ap.add_argument("--scale", type=float, default=1.0)
+    ap.add_argument("--rank", type=int, default=16)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--sweeps", type=int, default=2)
+    ap.add_argument("--strategy", default="cuda",
+                    choices=("cuda", "blocked", "segment", "scatter"))
+    ap.add_argument("--json", default=None)
+    args = ap.parse_args(argv)
+    out = sweep_breakdown(args.tensor, args.scale, args.rank, args.seed,
+                          args.sweeps, strategy=args.strategy)
+    print(f"{out['tensor']} rank {out['rank']} nnz {out['nnz']} "
+          f"{out['strategy']} on {out['card']}: steady sweep "
+          f"{out['steady_sweep_s']:.6f} s, device busy "
+          f"{out['device_busy_per_sweep_s']:.6f} s per sweep, idle share "
+          f"{out['device_idle_share']:.3f}")
+    for name, s in list(out["kernel_s_per_sweep"].items())[:15]:
+        print(f"  {s * 1e3:10.4f} ms/sweep  {name[:100]}")
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump(out, f, indent=1)
+
+
+if __name__ == "__main__":
+    main()
