@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's CP-APR MU path on one NVIDIA card and check it.
+"""Drive the PyTorch port's CP-APR and CP-ALS paths on one NVIDIA card.
 
   python3 chip_smoke.py                      # uber, scale 1.0, rank 16
   python3 chip_smoke.py --tensor nell2       # the 77M-nonzero tensor
@@ -29,6 +29,23 @@ Phases (any failure exits nonzero before the last line):
    ``phi_mu_blocked`` once per inner iteration.  The same solve with
    ``strategy="segment"`` on the card is the reference: both
    log-likelihood histories must be finite and nondecreasing and agree.
+4. MTTKRP kernel: on every mode of the same tensor the sparse MTTKRP
+   kernel (``mttkrp_blocked``) runs on the starting model's Khatri-Rao
+   rows and is held against its plain version.  Its library yardstick is
+   the ``segment`` ``krao_reduce_rows`` (a multiply and ``index_add_``).
+5. CP-ALS, counted: the counts are zeroed, ``cp_als`` runs with
+   ``strategy="cuda"`` for 10 iterations from the seeded starting model,
+   and ``mttkrp_blocked`` must have run once per mode update; its fits
+   must be finite and agree with ``cp_als(strategy="segment")`` on the
+   card from the same start.
+6. The dense tier at its cap: a near-dense (128, 256, 128) tensor
+   (exactly ``DENSE_MAX_ELEMS`` cells, fill 0.40, values Poisson(2) + 1)
+   is made from the seed.  On every mode the dense Φ, fused Φ -> MU and
+   MTTKRP kernels are held against their plain versions; then
+   ``cpapr_mu(strategy="dense")`` (counted: ``dense_phi`` once per mode
+   update, ``dense_phi_mu`` once per inner iteration) is held against
+   the ``segment`` solve, and ``cp_als(strategy="dense")`` (counted:
+   ``dense_mttkrp`` once per mode update) against ``segment`` CP-ALS.
 
 The line before the last is the per-kernel JSON record; the last is
 ``{"ok": true, "device": {...}}``.
@@ -57,13 +74,27 @@ KKT_RTOL = 5e-2
 # log-likelihood may not fall by more than f32 rounding of its sum
 MONOTONE_SLACK = 1e-6
 RANK, MAX_OUTER, MAX_INNER = 16, 5, 10  # the solve the smoke test drives
+ALS_ITERS = 10  # CP-ALS iterations of phases 5 and 6
+TIMED_ITERS = 100  # extra CP-ALS iterations of the seconds-per-iteration runs
+# CP-ALS fits, kernel path vs segment on the card.  A fit is
+# 1 - sqrt(|X|^2 - 2<X, M> + |M|^2) / |X| in f32: near 1 - 1.7e-4 on uber,
+# so its resolution is one f32 ulp of 1.0 (6e-8).  The kernel's per-call
+# differences from reordered sums (at most KERNEL_RTOL, measured ~1e-5)
+# pass through 10 x ndim ridge solves of the (R, R) normal equations; 1e-6
+# (16 ulps) bounds that and is still far below the fit's own change over
+# the 10 iterations (4e-6 on uber, 7e-4 on the near-dense tensor).
+FIT_ATOL = 1e-6
 TIMING_ITERS = 20  # launches per CUDA-event timing
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores, published
-SOURCE = "src/repro_torch/kernels/csrc/phi.cu"
-REPLACES = {
-    "phi_blocked": "src/repro/kernels/phi/kernel.py:139",
-    "phi_mu_blocked": "src/repro/kernels/phi/kernel.py:179",
+CSRC = "src/repro_torch/kernels/csrc"
+KERNELS = {  # name -> (source, the TPU kernel it replaces)
+    "phi_blocked": ("phi.cu", "src/repro/kernels/phi/kernel.py:139"),
+    "phi_mu_blocked": ("phi.cu", "src/repro/kernels/phi/kernel.py:179"),
+    "mttkrp_blocked": ("mttkrp.cu", "src/repro/kernels/mttkrp/kernel.py:50"),
+    "dense_phi_mu": ("dense.cu", "src/repro/kernels/dense/kernel.py:239"),
+    "dense_phi": ("dense.cu", "src/repro/kernels/dense/kernel.py:208"),
+    "dense_mttkrp": ("dense.cu", "src/repro/kernels/dense/kernel.py:178"),
 }
 
 
@@ -92,6 +123,40 @@ def errors(got, want) -> tuple:
     return (float(d.max()) if d.numel() else 0.0), rel, ok
 
 
+def new_rows(names) -> dict:
+    return {k: {"max_abs_err": 0.0, "max_rel_err": 0.0, "ms": 0.0,
+                "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
+                "bytes": 0, "ops": 0} for k in names}
+
+
+def tally(rows: dict, name: str, what: str, checks: list, times: tuple,
+          nbytes: int, nops: int, lib_label: str) -> None:
+    """Print one kernel call's check and times, fail on a disagreement,
+    and add the call to the kernel's row (``library_ms`` None where no
+    single PyTorch call computes the function)."""
+    abs_e = max(c[0] for c in checks)
+    rel_e = max(c[1] for c in checks)
+    ok = all(c[2] for c in checks)
+    ms, plain_ms, lib_ms = times
+    bound = 1e3 * max(nbytes / HBM_BYTES_PER_S, nops / F32_OPS_PER_S)
+    lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
+    print(f"{what} {name}: max abs err {abs_e:.3e}, max rel err {rel_e:.3e} "
+          f"(rtol {KERNEL_RTOL}, atol {KERNEL_ATOL}) "
+          f"{'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, {lib_label} {lib}, bound {bound:.4f} ms")
+    check(ok, f"{name} disagrees with its plain version: {what}")
+    row = rows[name]
+    row["max_abs_err"] = max(row["max_abs_err"], abs_e)
+    row["max_rel_err"] = max(row["max_rel_err"], rel_e)
+    row["ms"] += ms
+    row["plain_ms"] += plain_ms
+    row["library_ms"] = (None if lib_ms is None or row["library_ms"] is None
+                         else row["library_ms"] + lib_ms)
+    row["bound_ms"] += bound
+    row["bytes"] += nbytes
+    row["ops"] += nops
+
+
 def kernel_phase(t, init, mvs, layouts, timing_iters: int) -> dict:
     import torch
 
@@ -103,10 +168,7 @@ def kernel_phase(t, init, mvs, layouts, timing_iters: int) -> dict:
 
     dev = t.device
     r = init.rank
-    rows = {k: {"max_abs_err": 0.0, "max_rel_err": 0.0,
-                "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-                "library_ms": 0.0, "bytes": 0, "ops": 0}
-            for k in ("phi_blocked", "phi_mu_blocked")}
+    rows = new_rows(("phi_blocked", "phi_mu_blocked"))
     for n, (mv, lay) in enumerate(zip(mvs, layouts)):
         pi = pi_rows(mv.sorted_idx, init.factors, n)
         b = init.factors[n] * init.lam[None, :]
@@ -156,31 +218,221 @@ def kernel_phase(t, init, mvs, layouts, timing_iters: int) -> dict:
         }
         sizes = {"phi_blocked": (phi_bytes, phi_ops_n),
                  "phi_mu_blocked": (mu_bytes, mu_ops_n)}
+        what = (f"mode {n} (rows {mv.n_rows}, nnz {nnz}, grid steps "
+                f"{lay.n_grid}, pad {lay.pad_fraction:.3f})")
         for name in rows:
-            abs_e = max(c[0] for c in checks[name])
-            rel_e = max(c[1] for c in checks[name])
-            ok = all(c[2] for c in checks[name])
-            ms, plain_ms, lib_ms = times[name]
-            nbytes, nops = sizes[name]
-            bound = 1e3 * max(nbytes / HBM_BYTES_PER_S, nops / F32_OPS_PER_S)
-            print(f"mode {n} (rows {mv.n_rows}, nnz {nnz}, grid steps "
-                  f"{lay.n_grid}, pad {lay.pad_fraction:.3f}) {name}: "
-                  f"max abs err {abs_e:.3e}, max rel err {rel_e:.3e} "
-                  f"(rtol {KERNEL_RTOL}, atol {KERNEL_ATOL}) "
-                  f"{'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain "
-                  f"{plain_ms:.4f} ms, segment index_add_ {lib_ms:.4f} ms, "
-                  f"bound {bound:.4f} ms")
-            check(ok, f"{name} disagrees with its plain version on mode {n}")
-            row = rows[name]
-            row["max_abs_err"] = max(row["max_abs_err"], abs_e)
-            row["max_rel_err"] = max(row["max_rel_err"], rel_e)
-            row["ms"] += ms
-            row["plain_ms"] += plain_ms
-            row["library_ms"] += lib_ms
-            row["bound_ms"] += bound
-            row["bytes"] += nbytes
-            row["ops"] += nops
+            tally(rows, name, what, checks[name], times[name], *sizes[name],
+                  "segment index_add_")
     return rows
+
+
+def mttkrp_phase(t, init, mvs, layouts, timing_iters: int) -> dict:
+    """Phase 4: the sparse MTTKRP kernel on every mode of the tensor."""
+    import torch
+
+    from repro_torch.core.phi import expand_to_layout, krao_reduce_rows
+    from repro_torch.core.pi import pi_rows
+    from repro_torch.kernels.mttkrp import ops, ref
+    from repro_torch.perf.timing import cuda_ms
+
+    dev = t.device
+    r = init.rank
+    rows = new_rows(("mttkrp_blocked",))
+    for n, (mv, lay) in enumerate(zip(mvs, layouts)):
+        kr = pi_rows(mv.sorted_idx, init.factors, n)
+        vals_e, kr_e = expand_to_layout(lay, mv.sorted_vals, kr)
+        lt = lay.on(dev)
+        plain_args = (lt.grid_rb, vals_e, lt.local_rows, kr_e)
+        kw = dict(block_nnz=lay.block_nnz, block_rows=lay.block_rows,
+                  n_rows_pad=lay.n_rows_pad)
+        got = ops.mttkrp_blocked(lay, vals_e, kr_e)
+        torch.cuda.synchronize()
+        want = ref.mttkrp_blocked_ref(*plain_args, **kw)
+        # per nonzero its value, local row and Khatri-Rao row (~72 bytes
+        # at R = 16, f32); the f32 window written once
+        isz = kr_e.element_size()
+        nbytes = (mv.nnz * (isz + 4 + r * isz) + 4 * lay.n_grid
+                  + 4 * lay.n_rows_pad * r)
+        seg = (mv.rows, mv.sorted_vals, kr, mv.n_rows)
+        times = (
+            cuda_ms(ops.mttkrp_blocked, lay, vals_e, kr_e,
+                    iters=timing_iters),
+            cuda_ms(ref.mttkrp_blocked_ref, *plain_args, **kw,
+                    iters=timing_iters),
+            cuda_ms(krao_reduce_rows, *seg, strategy="segment", device=dev,
+                    iters=timing_iters))
+        tally(rows, "mttkrp_blocked",
+              f"mode {n} (rows {mv.n_rows}, nnz {mv.nnz})",
+              [errors(got, want)], times, nbytes, 2 * r * mv.nnz,
+              "segment krao_reduce_rows")
+    return rows
+
+
+def timed_cp_als(t, init, strategy: str, dev, counts=None) -> tuple:
+    """(fits, steady seconds per iteration, launch counts) of ``cp_als``
+    from ``init``.
+
+    After an untimed 1-iteration warm-up (first-use costs: library
+    loads, the solver's workspaces) the ALS_ITERS solve gives the fits;
+    ``counts`` is the kernel module whose launch counts it is held to,
+    zeroed just before it and read just after (None without).  Then a
+    1-iteration solve is subtracted from a 1 + TIMED_ITERS one, so
+    set-up (mode sorts, layouts, densified modes) is left out and its
+    run-to-run spread is divided by TIMED_ITERS."""
+    import torch
+
+    from repro_torch.core.cpals import cp_als
+
+    def run(iters):
+        t0 = time.perf_counter()
+        fits = cp_als(t, RANK, n_iters=iters, init=init, strategy=strategy,
+                      device=dev)[1]
+        torch.cuda.synchronize()
+        return fits, time.perf_counter() - t0
+
+    run(1)
+    if counts is not None:
+        counts.reset_launch_counts()
+    fits, _ = run(ALS_ITERS)
+    launched = None if counts is None else dict(counts.launch_counts)
+    secs = [run(n)[1] for n in (1, 1 + TIMED_ITERS)]
+    return fits, (secs[1] - secs[0]) / TIMED_ITERS, launched
+
+
+def als_against_segment(t, init, strategy: str, kernel: str, ops,
+                        dev) -> int:
+    """Run ``cp_als(strategy)`` counted, then ``segment``; check the fits
+    and the launch count of ``kernel`` (once per mode update)."""
+    fits, spi, counted = timed_cp_als(t, init, strategy, dev, counts=ops)
+    launches = counted[kernel]
+    ref_fits, ref_spi, _ = timed_cp_als(t, init, "segment", dev)
+    print(f"cp_als {strategy}: fits {fits}, {spi:.6f} s per iteration, "
+          f"{kernel} launches {launches}")
+    print(f"cp_als segment: fits {ref_fits}, {ref_spi:.6f} s per iteration")
+    check(launches == ALS_ITERS * t.ndim,
+          f"{kernel} launched {launches} times, expected "
+          f"{ALS_ITERS * t.ndim} (one per mode update)")
+    check(all(math.isfinite(f) for f in fits + ref_fits),
+          f"non-finite CP-ALS fit: {fits} / {ref_fits}")
+    fit_err = max(abs(a - b) for a, b in zip(fits, ref_fits))
+    print(f"cp_als {strategy} vs segment: fit max abs diff {fit_err:.3e} "
+          f"(atol {FIT_ATOL})")
+    check(fit_err <= FIT_ATOL, f"{strategy} CP-ALS fits disagree")
+    return launches
+
+
+def dense_kernel_phase(t, init, timing_iters: int) -> dict:
+    """Phase 6a: the three dense kernels on every mode of ``t``."""
+    import torch
+
+    from repro_torch.core.dense import build_dense_mode
+    from repro_torch.core.phi import _dense_operands
+    from repro_torch.core.sparse_tensor import sort_mode
+    from repro_torch.kernels.dense import ops, ref
+    from repro_torch.perf.timing import cuda_ms
+
+    r = init.rank
+    rows = new_rows(("dense_phi_mu", "dense_phi", "dense_mttkrp"))
+    for n in range(t.ndim):
+        mv = sort_mode(t, n)
+        dn = build_dense_mode(mv.sorted_idx, mv.sorted_vals, t.shape, n,
+                              device=t.device)
+        b = init.factors[n] * init.lam[None, :]
+        x, c, a = _dense_operands(dn, init.factors, b)
+        k, i, j = x.shape
+        phi_k = ops.phi_dense(x, c, a, b)
+        mu_k, viol_k = ops.phi_mu_dense(x, c, a, b)
+        m_k = ops.mttkrp_dense(x, c, a)
+        torch.cuda.synchronize()
+        phi_p = ref.phi_dense_ref(x, c, a, b, 1e-10)
+        mu_p, viol_p = ref.phi_mu_dense_ref(x, c, a, b, 1e-10)
+        m_p = ref.mttkrp_dense_ref(x, c, a)
+        # bytes: x, c, a (and B) read once, the (I, R) result written once;
+        # operations: per cell 2R for the model value, one divide and 2R
+        # for the back-contraction (MTTKRP: 2R), c∘a_k per slice, the a
+        # scaling per (k, i, r), and 4 per entry for the MU epilogue
+        isz = x.element_size()
+        cells = k * i * j
+        inputs = isz * (cells + (j + k) * r)
+        out = 4 * i * r
+        phi_ops_n = cells * (4 * r + 1) + k * j * r + 2 * k * i * r
+        sizes = {
+            "dense_phi": (inputs + isz * i * r + out, phi_ops_n),
+            "dense_phi_mu": (inputs + 2 * isz * i * r + 4, phi_ops_n
+                             + 4 * i * r),
+            "dense_mttkrp": (inputs + out, cells * 2 * r + 2 * k * i * r),
+        }
+        times = {
+            "dense_phi": (
+                cuda_ms(ops.phi_dense, x, c, a, b, iters=timing_iters),
+                cuda_ms(ref.phi_dense_ref, x, c, a, b, 1e-10,
+                        iters=timing_iters),
+                None),
+            "dense_phi_mu": (
+                cuda_ms(ops.phi_mu_dense, x, c, a, b, iters=timing_iters),
+                cuda_ms(ref.phi_mu_dense_ref, x, c, a, b, 1e-10,
+                        iters=timing_iters),
+                None),
+            "dense_mttkrp": (
+                cuda_ms(ops.mttkrp_dense, x, c, a, iters=timing_iters),
+                cuda_ms(ref.mttkrp_dense_ref, x, c, a, iters=timing_iters),
+                cuda_ms(torch.einsum, "kij,jr,kr->ir", x, c, a,
+                        iters=timing_iters)),
+        }
+        checks = {"dense_phi": [errors(phi_k, phi_p)],
+                  "dense_phi_mu": [errors(mu_k, mu_p),
+                                   errors(viol_k, viol_p)],
+                  "dense_mttkrp": [errors(m_k, m_p)]}
+        what = f"dense mode {n} (K {k}, I {i}, J {j})"
+        for name in rows:
+            tally(rows, name, what, checks[name], times[name], *sizes[name],
+                  "einsum" if name == "dense_mttkrp" else "single call")
+    return rows
+
+
+def dense_solve_phase(t, init, dev) -> dict:
+    """Phase 6b: the dense CP-APR and CP-ALS solves, counted."""
+    import torch
+
+    from repro_torch.core.cpapr import CPAPRConfig, cpapr_mu
+    from repro_torch.kernels.dense import ops
+
+    cfg = dict(rank=RANK, max_outer=MAX_OUTER, max_inner=MAX_INNER)
+    ops.reset_launch_counts()
+    res = cpapr_mu(t, RANK, init=init, device=dev,
+                   config=CPAPRConfig(strategy="dense", **cfg))
+    torch.cuda.synchronize()
+    launches = dict(ops.launch_counts)
+    n_updates = res.n_outer * t.ndim
+    print(f"dense solve: {res.n_outer} sweeps, inner iterations "
+          f"{res.inner_iters}, launches {launches}")
+    print(f"  loglik {res.loglik_history}")
+    print(f"  seconds per sweep {res.sweep_seconds}")
+    check(res.recoveries is None, f"guard recoveries: {res.recoveries}")
+    check(launches["dense_phi"] == n_updates,
+          f"dense_phi launched {launches['dense_phi']} times, expected "
+          f"{n_updates} (one per mode update)")
+    check(launches["dense_phi_mu"] == sum(res.inner_iters) > 0,
+          f"dense_phi_mu launched {launches['dense_phi_mu']} times, "
+          f"expected {sum(res.inner_iters)} (one per inner iteration)")
+    ref = cpapr_mu(t, RANK, init=init, device=dev,
+                   config=CPAPRConfig(strategy="segment", **cfg))
+    print(f"segment solve (dense tensor): inner iterations {ref.inner_iters}")
+    print(f"  loglik {ref.loglik_history}")
+    print(f"  seconds per sweep {ref.sweep_seconds}")
+    ll, rll = res.loglik_history, ref.loglik_history
+    check(len(ll) == len(rll) == res.n_outer
+          and all(math.isfinite(x) for x in ll + rll),
+          f"log-likelihoods not finite or of different lengths: {ll} / {rll}")
+    check(monotone(ll) and monotone(rll),
+          f"log-likelihood decreased: {ll} / {rll}")
+    ll_err = max(abs(a - b) / abs(b) for a, b in zip(ll, rll))
+    print(f"dense vs segment: loglik max rel diff {ll_err:.3e} "
+          f"(rtol {LOGLIK_RTOL})")
+    check(ll_err <= LOGLIK_RTOL, "dense log-likelihood histories disagree")
+    launches["dense_mttkrp"] = als_against_segment(t, init, "dense",
+                                                   "dense_mttkrp", ops, dev)
+    return launches
 
 
 def monotone(ll: list) -> bool:
@@ -204,7 +456,11 @@ def main(argv=None) -> int:
     from repro_torch.core.layout import build_blocked_layout
     from repro_torch.core.policy import default_policy
     from repro_torch.core.sparse_tensor import random_ktensor, sort_mode
-    from repro_torch.data.tensors import make_tensor
+    from repro_torch.data.tensors import (
+        NEAR_DENSE_FILL,
+        make_near_dense,
+        make_tensor,
+    )
     from repro_torch.kernels import _build
     from repro_torch.kernels.phi import kernel, ops
 
@@ -292,17 +548,39 @@ def main(argv=None) -> int:
     check(ll_err <= LOGLIK_RTOL, "log-likelihood histories disagree")
     check(kkt_err <= KKT_RTOL, "KKT histories disagree")
 
+    # --- phase 4: the MTTKRP kernel against its plain version ---------
+    rows.update(mttkrp_phase(t, init, mvs, layouts, TIMING_ITERS))
+
+    # --- phase 5: CP-ALS, counted ----------------------------------------
+    from repro_torch.kernels.mttkrp import ops as mttkrp_ops
+
+    launches["mttkrp_blocked"] = als_against_segment(
+        t, init, "cuda", "mttkrp_blocked", mttkrp_ops, dev)
+
+    # --- phase 6: the dense tier at its cap --------------------------------
+    t0 = time.perf_counter()
+    dt = make_near_dense(seed=args.seed, device=dev)
+    print(f"near-dense tensor: shape {dt.shape}, nnz {dt.nnz} (fill "
+          f"{NEAR_DENSE_FILL}, seed {args.seed}), made in "
+          f"{time.perf_counter() - t0:.1f} s")
+    dinit = random_ktensor(dt.shape, RANK, seed=args.seed,
+                           device=dev).normalize()
+    rows.update(dense_kernel_phase(dt, dinit, TIMING_ITERS))
+    launches.update(dense_solve_phase(dt, dinit, dev))
+
+    where = {k: (f"near-dense {dt.shape}" if k.startswith("dense")
+                 else args.tensor) for k in rows}
     record = {"kernels": [
-        {"name": k, "route": "cuda", "source": SOURCE,
-         "replaces": REPLACES[k], "launches": launches[k],
+        {"name": k, "route": "cuda", "source": f"{CSRC}/{KERNELS[k][0]}",
+         "replaces": KERNELS[k][1], "launches": launches[k],
          "max_abs_err": v["max_abs_err"], "max_rel_err": v["max_rel_err"],
          "ms": v["ms"], "plain_ms": v["plain_ms"], "bound_ms": v["bound_ms"],
          "bound_by": "bytes"
          if v["bytes"] / HBM_BYTES_PER_S >= v["ops"] / F32_OPS_PER_S
          else "operations",
          "library_ms": v["library_ms"],
-         "timed": f"sum over the {t.ndim} modes of one call each, "
-                  f"{args.tensor} rank {RANK}"}
+         "timed": f"sum over the modes of one call each, {where[k]}, "
+                  f"rank {RANK}"}
         for k, v in rows.items()
     ]}
     print(json.dumps(record))

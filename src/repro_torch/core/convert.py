@@ -1,11 +1,11 @@
 """Carry a problem's state across from numpy arrays to the port.
 
-A CP-APR solve has no weights: its parameters are the tensor, the
-starting model and the parallel policy.  These converters take them as
-numpy arrays or plain dicts (as the JAX package's objects give them up
-through ``numpy.asarray`` and ``dataclasses.asdict``) and build the
-port's objects on a device, so both packages solve the same problem from
-the same start.
+A CP-APR or CP-ALS solve has no weights: its parameters are the tensor,
+the starting model, the parallel policy and, for the dense tier, each
+mode's densified tensor.  These converters take them as numpy arrays or
+plain dicts (as the JAX package's objects give them up through
+``numpy.asarray`` and ``dataclasses.asdict``) and build the port's objects
+on a device, so both packages solve the same problem from the same start.
 """
 from __future__ import annotations
 
@@ -15,10 +15,12 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from .dense import DenseModeData
 from .policy import PhiPolicy
 from .sparse_tensor import KTensor, SparseTensor
 
-__all__ = ["ktensor_from_numpy", "policy_from_dict", "sparse_tensor_from_numpy"]
+__all__ = ["dense_mode_from_numpy", "ktensor_from_numpy", "policy_from_dict",
+           "sparse_tensor_from_numpy"]
 
 
 def sparse_tensor_from_numpy(shape: Sequence[int], indices, values,
@@ -55,3 +57,16 @@ def policy_from_dict(d: dict) -> PhiPolicy:
     if fields.get("strategy") == "pallas":
         fields["strategy"] = "cuda"
     return PhiPolicy(**fields)
+
+
+def dense_mode_from_numpy(x, mode: int, j_mode: int, k_modes: Sequence[int],
+                          shape: Sequence[int], device="cuda") -> DenseModeData:
+    """A :class:`DenseModeData` from a densified (K, I, J) tensor and its
+    permutation metadata (the JAX package's ``DenseModeData`` fields).
+    ``x`` keeps its dtype and is copied."""
+    dev = resolve_device(device)
+    return DenseModeData(
+        x=torch.as_tensor(np.array(x), device=dev), mode=int(mode),
+        j_mode=int(j_mode), k_modes=tuple(int(m) for m in k_modes),
+        shape=tuple(int(s) for s in shape),
+    )

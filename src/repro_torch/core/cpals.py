@@ -1,0 +1,181 @@
+"""CP-ALS with sparse MTTKRP (paper Exp. 8 / the PASTA kernel family).
+
+MTTKRP for mode n:  M[i, :] = sum_{j: idx[j,n]=i} x_j * KRrow_j
+where KRrow_j = prod_{m != n} A^(m)[idx[j, m], :] — the same gathered
+Khatri-Rao rows as Π^(n), so the Φ reduction machinery is reused through
+:func:`repro_torch.core.phi.krao_reduce_rows`: ``scatter``, ``segment``,
+``blocked``, ``cuda`` (the MTTKRP kernel; ``"pallas"`` is an alias) and
+``dense`` (the dense MTTKRP kernel) apply to MTTKRP and CP-ALS unchanged.
+
+Each per-mode ALS update (Khatri-Rao gather, MTTKRP, Gram product, ridge
+solve) is built once per mode before the iteration loop; the Khatri-Rao
+gather and its layout expansion run once per mode update, as in
+``cpapr_mu``.  This slice of the port runs on one device: ``mesh``,
+``n_shards`` and ``policy="auto"`` raise ``NotImplementedError``, and a
+kernel that fails to build or launch raises (no degradation ladder yet).
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+from ..device import resolve_device
+from . import resilience
+from .cpapr import hoisted_mode_inputs, resolve_mode_policies
+from .phi import krao_reduce_rows
+from .pi import pi_rows
+from .sparse_tensor import KTensor, ModeView, SparseTensor, random_ktensor, sort_mode
+
+__all__ = ["cp_als", "fit_score", "mttkrp", "mttkrp_mode"]
+
+_RIDGE = 1e-10  # Gram regularizer of the ALS normal equations
+
+
+def mttkrp(
+    indices: torch.Tensor,
+    values: torch.Tensor,
+    factors: Sequence[torch.Tensor],
+    n: int,
+    n_rows: int,
+    strategy: str = "scatter",
+    layout=None,
+    sorted_rows: bool = False,
+    device="cuda",
+) -> torch.Tensor:
+    """Sparse MTTKRP (Eqs. 9-11 of the paper) through any strategy of
+    :func:`krao_reduce_rows` but ``dense``.
+
+    ``indices`` may be unsorted for ``scatter`` and ``segment``;
+    ``blocked``/``cuda`` need the mode-``n``-sorted stream (use a
+    :class:`ModeView` and :func:`mttkrp_mode`).
+    """
+    kr = pi_rows(indices, factors, n)
+    return krao_reduce_rows(indices[:, n], values, kr, n_rows,
+                            strategy=strategy, layout=layout,
+                            sorted_rows=sorted_rows, device=device)
+
+
+def mttkrp_mode(
+    mv: ModeView,
+    factors: Sequence[torch.Tensor],
+    strategy: str = "segment",
+    layout=None,
+    device="cuda",
+) -> torch.Tensor:
+    """MTTKRP on a sorted mode view (the layout-friendly entry point)."""
+    return mttkrp(mv.sorted_idx, mv.sorted_vals, factors, mv.mode, mv.n_rows,
+                  strategy=strategy, layout=layout, sorted_rows=True,
+                  device=device)
+
+
+def _make_als_mode_update(mv: ModeView, rank: int, strategy: str, layout,
+                          device: torch.device):
+    """Per-mode ALS update ``factors -> A_n'``: one Khatri-Rao gather and
+    layout expansion (or, for ``dense``, one set of dense operands), the
+    MTTKRP, then the ridge-regularized Gram solve."""
+    n = mv.mode
+
+    def gram_solve(factors, m_n):
+        gram = torch.ones((rank, rank), dtype=m_n.dtype, device=m_n.device)
+        for m, f in enumerate(factors):
+            if m != n:
+                gram = gram * (f.T @ f)
+        eye = torch.eye(rank, dtype=gram.dtype, device=gram.device)
+        return torch.linalg.solve(gram + _RIDGE * eye, m_n.T).T
+
+    def update(factors):
+        if strategy == "dense":  # the DenseModeData rides the layouts slot
+            m_n = krao_reduce_rows(None, None, None, mv.n_rows,
+                                   strategy="dense", device=device,
+                                   dense=layout, factors=factors)
+        else:
+            kr, vals_e, kr_e = hoisted_mode_inputs(mv, factors, strategy,
+                                                   layout)
+            m_n = krao_reduce_rows(mv.rows, mv.sorted_vals, kr, mv.n_rows,
+                                   strategy=strategy, layout=layout,
+                                   vals_e=vals_e, kr_e=kr_e, device=device)
+        return gram_solve(factors, m_n)
+
+    return update
+
+
+def cp_als(
+    t: SparseTensor,
+    rank: int,
+    n_iters: int = 20,
+    seed: int | None = None,
+    init: KTensor | None = None,
+    strategy: str = "scatter",
+    policy=None,
+    mesh=None,
+    n_shards: int | None = None,
+    mode_views: Sequence[ModeView] | None = None,
+    validate: bool = True,
+    device="cuda",
+) -> tuple:
+    """Plain CP-ALS on a sparse tensor (least squares, not Poisson).
+
+    Returns ``(KTensor, fit_history)``: the paper's comparison algorithm
+    family, whose bottleneck is MTTKRP (Exp. 8).  ``init`` (a KTensor, e.g.
+    from :mod:`repro_torch.core.convert`) is the starting model, its λ
+    folded into the first factor; without it one is drawn from ``seed``
+    (default 0).  ``t`` and ``init`` are moved to ``device``.
+    ``strategy``/``policy`` route the MTTKRP through the same resolver as
+    CP-APR's Φ (an explicit :class:`PhiPolicy` sets the blocking).
+    """
+    dev = resolve_device(device)
+    unported = {"policy='auto'": (policy == "auto", "ROADMAP A7 (autotune)"),
+                "mesh": (mesh is not None, "ROADMAP A8 (multi-device)"),
+                "n_shards": (n_shards is not None,
+                             "ROADMAP A8 (multi-device)")}
+    for name, (is_set, item) in unported.items():
+        if is_set:
+            raise NotImplementedError(
+                f"cp_als: {name} is not ported yet: {item}")
+    t = t.to(dev)
+    if validate:
+        resilience.validate_decomposition_inputs(t, rank, where="cp_als")
+    if init is None:
+        init = random_ktensor(t.shape, rank, seed=0 if seed is None else seed,
+                              device=dev)
+    init = init.to(dev)
+    factors = [init.factors[0] * init.lam[None, :]] + list(init.factors[1:])
+
+    mvs = list(mode_views) if mode_views is not None else [
+        sort_mode(t, n) for n in range(t.ndim)
+    ]
+    strategies, layouts, _ = resolve_mode_policies(
+        mvs, rank=rank, strategy=strategy, policy=policy, shape=t.shape)
+    updates = [_make_als_mode_update(mvs[n], rank, strategies[n], layouts[n],
+                                     dev)
+               for n in range(t.ndim)]
+
+    norm_x = torch.sqrt(torch.sum(t.values ** 2))
+    fits = []
+    for _ in range(n_iters):
+        for n in range(t.ndim):
+            factors[n] = updates[n](factors)
+        fits.append(float(fit_score(t, factors, norm_x)))
+    lam = torch.ones((rank,), dtype=factors[0].dtype, device=dev)
+    return KTensor(lam=lam, factors=tuple(factors)).normalize(), fits
+
+
+def fit_score(t: SparseTensor, factors: Sequence[torch.Tensor],
+              norm_x) -> torch.Tensor:
+    """1 - ||X - M|| / ||X||, evaluated exactly through the Gram trick."""
+    rank = factors[0].shape[1]
+    # <M, M> = sum over r, r' of prod_n (A^n^T A^n)[r, r']
+    gram = torch.ones((rank, rank), dtype=factors[0].dtype,
+                      device=factors[0].device)
+    for f in factors:
+        gram = gram * (f.T @ f)
+    norm_m_sq = torch.sum(gram)
+    # <X, M> = sum_z x_z m_z
+    prod = torch.ones((t.values.shape[0], rank), dtype=factors[0].dtype,
+                      device=factors[0].device)
+    for n, f in enumerate(factors):
+        prod = prod * f[t.indices[:, n]]
+    inner = torch.sum(t.values * torch.sum(prod, dim=1))
+    resid_sq = torch.clamp_min(norm_x ** 2 - 2 * inner + norm_m_sq, 0.0)
+    return 1.0 - torch.sqrt(resid_sq) / norm_x

@@ -11,10 +11,14 @@
 
 Each inner iteration is the fused :func:`repro_torch.core.phi.phi_mu_step`
 (for ``cuda``, the fused Φ -> MU kernels).  The Π gather and its layout
-expansion are hoisted out of the inner loop: once per mode update.  The
-inner loop reads the KKT violation on the host after every iteration to
-decide whether to go on; the iteration that finds viol <= tol is counted
-and leaves B unchanged, as in the JAX package's ``lax.while_loop``.
+expansion are hoisted out of the inner loop: once per mode update.  With
+``strategy="dense"`` each mode carries its densified tensor instead, the
+kernel operands ``(x, c, a)`` are hoisted once per mode update, the
+scooch runs the dense Φ kernel and every inner iteration the fused dense
+Φ -> MU kernels.  The inner loop reads the KKT violation on the host
+after every iteration to decide whether to go on; the iteration that
+finds viol <= tol is counted and leaves B unchanged, as in the JAX
+package's ``lax.while_loop``.
 
 This slice of the port runs on one device.  ``mesh``, ``n_shards``,
 ``grid_shape``, ``policy="auto"``, ``rebalance_every``, checkpoints and
@@ -34,8 +38,15 @@ import torch
 
 from ..device import resolve_device
 from . import resilience
+from .dense import DenseModeData, build_dense_mode
 from .layout import BlockedLayout, build_blocked_layout
-from .phi import canonical_strategy, expand_to_layout, phi_from_rows, phi_mu_step
+from .phi import (
+    _dense_operands,
+    canonical_strategy,
+    expand_to_layout,
+    phi_from_rows,
+    phi_mu_step,
+)
 from .pi import pi_rows
 from .policy import PhiPolicy, default_policy
 from .resilience import RecoveryEvent
@@ -98,7 +109,7 @@ class CPAPRResult:
     converged: bool
     seconds: float
     sweep_seconds: list  # per outer iter: host seconds of the sweep
-    policies: list | None = None  # per-mode PhiPolicy of blocked/cuda modes
+    policies: list | None = None  # per-mode PhiPolicy, blocked/cuda/dense
     # RecoveryEvents (numerical-guard restores), in order
     recoveries: list | None = None
 
@@ -180,17 +191,29 @@ def poisson_loglik(t: SparseTensor, kt: KTensor, eps: float = 1e-10) -> torch.Te
             - torch.sum(kt.lam))
 
 
+def _dense_mode_data(mv: ModeView, shape) -> DenseModeData:
+    """Densify one mode into its :class:`DenseModeData` (the dense tier's
+    counterpart of a blocked layout), on the mode view's device."""
+    return build_dense_mode(mv.sorted_idx, mv.sorted_vals, shape, mv.mode,
+                            device=mv.sorted_vals.device)
+
+
 def resolve_mode_policies(
     mvs: Sequence[ModeView],
     *,
     rank: int,
     strategy: str,
     policy: "PhiPolicy | str | None" = None,
+    shape: "tuple | None" = None,
 ) -> tuple:
     """Per-mode ``(strategies, layouts, policies)`` lists.
 
-    ``blocked``/``cuda`` modes get a :class:`BlockedLayout` with the
-    explicit policy's block sizes, else :func:`default_policy`'s.
+    The strategy resolver of both solvers (:func:`cpapr_mu` and
+    :func:`repro_torch.core.cpals.cp_als`).  ``blocked``/``cuda`` modes
+    get a :class:`BlockedLayout` with the explicit policy's block sizes,
+    else :func:`default_policy`'s.  ``dense`` modes get their
+    :class:`DenseModeData` in the layouts slot; they need the tensor's
+    ``shape``.
     """
     if policy == "auto":
         raise NotImplementedError(
@@ -200,7 +223,15 @@ def resolve_mode_policies(
     strategies = [strategy] * n_modes
     layouts: list = [None] * n_modes
     policies: list = [None] * n_modes
-    if strategy in ("blocked", "cuda"):
+    if strategy == "dense":
+        if shape is None:
+            raise ValueError("strategy='dense' needs the tensor's shape")
+        pol = policy if isinstance(policy, PhiPolicy) \
+            else PhiPolicy(strategy="dense", block_nnz=8)
+        for n, mv in enumerate(mvs):
+            policies[n] = pol
+            layouts[n] = _dense_mode_data(mv, shape)
+    elif strategy in ("blocked", "cuda"):
         pol = policy if isinstance(policy, PhiPolicy) else default_policy(rank)
         for n, mv in enumerate(mvs):
             policies[n] = pol
@@ -211,24 +242,54 @@ def resolve_mode_policies(
     return strategies, layouts, policies
 
 
+def _hoisted_steps(mv: ModeView, cfg: CPAPRConfig, strategy: str, layout,
+                   device: torch.device, factors) -> tuple:
+    """The mode update's ``(phi, step)`` callables of B, over inputs
+    hoisted once per mode update and shared by the scooch Φ and every
+    fused inner iteration: the Π gather and its layout expansion, or for
+    ``dense`` the kernel operands ``(x, c, a)`` with ``x`` cast to the
+    tier's dtype (``layout`` is then the mode's DenseModeData)."""
+    if strategy == "dense":
+        from ..kernels.dense import ops as dense_ops
+
+        x, c, a = _dense_operands(layout, factors, factors[mv.mode])
+
+        def phi(b):
+            return dense_ops.phi_dense(x, c, a, b, eps=cfg.eps)
+
+        def step(b):
+            mu, viol = dense_ops.phi_mu_dense(x, c, a, b, eps=cfg.eps)
+            return torch.where(viol > cfg.tol, mu, b), viol
+
+        return phi, step
+    kw = dict(n_rows=mv.n_rows, eps=cfg.eps, strategy=strategy, layout=layout,
+              device=device)
+    pi, vals_e, pi_e = hoisted_mode_inputs(mv, factors, strategy, layout)
+
+    def phi(b):
+        return phi_from_rows(mv.rows, mv.sorted_vals, pi, b, vals_e=vals_e,
+                             pi_e=pi_e, **kw)
+
+    def step(b):
+        return phi_mu_step(mv.rows, mv.sorted_vals, pi, b, tol=cfg.tol,
+                           vals_e=vals_e, pi_e=pi_e, **kw)
+
+    return phi, step
+
+
 def _make_mode_update(mv: ModeView, cfg: CPAPRConfig, strategy: str,
-                      layout: "BlockedLayout | None", device: torch.device):
+                      layout: "BlockedLayout | DenseModeData | None",
+                      device: torch.device):
     """Per-mode solve: ``update(factors, lam) -> (A_n', lam', viol,
     n_inner)`` with ``viol`` a host float and ``n_inner`` an int."""
     n = mv.mode
-    n_rows = mv.n_rows
-    step = dict(n_rows=n_rows, eps=cfg.eps, strategy=strategy, layout=layout,
-                device=device)
 
     def update(factors, lam):
         a_n = factors[n]
-        # Hoisted gather + layout expansion: once per mode update, shared
-        # by the scooch Φ and every fused inner iteration below.
-        pi, vals_e, pi_e = hoisted_mode_inputs(mv, factors, strategy, layout)
+        phi, step = _hoisted_steps(mv, cfg, strategy, layout, device, factors)
 
         # --- scooch: lift inadmissible zeros (Alg. 1 line 3) --------------
-        phi0 = phi_from_rows(mv.rows, mv.sorted_vals, pi, a_n * lam[None, :],
-                             vals_e=vals_e, pi_e=pi_e, **step)
+        phi0 = phi(a_n * lam[None, :])
         s = torch.where((a_n < cfg.kappa_tol) & (phi0 > 1.0),
                         torch.full_like(a_n, cfg.kappa),
                         torch.zeros_like(a_n))
@@ -237,9 +298,7 @@ def _make_mode_update(mv: ModeView, cfg: CPAPRConfig, strategy: str,
         # --- fused inner MU loop (Alg. 1 lines 5-8) ------------------------
         i, viol = 0, math.inf
         while i < cfg.max_inner and viol > cfg.tol:
-            b, viol_t = phi_mu_step(mv.rows, mv.sorted_vals, pi, b,
-                                    tol=cfg.tol, vals_e=vals_e, pi_e=pi_e,
-                                    **step)
+            b, viol_t = step(b)
             viol = float(viol_t)  # host sync: decides the next iteration
             i += 1
 
@@ -308,7 +367,8 @@ def cpapr_mu(
         sort_mode(t, n) for n in range(n_modes)
     ]
     strategies, layouts, policies = resolve_mode_policies(
-        mvs, rank=rank, strategy=cfg.strategy, policy=cfg.policy)
+        mvs, rank=rank, strategy=cfg.strategy, policy=cfg.policy,
+        shape=t.shape)
     # per-mode effective config: the kappa ladder mutates these without
     # touching the caller's cfg
     mode_cfgs = [cfg] * n_modes

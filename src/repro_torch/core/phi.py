@@ -20,9 +20,17 @@ Strategies:
     (:mod:`repro_torch.kernels.phi`).  ``"pallas"`` is read as an alias,
     so stored policies of the JAX package carry over.  On CPU tensors the
     kernel wrapper computes its plain version.
+  * ``dense``    — the matrix-free tier for near-dense modes: the mode's
+    densified (K, I, J) tensor (:mod:`repro_torch.core.dense`) is
+    contracted against factor tiles in the dense kernels
+    (:mod:`repro_torch.kernels.dense`), never building Π.
 
-``sharded``, ``grid`` and ``dense`` belong to later slices of the port
-and raise ``NotImplementedError``.
+``sharded`` and ``grid`` belong to a later slice of the port and raise
+``NotImplementedError``.
+
+:func:`krao_reduce_rows` is the same reduction without the model divide
+(MTTKRP, CP-ALS's hot spot) through the same strategies; its ``cuda``
+route is the MTTKRP kernel (:mod:`repro_torch.kernels.mttkrp`).
 
 PPA perturbations (paper Sec. 3.3), via ``perturb`` (plain strategies
 only; wrong on purpose, for benchmarks):
@@ -42,6 +50,7 @@ from typing import Sequence
 import torch
 
 from ..device import check_on_device, resolve_device
+from .dense import build_dense_mode, dense_kr_factors
 from .layout import BlockedLayout, build_blocked_layout, mode_run_stats, pad_rows
 from .pi import pi_rows
 from .policy import default_policy, heuristic_policy
@@ -51,18 +60,18 @@ __all__ = [
     "PHI_STRATEGIES",
     "canonical_strategy",
     "expand_to_layout",
+    "krao_reduce_rows",
     "phi_flops_words",
     "phi_from_rows",
     "phi_mode",
     "phi_mu_step",
 ]
 
-PHI_STRATEGIES = ("scatter", "segment", "blocked", "cuda")
+PHI_STRATEGIES = ("scatter", "segment", "blocked", "cuda", "dense")
 # later slices of the port, each with its ROADMAP item
 _LATER = {
     "sharded": "ROADMAP A8 (multi-device)",
     "grid": "ROADMAP A8 (multi-device)",
-    "dense": "ROADMAP A6 (dense tier, kernels B4-B6)",
 }
 _ALIASES = {"pallas": "cuda"}
 
@@ -128,6 +137,14 @@ def _phi_unblocked(rows, vals, pi, b, n_rows: int, eps: float,
     return out.index_add_(0, rows, contrib)
 
 
+def _krao_unblocked(rows, vals, kr, n_rows: int) -> torch.Tensor:
+    """Plain Khatri-Rao reduction ``out[i] += x_j * kr_j`` (unblocked):
+    ``scatter`` and ``segment`` of :func:`krao_reduce_rows`.  ``index_add_``
+    is correct in any row order, so unsorted COO needs no special case."""
+    out = torch.zeros((n_rows, kr.shape[1]), dtype=kr.dtype, device=kr.device)
+    return out.index_add_(0, rows, vals[:, None] * kr)
+
+
 def _phi_blocked_core(vals, pi, local_rows, grid_rb, b_win, *,
                       block_nnz: int, block_rows: int, n_row_blocks: int,
                       eps: float, perturb: str | None = None) -> torch.Tensor:
@@ -140,7 +157,10 @@ def _phi_blocked_core(vals, pi, local_rows, grid_rb, b_win, *,
       pi:         (n_grid*block_nnz, R) layout-expanded Π rows
       local_rows: (n_grid*block_nnz,)   row within the step's row block
       grid_rb:    (n_grid,)             row block per grid step
-      b_win:      (n_row_blocks*block_rows, R) zero-padded B window
+      b_win:      (n_row_blocks*block_rows, R) zero-padded B window, or
+                  None for the plain weighting ``out[i] += x_j * pi_j``:
+                  the MTTKRP reduction, on the same schedule (no model
+                  divide, no B gather; padding slots carry x = 0)
     """
     bn, br = block_nnz, block_rows
     g = vals.shape[0] // bn
@@ -150,10 +170,13 @@ def _phi_blocked_core(vals, pi, local_rows, grid_rb, b_win, *,
     if perturb == "perfect_reuse":
         lrow = torch.zeros_like(lrow)
         rb = torch.zeros_like(rb)
-    rows = torch.repeat_interleave(rb, bn) * br + lrow
-    s = torch.sum(b_win[rows] * pi, dim=1)
-    w = torch.where(vals > 0, vals / torch.clamp_min(s, eps),
-                    torch.zeros_like(vals))
+    if b_win is None:
+        w = vals
+    else:
+        rows = torch.repeat_interleave(rb, bn) * br + lrow
+        s = torch.sum(b_win[rows] * pi, dim=1)
+        w = torch.where(vals > 0, vals / torch.clamp_min(s, eps),
+                        torch.zeros_like(vals))
     contrib = (w[:, None] * pi).reshape(g, bn, r)
     if perturb == "no_conflict":  # uniform write, no keyed reduce
         partial = contrib[:, :br, :]
@@ -227,6 +250,31 @@ def _resolve_layout(rows, n_rows, layout, vals, pi, vals_e, pi_e):
     return layout, vals_e, pi_e
 
 
+def _dense_operands(dense, factors, b=None) -> tuple:
+    """Kernel operands ``(x, c, a)`` for the dense tier.
+
+    ``dense`` is a :class:`repro_torch.core.dense.DenseModeData`,
+    ``factors`` the full factor tuple.  The element tier follows ``b``
+    when given (the MU path), else the ``c`` factor: ``x`` is stored f32
+    and cast here, so bf16 factors drive the bf16 kernels without a second
+    densified copy.
+    """
+    if dense is None:
+        raise ValueError(
+            "strategy='dense' needs dense= (a DenseModeData; build one "
+            "with repro_torch.core.dense.build_dense_mode)")
+    if factors is None:
+        raise ValueError("strategy='dense' needs the full factors tuple")
+    c, a = dense_kr_factors(dense, factors)
+    dt = b.dtype if b is not None else c.dtype
+    return dense.x.to(dt), c.to(dt).contiguous(), a.to(dt)
+
+
+def _dense_tensors(dense, factors) -> list:
+    """The tensors behind ``dense=``/``factors=``, for the device check."""
+    return ([] if dense is None else [dense.x]) + list(factors or ())
+
+
 def phi_from_rows(
     rows: torch.Tensor,
     vals: torch.Tensor,
@@ -240,17 +288,30 @@ def phi_from_rows(
     vals_e: torch.Tensor | None = None,
     pi_e: torch.Tensor | None = None,
     device="cuda",
+    dense=None,
+    factors=None,
 ) -> torch.Tensor:
     """Φ^(n) from pre-gathered Π rows.  ``rows`` sorted unless 'scatter'.
 
     For ``blocked``/``cuda``, optional ``vals_e``/``pi_e`` are the
     layout-expanded tensors (see :func:`expand_to_layout`); pass them to
-    skip per-call re-expansion.  Every tensor must lie on ``device``.
+    skip per-call re-expansion.  For ``dense``, ``dense`` (a
+    :class:`repro_torch.core.dense.DenseModeData`) and the full
+    ``factors`` tuple replace the sorted stream: ``rows``/``vals``/``pi``
+    may be None.  Every tensor must lie on ``device``.
     """
     dev = resolve_device(device)
-    check_on_device("phi_from_rows", dev, rows, vals, pi, b, vals_e, pi_e)
+    check_on_device("phi_from_rows", dev, rows, vals, pi, b, vals_e, pi_e,
+                    *_dense_tensors(dense, factors))
     strategy = canonical_strategy(strategy)
     eps = float(eps)
+    if strategy == "dense":
+        if perturb is not None:
+            raise ValueError("perturb is not supported for strategy='dense'")
+        from ..kernels.dense import ops as dense_ops
+
+        x, c, a = _dense_operands(dense, factors, b)
+        return dense_ops.phi_dense(x, c, a, b, eps=eps)
     if strategy in ("scatter", "segment"):
         return _phi_unblocked(rows, vals, pi, b, n_rows, eps, perturb)
     layout, vals_e, pi_e = _resolve_layout(rows, n_rows, layout, vals, pi,
@@ -288,19 +349,29 @@ def phi_mu_step(
     vals_e: torch.Tensor | None = None,
     pi_e: torch.Tensor | None = None,
     device="cuda",
+    dense=None,
+    factors=None,
 ) -> tuple:
     """One fused CP-APR inner MU step: ``(B', viol)``.
 
     Computes Φ^(n), the KKT violation ``max |min(B, 1 - Φ)|`` and the
     multiplicative update ``B' = B * Φ`` (applied only while
     ``viol > tol``).  ``viol`` stays a 0-d tensor on the device.  For
-    ``cuda`` the update runs in the fused kernels; the padded region of
-    B and Φ is zero, so it adds nothing to the violation or to ``B*Φ``.
+    ``cuda`` and ``dense`` the update runs in the fused kernels; the
+    padded region of B and Φ is zero, so it adds nothing to the violation
+    or to ``B*Φ``.  ``dense``/``factors`` as in :func:`phi_from_rows`.
     """
     dev = resolve_device(device)
-    check_on_device("phi_mu_step", dev, rows, vals, pi, b, vals_e, pi_e)
+    check_on_device("phi_mu_step", dev, rows, vals, pi, b, vals_e, pi_e,
+                    *_dense_tensors(dense, factors))
     strategy = canonical_strategy(strategy)
     eps = float(eps)
+    if strategy == "dense":
+        from ..kernels.dense import ops as dense_ops
+
+        x, c, a = _dense_operands(dense, factors, b)
+        mu, viol = dense_ops.phi_mu_dense(x, c, a, b, eps=eps)
+        return torch.where(viol > tol, mu, b), viol
     if strategy in ("scatter", "segment"):
         return _mu_epilogue(b, _phi_unblocked(rows, vals, pi, b, n_rows, eps),
                             tol)
@@ -317,6 +388,65 @@ def phi_mu_step(
     return torch.where(viol > tol, mu_pad[:n_rows], b), viol
 
 
+def krao_reduce_rows(
+    rows: torch.Tensor,
+    vals: torch.Tensor,
+    kr: torch.Tensor,
+    n_rows: int,
+    strategy: str = "segment",
+    layout: BlockedLayout | None = None,
+    vals_e: torch.Tensor | None = None,
+    kr_e: torch.Tensor | None = None,
+    sorted_rows: bool = True,
+    device="cuda",
+    dense=None,
+    factors=None,
+) -> torch.Tensor:
+    """Shared segmented Khatri-Rao reduction: ``out[i] = sum x_j * kr_j``.
+
+    The MTTKRP kernel family (CP-ALS's bottleneck, paper Exp. 8) is the Φ
+    reduction without the model divide, through the same strategies:
+
+      * ``scatter``/``segment`` — ``index_add_`` (``rows`` in any order);
+      * ``blocked`` — the blocked schedule's plain emulation, through
+        :func:`_phi_blocked_core` with plain weights;
+      * ``cuda`` (alias ``"pallas"``) — the MTTKRP kernel
+        (:mod:`repro_torch.kernels.mttkrp`);
+      * ``dense`` — the dense MTTKRP kernel on ``dense=`` (a
+        :class:`repro_torch.core.dense.DenseModeData`) and ``factors``;
+        ``rows``/``vals``/``kr`` may be None.
+
+    ``rows`` must be sorted for ``blocked`` and ``cuda``.  ``sorted_rows``
+    is the JAX package's promise to its ``segment_sum``; ``index_add_``
+    needs none, so the port's result does not depend on it.
+    ``vals_e``/``kr_e`` are pre-expanded layout tensors (hoisted by the
+    solver), as in :func:`phi_from_rows`.  Non-negativity is not assumed:
+    a negative value counts like any other.
+    """
+    dev = resolve_device(device)
+    check_on_device("krao_reduce_rows", dev, rows, vals, kr, vals_e, kr_e,
+                    *_dense_tensors(dense, factors))
+    strategy = canonical_strategy(strategy)
+    if strategy == "dense":
+        from ..kernels.dense import ops as dense_ops
+
+        x, c, a = _dense_operands(dense, factors)
+        return dense_ops.mttkrp_dense(x, c, a)
+    if strategy in ("scatter", "segment"):
+        return _krao_unblocked(rows, vals, kr, n_rows)
+    layout, vals_e, kr_e = _resolve_layout(rows, n_rows, layout, vals, kr,
+                                           vals_e, kr_e)
+    if strategy == "blocked":
+        lt = layout.on(kr_e.device)
+        return _phi_blocked_core(
+            vals_e, kr_e, lt.local_rows, lt.grid_rb, None,
+            block_nnz=layout.block_nnz, block_rows=layout.block_rows,
+            n_row_blocks=layout.n_row_blocks, eps=0.0)[:n_rows]
+    from ..kernels.mttkrp import ops as mttkrp_ops
+
+    return mttkrp_ops.mttkrp_blocked(layout, vals_e, kr_e)[:n_rows]
+
+
 def phi_mode(
     mv: ModeView,
     factors: Sequence[torch.Tensor],
@@ -327,7 +457,21 @@ def phi_mode(
     perturb: str | None = None,
     device="cuda",
 ) -> torch.Tensor:
-    """Full Φ^(n) for a mode view: Π gather-product then reduction."""
+    """Full Φ^(n) for a mode view: Π gather-product then reduction.
+
+    For ``strategy="dense"`` the mode is densified on the fly (shape from
+    the factor row counts) and no Π is built: fine for one-shot calls;
+    the solver builds its :class:`DenseModeData` once per mode instead.
+    """
+    if canonical_strategy(strategy) == "dense":
+        if perturb is not None:
+            raise ValueError("perturb is not supported for strategy='dense'")
+        shape = tuple(int(f.shape[0]) for f in factors)
+        dn = build_dense_mode(mv.sorted_idx, mv.sorted_vals, shape, mv.mode,
+                              device=resolve_device(device))
+        return phi_from_rows(None, None, None, b, mv.n_rows, eps=eps,
+                             strategy="dense", device=device, dense=dn,
+                             factors=tuple(factors))
     idx = mv.sorted_idx
     if perturb == "perfect_reuse":
         idx = torch.zeros_like(idx)

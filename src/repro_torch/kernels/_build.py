@@ -1,23 +1,30 @@
 """Build the CUDA sources under ``csrc/`` into shared libraries at first use.
 
 Each source is compiled by ``nvcc`` on its own into
-``<repo>/build/kernels/lib<name>_<hash>.so`` (the hash covers the source
-and the flags, so an edited source rebuilds and an unchanged one is
-reused), with a plain C interface loaded through ctypes.  The compiler's
+``<repo>/build/kernels/lib<name>_<hash>.so`` (the hash covers the source,
+the shared headers ``csrc/*.cuh`` and the flags, so an edited source or
+header rebuilds and an unchanged one is reused), with a plain C interface
+loaded through ctypes.  The compiler's
 ``-Xptxas -v`` report (registers, shared memory, spills per kernel) is
 kept beside the library as ``.log``.  :func:`build_all` starts one
-``nvcc`` per source, all at once.
+``nvcc`` per source, all at once.  The ctypes glue every launcher shares
+(the once-per-process loader, dtype codes, the current stream, the
+launch-error check) lives here too.
 """
 from __future__ import annotations
 
+import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "CSRC", "NVCC_FLAGS", "build_all", "build_library",
-           "find_nvcc"]
+import torch
+
+__all__ = ["BUILD_DIR", "CSRC", "DTYPE_CODE", "NVCC_FLAGS", "build_all",
+           "build_library", "check_launch", "find_nvcc", "load_library",
+           "stream_of"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 # src/repro_torch/kernels/_build.py -> repository root
@@ -48,6 +55,8 @@ def find_nvcc() -> str:
 def _target(name: str) -> Path:
     src = CSRC / f"{name}.cu"
     h = hashlib.sha256(src.read_bytes())
+    for hdr in sorted(CSRC.glob("*.cuh")):
+        h.update(hdr.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
@@ -100,3 +109,40 @@ def build_all(names=None) -> dict:
     if errors:
         raise errors[0]
     return built
+
+
+# ---------------------------------------------------------------------------
+# ctypes glue shared by the launchers
+# ---------------------------------------------------------------------------
+
+#: the ``dtype`` argument of every C launcher
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+P = ctypes.c_void_p  # pointers and the stream
+I = ctypes.c_int  # noqa: E741
+F = ctypes.c_float
+
+_loaded: dict = {}  # name -> CDLL, once per process
+
+
+def load_library(name: str, signatures: dict) -> ctypes.CDLL:
+    """Build (if needed) and load ``csrc/<name>.cu``'s library once per
+    process; ``signatures`` maps each C launcher to its argtypes (every
+    launcher returns a CUDA error code as an int)."""
+    if name not in _loaded:
+        lib = ctypes.CDLL(str(build_library(name)))
+        for fn, argtypes in signatures.items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = I
+        _loaded[name] = lib
+    return _loaded[name]
+
+
+def stream_of(t: torch.Tensor) -> int:
+    """PyTorch's current stream on ``t``'s device, as a pointer value."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check_launch(name: str, err: int) -> None:
+    """Raise if a C launcher returned a CUDA error code."""
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")

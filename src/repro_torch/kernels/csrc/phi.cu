@@ -35,11 +35,11 @@
 //     "atomics only at segment boundaries" (CPU Alg. 4).  A hub row that
 //     spans thousands of grid steps is spread over thousands of blocks, so
 //     the 24-row mode of uber and a 60%-hub mode still fill the card.
-//   Pass 2 (mu_epilogue_kernel, fused step only): elementwise over the padded
-//     window, writes mu = B*Φ in B's dtype and folds max |min(B, 1-Φ)| into a
-//     single f32 with an unsigned atomicMax on its bits (all values are >= 0
-//     or +NaN after fabsf, so the bit order is the value order and a NaN
-//     wins, as jnp.max lets it).
+//   Pass 2 (mu_epilogue_kernel in common.cuh, fused step only): elementwise
+//     over the padded window, writes mu = B*Φ in B's dtype and folds
+//     max |min(B, 1-Φ)| into a single f32 with an unsigned atomicMax on its
+//     bits (all values are >= 0 or +NaN after fabsf, so the bit order is the
+//     value order and a NaN wins, as jnp.max lets it).
 // Float atomics make the summation order, and so the last bits of Φ, vary
 // from run to run; the wrappers' plain versions agree to a stated tolerance.
 //
@@ -47,28 +47,15 @@
 // grid step are a prefix of it, their local rows are non-decreasing, and
 // padding slots carry x = 0 (weight exactly 0, skipped).  B is zero-padded to
 // n_rows_pad rows, so padded rows add exactly 0 to viol.
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
 
-template <typename T> __device__ __forceinline__ float to_f(T x);
-template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as astype does
-}
-
-constexpr int kThreads = 256;
-
-// threads per block: R-wide groups filling ~256 threads (R <= 1024)
-inline int block_threads(int R) { return R <= kThreads ? R * (kThreads / R) : R; }
+using repro_torch::block_threads;
+using repro_torch::launch_epilogue;
+using repro_torch::max_eps;
+using repro_torch::round_to;
+using repro_torch::to_f;
 
 template <typename T>
 __global__ void phi_accum_kernel(const int* __restrict__ grid_rb,
@@ -102,7 +89,7 @@ __global__ void phi_accum_kernel(const int* __restrict__ grid_rb,
       const T* prow = pi + (base + j) * R;
       float s = 0.f;
       for (int r = 0; r < R; ++r) s += to_f(brow[r]) * to_f(prow[r]);
-      wj = x / (isnan(s) ? s : fmaxf(s, eps));
+      wj = x / max_eps(s, eps);
       my_hi = max(my_hi, l);
     }
     w[j] = wj;
@@ -129,7 +116,7 @@ __global__ void phi_accum_kernel(const int* __restrict__ grid_rb,
       const int row = lrow[base + j] - row0;
       // the contribution is rounded to the element dtype once (as the TPU
       // kernel's (w * pi).astype(pi.dtype)), then accumulated in f32
-      const float c = to_f(from_f<T>(wj * to_f(pi[(base + j) * R + r])));
+      const float c = round_to<T>(wj * to_f(pi[(base + j) * R + r]));
       if (row != cur) {
         if (cur >= 0) atomicAdd(&win[cur * R + r], acc);
         cur = row;
@@ -150,38 +137,6 @@ __global__ void phi_accum_kernel(const int* __restrict__ grid_rb,
 }
 
 template <typename T>
-__global__ void mu_epilogue_kernel(const T* __restrict__ b,
-                                   const float* __restrict__ phi,
-                                   T* __restrict__ mu,
-                                   unsigned int* __restrict__ viol_bits,
-                                   long long n) {
-  unsigned int hi = 0u;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    const float bv = to_f(b[i]);
-    const float p = phi[i];
-    const float q = 1.f - p;
-    const float m = (isnan(bv) || isnan(q)) ? __int_as_float(0x7fc00000)
-                                             : fminf(bv, q);
-    hi = max(hi, __float_as_uint(fabsf(m)));
-    mu[i] = from_f<T>(bv * p);
-  }
-  for (int off = 16; off > 0; off >>= 1)
-    hi = max(hi, __shfl_down_sync(0xffffffffu, hi, off));
-  __shared__ unsigned int warp_hi[kThreads / 32];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) warp_hi[warp] = hi;
-  __syncthreads();
-  if (warp == 0) {
-    hi = lane < (int)(blockDim.x >> 5) ? warp_hi[lane] : 0u;
-    for (int off = 16; off > 0; off >>= 1)
-      hi = max(hi, __shfl_down_sync(0xffffffffu, hi, off));
-    if (lane == 0 && hi != 0u) atomicMax(viol_bits, hi);
-  }
-}
-
-template <typename T>
 cudaError_t launch_accum(const void* grid_rb, const void* vals, const void* lrow,
                          const void* pi, const void* b, void* phi, int n_grid,
                          int bn, int br, int R, float eps, cudaStream_t stream) {
@@ -194,18 +149,6 @@ cudaError_t launch_accum(const void* grid_rb, const void* vals, const void* lrow
       static_cast<const int*>(grid_rb), static_cast<const T*>(vals),
       static_cast<const int*>(lrow), static_cast<const T*>(pi),
       static_cast<const T*>(b), static_cast<float*>(phi), bn, br, R, eps);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch_epilogue(const void* b, const void* phi, void* mu, void* viol,
-                            long long n, cudaStream_t stream) {
-  long long blocks = (n + kThreads - 1) / kThreads;
-  if (blocks > 132 * 16) blocks = 132 * 16;
-  if (blocks < 1) blocks = 1;
-  mu_epilogue_kernel<T><<<(int)blocks, kThreads, 0, stream>>>(
-      static_cast<const T*>(b), static_cast<const float*>(phi),
-      static_cast<T*>(mu), static_cast<unsigned int*>(viol), n);
   return cudaGetLastError();
 }
 

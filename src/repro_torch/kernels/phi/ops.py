@@ -15,7 +15,8 @@ from __future__ import annotations
 import torch
 
 from ...core.layout import BlockedLayout, pad_rows
-from ..dtypes import ACC_DTYPE, check_kernel_dtype
+from .._checks import check_layout_operands
+from ..dtypes import ACC_DTYPE
 from . import kernel, ref
 
 __all__ = ["launch_counts", "phi_blocked", "phi_blocked_arrays",
@@ -23,9 +24,6 @@ __all__ = ["launch_counts", "phi_blocked", "phi_blocked_arrays",
 
 #: kernel launches per kernel name since the last reset
 launch_counts = {"phi_blocked": 0, "phi_mu_blocked": 0}
-
-_MAX_RANK = 1024  # the kernel puts one thread per rank column
-_SMEM_LIMIT = 232_448  # bytes of shared memory a block may use on Hopper
 
 
 def reset_launch_counts() -> None:
@@ -35,41 +33,11 @@ def reset_launch_counts() -> None:
 
 def _check_inputs(name, grid_rb, vals_e, local_rows, pi_e, b_win,
                   block_nnz: int, block_rows: int) -> torch.dtype:
-    dt = check_kernel_dtype(name, vals_e, pi_e, b_win)
-    g = grid_rb.shape[0]
-    r = pi_e.shape[1] if pi_e.dim() == 2 else -1
-    if (grid_rb.dim() != 1 or vals_e.shape != (g * block_nnz,)
-            or local_rows.shape != (g * block_nnz,)
-            or pi_e.shape != (g * block_nnz, r) or b_win.dim() != 2
-            or b_win.shape[1] != r or b_win.shape[0] % block_rows):
-        raise ValueError(
-            f"{name}: shapes do not fit the layout (block_nnz={block_nnz}, "
-            f"block_rows={block_rows}): grid_rb {tuple(grid_rb.shape)}, "
-            f"vals_e {tuple(vals_e.shape)}, local_rows "
-            f"{tuple(local_rows.shape)}, pi_e {tuple(pi_e.shape)}, b_win "
-            f"{tuple(b_win.shape)}"
-        )
-    if grid_rb.dtype != torch.int32 or local_rows.dtype != torch.int32:
-        raise ValueError(f"{name}: grid_rb and local_rows must be int32")
-    devs = {t.device for t in (grid_rb, vals_e, local_rows, pi_e, b_win)}
-    if len(devs) != 1:
-        raise ValueError(f"{name}: operands on several devices {devs}")
-    if not all(t.is_contiguous()
-               for t in (grid_rb, vals_e, local_rows, pi_e, b_win)):
-        raise ValueError(f"{name}: operands must be contiguous")
-    if b_win.device.type == "cuda":
-        if not 1 <= r <= _MAX_RANK:
-            raise ValueError(f"{name}: rank {r} outside 1..{_MAX_RANK}")
-        smem = 4 * (block_nnz + block_rows * r)
-        if smem > _SMEM_LIMIT:
-            raise ValueError(
-                f"{name}: block_nnz={block_nnz}, block_rows={block_rows} at "
-                f"rank {r} need {smem} bytes of shared memory per block "
-                f"(limit {_SMEM_LIMIT})"
-            )
-    elif b_win.device.type != "cpu":
-        raise ValueError(f"{name}: no kernel for device {b_win.device}")
-    return dt
+    n_rows_pad = b_win.shape[0] if b_win.dim() else -1
+    return check_layout_operands(
+        name, grid_rb, vals_e, local_rows, pi_e, n_rows_pad, b_win,
+        block_nnz=block_nnz, block_rows=block_rows,
+        smem_bytes=lambda r: 4 * (block_nnz + block_rows * r))
 
 
 def phi_blocked_arrays(grid_rb, vals_e, local_rows, pi_e, b_win, *,

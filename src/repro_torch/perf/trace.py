@@ -1,11 +1,18 @@
-"""Where a steady CP-APR sweep's time goes on the card (torch.profiler).
+"""Where a steady sweep's time goes on the card (torch.profiler).
 
   PYTHONPATH=src python -m repro_torch.perf.trace --tensor uber --rank 16
+  PYTHONPATH=src python -m repro_torch.perf.trace --solver cp_als
+  PYTHONPATH=src python -m repro_torch.perf.trace --tensor near-dense \
+      --strategy dense
 
-Makes the tensor from the seed and runs a warm-up solve.  Then:
+Makes the tensor from the seed (``near-dense`` is the dense tier's
+(128, 256, 128) tensor at its cap) and runs a warm-up solve.  A sweep is
+one outer iteration of ``cpapr_mu`` or one iteration of ``cp_als``.
+Then:
 
-* an unprofiled solve of ``1 + --sweeps`` sweeps gives the steady sweep's
-  host seconds (median of the sweeps after the first);
+* unprofiled solves give the steady sweep's host seconds: for
+  ``cpapr_mu`` the median of its sweeps after the first, for ``cp_als``
+  a 1-iteration solve subtracted from a ``1 + --sweeps`` one;
 * two profiled solves, of 1 and of ``1 + --sweeps`` sweeps, are
   subtracted, so the solve's set-up (validation, sorts, layouts, their
   host<->device copies) and the first sweep cancel, leaving the device
@@ -21,11 +28,13 @@ from __future__ import annotations
 import argparse
 import json
 import statistics
+import time
 
 import torch
 
+from ..core.cpals import cp_als
 from ..core.cpapr import CPAPRConfig, cpapr_mu
-from ..data.tensors import TENSOR_NAMES, make_tensor
+from ..data.tensors import TENSOR_NAMES, make_near_dense, make_tensor
 from ..device import resolve_device
 
 __all__ = ["busy_us", "main", "sweep_breakdown"]
@@ -44,13 +53,26 @@ def busy_us(intervals: list) -> float:
     return total
 
 
-def _profiled(t, rank: int, seed: int, cfg: CPAPRConfig, dev) -> tuple:
-    """(device busy µs, {kernel name: µs}) of one solve."""
+def _solver(solver: str, rank: int, seed: int, max_inner: int,
+            strategy: str, dev):
+    """``run(t, n)``: the solve of ``n`` sweeps; a CP-APR result or the
+    CP-ALS ``(KTensor, fits)``."""
+    if solver == "cp_als":
+        return lambda t, n: cp_als(t, rank, n_iters=n, seed=seed,
+                                   strategy=strategy, device=dev)
+    return lambda t, n: cpapr_mu(
+        t, rank, seed=seed, device=dev,
+        config=CPAPRConfig(rank=rank, max_outer=n, max_inner=max_inner,
+                           strategy=strategy))
+
+
+def _profiled(run, t, n: int, dev) -> tuple:
+    """(device busy µs, {kernel name: µs}) of one solve of ``n`` sweeps."""
     acts = [torch.profiler.ProfilerActivity.CPU]
     if dev.type == "cuda":
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     with torch.profiler.profile(activities=acts) as prof:
-        cpapr_mu(t, rank, seed=seed, config=cfg, device=dev)
+        run(t, n)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
     on_device = [e for e in prof.events()
@@ -62,23 +84,33 @@ def _profiled(t, rank: int, seed: int, cfg: CPAPRConfig, dev) -> tuple:
     return busy_us(spans), by_name
 
 
-def _breakdown(t, rank: int, seed: int, sweeps: int, max_inner: int,
-               strategy: str, dev) -> dict:
-    def cfg(n_outer):
-        return CPAPRConfig(rank=rank, max_outer=n_outer, max_inner=max_inner,
-                           strategy=strategy)
+def _host_s(run, t, n: int, dev) -> float:
+    t0 = time.perf_counter()
+    run(t, n)
+    torch.cuda.synchronize(dev)
+    return time.perf_counter() - t0
 
-    cpapr_mu(t, rank, seed=seed, config=cfg(1), device=dev)  # warm-up
-    res = cpapr_mu(t, rank, seed=seed, config=cfg(1 + sweeps), device=dev)
-    steady_s = statistics.median(res.sweep_seconds[1:])
-    busy1, k1 = _profiled(t, rank, seed, cfg(1), dev)
-    busy_n, k_n = _profiled(t, rank, seed, cfg(1 + sweeps), dev)
+
+def _breakdown(t, rank: int, seed: int, sweeps: int, max_inner: int,
+               strategy: str, dev, solver: str = "cpapr") -> dict:
+    run = _solver(solver, rank, seed, max_inner, strategy, dev)
+    run(t, 1)  # warm-up
+    out = {"nnz": t.nnz, "rank": rank, "solver": solver,
+           "strategy": strategy}
+    if solver == "cp_als":
+        steady_s = (_host_s(run, t, 1 + sweeps, dev)
+                    - _host_s(run, t, 1, dev)) / sweeps
+    else:
+        res = run(t, 1 + sweeps)
+        steady_s = statistics.median(res.sweep_seconds[1:])
+        out["inner_iters"] = res.inner_iters
+    busy1, k1 = _profiled(run, t, 1, dev)
+    busy_n, k_n = _profiled(run, t, 1 + sweeps, dev)
     per_sweep = {name: (us - k1.get(name, 0.0)) / sweeps / 1e6
                  for name, us in k_n.items()}
     busy_s = (busy_n - busy1) / sweeps / 1e6
     return {
-        "nnz": t.nnz, "rank": rank, "strategy": strategy,
-        "inner_iters": res.inner_iters,
+        **out,
         "steady_sweep_s": steady_s,
         "device_busy_per_sweep_s": busy_s,
         "device_idle_share": 1.0 - busy_s / steady_s,
@@ -89,14 +121,19 @@ def _breakdown(t, rank: int, seed: int, sweeps: int, max_inner: int,
 
 def sweep_breakdown(tensor: str = "uber", scale: float = 1.0, rank: int = 16,
                     seed: int = 0, sweeps: int = 2, max_inner: int = 10,
-                    strategy: str = "cuda", device="cuda") -> dict:
+                    strategy: str = "cuda", device="cuda",
+                    solver: str = "cpapr") -> dict:
     """The steady-sweep breakdown of one tensor on the card."""
     dev = resolve_device(device)
     if dev.type != "cuda":
         raise RuntimeError("sweep_breakdown measures the card: device must "
                            "be a CUDA device")
-    t, _ = make_tensor(tensor, scale=scale, rank=rank, seed=seed, device=dev)
-    out = _breakdown(t, rank, seed, sweeps, max_inner, strategy, dev)
+    if tensor == "near-dense":
+        t = make_near_dense(seed=seed, device=dev)
+    else:
+        t, _ = make_tensor(tensor, scale=scale, rank=rank, seed=seed,
+                           device=dev)
+    out = _breakdown(t, rank, seed, sweeps, max_inner, strategy, dev, solver)
     out["tensor"] = tensor
     out["card"] = torch.cuda.get_device_name(dev)
     return out
@@ -104,19 +141,22 @@ def sweep_breakdown(tensor: str = "uber", scale: float = 1.0, rank: int = 16,
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--tensor", default="uber", choices=TENSOR_NAMES)
+    ap.add_argument("--tensor", default="uber",
+                    choices=TENSOR_NAMES + ("near-dense",))
+    ap.add_argument("--solver", default="cpapr", choices=("cpapr", "cp_als"))
     ap.add_argument("--scale", type=float, default=1.0)
     ap.add_argument("--rank", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--sweeps", type=int, default=2)
     ap.add_argument("--strategy", default="cuda",
-                    choices=("cuda", "blocked", "segment", "scatter"))
+                    choices=("cuda", "blocked", "segment", "scatter", "dense"))
     ap.add_argument("--json", default=None)
     args = ap.parse_args(argv)
     out = sweep_breakdown(args.tensor, args.scale, args.rank, args.seed,
-                          args.sweeps, strategy=args.strategy)
+                          args.sweeps, strategy=args.strategy,
+                          solver=args.solver)
     print(f"{out['tensor']} rank {out['rank']} nnz {out['nnz']} "
-          f"{out['strategy']} on {out['card']}: steady sweep "
+          f"{out['solver']} {out['strategy']} on {out['card']}: steady sweep "
           f"{out['steady_sweep_s']:.6f} s, device busy "
           f"{out['device_busy_per_sweep_s']:.6f} s per sweep, idle share "
           f"{out['device_idle_share']:.3f}")

@@ -307,7 +307,7 @@ def test_flop_word_counts_equal(nnz, rank):
             R_pi.pi_rows_flops_words(nnz, rank, n_modes)
 
 
-@pytest.mark.parametrize("strategy", ("sharded", "grid", "dense"))
+@pytest.mark.parametrize("strategy", ("sharded", "grid"))
 def test_later_strategies_raise(strategy):
     _, port = problem("uniform", 0)
     pmv = port["mv"]
