@@ -46,13 +46,35 @@ Phases (any failure exits nonzero before the last line):
    update, ``dense_phi_mu`` once per inner iteration) is held against
    the ``segment`` solve, and ``cp_als(strategy="dense")`` (counted:
    ``dense_mttkrp`` once per mode update) against ``segment`` CP-ALS.
+7. STREAM (paper Exp. 7): arrays of 2^28 elements (1 GiB in f32, far
+   above the 50 MB L2) made on the card from the seed.  For copy, scale,
+   add and triad the kernel (``stream_op``) must be bitwise equal to its
+   plain version in f32 and in bf16.  Then, counted, each op's kernel is
+   timed in f32 beside its plain version and the one PyTorch call that
+   computes the same function (``out.copy_(b)``, ``torch.mul``,
+   ``torch.add``, ``torch.add(alpha=s)``): GB/s of both and their ratio.
+   Copy and triad are also timed at other block_rows (CTA sizes).
+8. Roofline and PPA (paper Sec. 3.2-3.3): the card's HardwareSpec, the
+   paper-literal Φ intensity at rank 16 in 4-byte words, the Eq. 2 bound
+   from the datasheet bandwidth and from phase 7's triad rate, and the
+   GFLOP/s phase 2's Φ kernel reached on each uber mode (W = nnz(4R+2)).
+   Then pressure-point analysis of the ``segment`` Φ on every uber mode
+   under all four perturbations.
+9. Policy grid search (paper Exps. 3-6): on every uber mode, ``segment``
+   and the Φ kernel at block_nnz 64-1024 x block_rows 64-512 (plus the
+   ``cuda`` heuristic's point if it is off the grid), each probe a host
+   layout build and a CUDA-event timing of ``phi_from_rows(strategy=
+   "cuda")``.  Per mode: the default (256 x 256), heuristic, best and
+   worst points and the failed ones; best speedup over the default and
+   its geomean; the Φ kernel's launches must equal the timed calls.
 
-The line before the last is the per-kernel JSON record; the last is
+Phases 7-9 print their own times.  The line before the last is the per-kernel JSON record; the last is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -85,8 +107,15 @@ TIMED_ITERS = 100  # extra CP-ALS iterations of the seconds-per-iteration runs
 # the 10 iterations (4e-6 on uber, 7e-4 on the near-dense tensor).
 FIT_ATOL = 1e-6
 TIMING_ITERS = 20  # launches per CUDA-event timing
+TIMING_WARMUP = 2  # untimed launches before each CUDA-event timing
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores, published
+STREAM_N = 1 << 28  # elements per STREAM array (phase 7)
+STREAM_S = 3.0  # the scalar of scale and triad
+STREAM_BLOCK_ROWS = (8, 32, 64, 256, 1024)  # phase 7's CTA-size sweep
+GRID_BLOCK_NNZ = (64, 128, 256, 512, 1024)  # phase 9's grid
+GRID_BLOCK_ROWS = (64, 128, 256, 512)
+PPA_ITERS = 5  # timed calls per perturbation (median), after 2 untimed
 CSRC = "src/repro_torch/kernels/csrc"
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "phi_blocked": ("phi.cu", "src/repro/kernels/phi/kernel.py:139"),
@@ -95,6 +124,8 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "dense_phi_mu": ("dense.cu", "src/repro/kernels/dense/kernel.py:239"),
     "dense_phi": ("dense.cu", "src/repro/kernels/dense/kernel.py:208"),
     "dense_mttkrp": ("dense.cu", "src/repro/kernels/dense/kernel.py:178"),
+    **{f"stream_{op}": ("stream.cu", "src/repro/kernels/stream/kernel.py:36")
+       for op in ("copy", "scale", "add", "triad")},
 }
 
 
@@ -126,7 +157,7 @@ def errors(got, want) -> tuple:
 def new_rows(names) -> dict:
     return {k: {"max_abs_err": 0.0, "max_rel_err": 0.0, "ms": 0.0,
                 "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
-                "bytes": 0, "ops": 0} for k in names}
+                "bytes": 0, "ops": 0, "calls_ms": []} for k in names}
 
 
 def tally(rows: dict, name: str, what: str, checks: list, times: tuple,
@@ -149,6 +180,7 @@ def tally(rows: dict, name: str, what: str, checks: list, times: tuple,
     row["max_abs_err"] = max(row["max_abs_err"], abs_e)
     row["max_rel_err"] = max(row["max_rel_err"], rel_e)
     row["ms"] += ms
+    row["calls_ms"].append(ms)
     row["plain_ms"] += plain_ms
     row["library_ms"] = (None if lib_ms is None or row["library_ms"] is None
                          else row["library_ms"] + lib_ms)
@@ -435,6 +467,229 @@ def dense_solve_phase(t, init, dev) -> dict:
     return launches
 
 
+def stream_phase(dev, seed: int, timing_iters: int) -> tuple:
+    """Phase 7: the STREAM kernel at 2^28 elements; returns (rows,
+    launches, triad bytes per second)."""
+    import torch
+
+    from repro_torch.kernels.stream import ops, ref
+    from repro_torch.perf.timing import bandwidth_gbs, cuda_ms
+
+    two_inputs = ("add", "triad")
+    library = {  # the one PyTorch call that computes the same function
+        "copy": ("out.copy_(b)", lambda b, c, out: out.copy_(b)),
+        "scale": ("torch.mul(b, s, out=)",
+                  lambda b, c, out: torch.mul(b, STREAM_S, out=out)),
+        "add": ("torch.add(b, c, out=)",
+                lambda b, c, out: torch.add(b, c, out=out)),
+        "triad": ("torch.add(b, c, alpha=s, out=)",
+                  lambda b, c, out: torch.add(b, c, alpha=STREAM_S, out=out)),
+    }
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def arrays(dt):
+        return tuple(torch.randn(STREAM_N, generator=gen, device=dev).to(dt)
+                     for _ in range(2))
+
+    bits = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    b32, c32 = arrays(torch.float32)
+    for dt, (b, c) in ((torch.float32, (b32, c32)),
+                       (torch.bfloat16, arrays(torch.bfloat16))):
+        for op in ops.STREAM_OPS:
+            got = ops.stream_op(op, b, c, s=STREAM_S)
+            want = ref.stream_ref(op, b, c if op in two_inputs else None,
+                                  s=STREAM_S)
+            same = bool(torch.equal(got.view(bits[dt]), want.view(bits[dt])))
+            print(f"stream_{op} {str(dt).replace('torch.', '')} "
+                  f"n=2^{STREAM_N.bit_length() - 1}: "
+                  f"{'bitwise equal' if same else 'DIFFERS'} to stream_ref")
+            check(same, f"stream_{op} ({dt}) is not bitwise equal to its "
+                        f"plain version")
+            del got, want
+    del b, c
+
+    # the STREAM path itself, counted: each op timed through stream_op
+    ops.reset_launch_counts()
+    ms = {op: cuda_ms(ops.stream_op, op, b32, c32, s=STREAM_S,
+                      warmup=TIMING_WARMUP, iters=timing_iters)
+          for op in ops.STREAM_OPS}
+    launches = dict(ops.launch_counts)
+    out = torch.empty_like(b32)
+    rows, ratios = {}, []
+    for op in ops.STREAM_OPS:
+        name = f"stream_{op}"
+        check(launches[name] == TIMING_WARMUP + timing_iters,
+              f"{name} launched {launches[name]} times, expected "
+              f"{TIMING_WARMUP + timing_iters} (one per stream_op call)")
+        c_arg = c32 if op in two_inputs else None
+        plain_ms = cuda_ms(ref.stream_ref, op, b32, c_arg, s=STREAM_S,
+                           warmup=TIMING_WARMUP, iters=timing_iters)
+        label, lib = library[op]
+        lib_ms = cuda_ms(lib, b32, c32, out, warmup=TIMING_WARMUP,
+                         iters=timing_iters)
+        nbytes, nops = ref.stream_bytes_flops(op, STREAM_N, 4)
+        bound = 1e3 * max(nbytes / HBM_BYTES_PER_S, nops / F32_OPS_PER_S)
+        k_gbs = bandwidth_gbs(nbytes, ms[op] / 1e3)
+        l_gbs = bandwidth_gbs(nbytes, lib_ms / 1e3)
+        ratios.append(k_gbs / l_gbs)
+        print(f"{name} f32: kernel {ms[op]:.4f} ms = {k_gbs:.1f} GB/s "
+              f"({100 * bound / ms[op]:.1f}% of the {bound:.4f} ms bound); "
+              f"plain {plain_ms:.4f} ms; {label} {lib_ms:.4f} ms = "
+              f"{l_gbs:.1f} GB/s; kernel/library {k_gbs / l_gbs:.3f}")
+        check(math.isfinite(k_gbs) and k_gbs > 0, f"{name}: no bandwidth")
+        rows[name] = {"max_abs_err": 0.0, "max_rel_err": 0.0, "ms": ms[op],
+                      "plain_ms": plain_ms, "bound_ms": bound,
+                      "library_ms": lib_ms, "bytes": nbytes, "ops": nops}
+    geo = math.exp(sum(math.log(r) for r in ratios) / len(ratios))
+    print(f"STREAM kernel/library GB/s geomean over the 4 ops: {geo:.3f}")
+    b16, c16 = arrays(torch.bfloat16)
+    for op in ops.STREAM_OPS:  # bf16 for the record; not the counted run
+        k_ms = cuda_ms(ops.stream_op, op, b16, c16, s=STREAM_S,
+                       warmup=TIMING_WARMUP, iters=timing_iters)
+        nbytes, _ = ref.stream_bytes_flops(op, STREAM_N, 2)
+        print(f"stream_{op} bf16: kernel {k_ms:.4f} ms = "
+              f"{bandwidth_gbs(nbytes, k_ms / 1e3):.1f} GB/s")
+    for op in ("copy", "triad"):  # the CTA size: block_rows * 128 elements
+        nbytes, _ = ref.stream_bytes_flops(op, STREAM_N, 4)
+        sweep = {br: cuda_ms(ops.stream_op, op, b32, c32, block_rows=br,
+                             s=STREAM_S, warmup=TIMING_WARMUP,
+                             iters=timing_iters)
+                 for br in STREAM_BLOCK_ROWS}
+        print(f"stream_{op} f32 by block_rows: " + ", ".join(
+            f"{br}: {t:.4f} ms = {bandwidth_gbs(nbytes, t / 1e3):.1f} GB/s"
+            for br, t in sweep.items()))
+    triad_bps = ref.stream_bytes_flops("triad", STREAM_N, 4)[0] / (
+        ms["triad"] / 1e3)
+    return rows, launches, triad_bps
+
+
+def roofline_ppa_phase(t, init, mvs, phi_calls_ms, triad_bps: float,
+                       dev) -> None:
+    """Phase 8: the paper's roofline on the card, then PPA of ``segment``."""
+    from repro_torch.perf.ppa import PERTURBATIONS, run_ppa
+    from repro_torch.perf.roofline import (
+        attainable_gflops,
+        detect_hardware_spec,
+        operational_intensity_phi,
+    )
+
+    hw = detect_hardware_spec()
+    print(f"hardware spec: {hw}")
+    r = init.rank
+    inten = operational_intensity_phi(r, "gpu", word_bytes=4)
+    att = attainable_gflops(inten, hw)
+    measured = dataclasses.replace(hw, hbm_bw=triad_bps)
+    att_m = attainable_gflops(inten, measured)
+    model_bytes = (5 * r + 2) * 4  # the paper's Q per nonzero, 4-byte words
+    kernel_bytes = 4 + 4 + 4 * r  # phase 2's count: x, local row, Π row
+    print(f"Φ intensity (paper Eqs. 3-4, rank {r}, 4-byte words): "
+          f"{inten:.4f} FLOP/byte; Eq. 2 bound {att:.1f} GFLOP/s at the "
+          f"datasheet {hw.hbm_bw / 1e9:.0f} GB/s, {att_m:.1f} GFLOP/s at "
+          f"phase 7's triad {triad_bps / 1e9:.1f} GB/s")
+    for n, (mv, ms) in enumerate(zip(mvs, phi_calls_ms)):
+        gflops = mv.nnz * (4 * r + 2) / (ms / 1e3) / 1e9
+        print(f"phi_blocked mode {n}: {ms:.4f} ms, {gflops:.1f} GFLOP/s = "
+              f"{gflops / att:.2f} x the Eq. 2 bound")
+        if gflops > att:
+            print(f"  finding: above the paper-literal bound; the model "
+                  f"reads a B and a Π row per nonzero ({model_bytes} B), "
+                  f"the kernel keeps B rows in shared memory and moves "
+                  f"~{kernel_bytes} B per nonzero")
+    for n in range(t.ndim):
+        res = run_ppa(t, init, mode=n, strategy="segment", iters=PPA_ITERS,
+                      device=dev)
+        secs = ", ".join(f"{k} {v * 1e3:.3f} ms" for k, v in res.seconds.items())
+        spd = ", ".join(f"{k} {v:.3f}x" for k, v in res.speedup.items())
+        print(f"PPA segment mode {n}: {secs}; speedup {spd}")
+        check(set(res.seconds) == {str(p) for p in PERTURBATIONS}
+              and all(math.isfinite(v) and v > 0
+                      for v in list(res.seconds.values())
+                      + list(res.speedup.values())),
+              f"PPA mode {n}: missing or non-finite result {res}")
+
+
+def grid_search_phase(init, mvs, dev, timing_iters: int) -> int:
+    """Phase 9: policy grid search of the Φ kernel on every mode; returns
+    its counted launches."""
+    from repro_torch.core.layout import build_blocked_layout, mode_run_stats
+    from repro_torch.core.phi import expand_to_layout, phi_from_rows
+    from repro_torch.core.pi import pi_rows
+    from repro_torch.core.policy import (
+        PhiPolicy,
+        default_policy,
+        grid_search,
+        heuristic_policy,
+        policy_grid,
+    )
+    from repro_torch.kernels.phi import ops
+    from repro_torch.perf.timing import cuda_ms
+
+    grid = policy_grid(strategies=("segment", "cuda"),
+                       block_nnz=GRID_BLOCK_NNZ, block_rows=GRID_BLOCK_ROWS)
+    dp = default_policy(RANK)
+    default = PhiPolicy(strategy="cuda", block_nnz=dp.block_nnz,
+                        block_rows=dp.block_rows)
+    ops.reset_launch_counts()
+    calls = 0
+    speedups = []
+    for n, mv in enumerate(mvs):
+        pi = pi_rows(mv.sorted_idx, init.factors, n)
+        b = init.factors[n] * init.lam[None, :]
+        rows_np = mv.rows.cpu().numpy()
+        heur = heuristic_policy(mv.nnz, mv.n_rows, RANK, platform="cuda",
+                                stats=mode_run_stats(rows_np, mv.n_rows))
+        pols = grid + ([heur] if heur not in grid else [])
+
+        def time_fn(p):
+            if p.strategy == "segment":
+                return cuda_ms(phi_from_rows, mv.rows, mv.sorted_vals, pi, b,
+                               mv.n_rows, strategy="segment", device=dev,
+                               warmup=TIMING_WARMUP, iters=timing_iters) / 1e3
+            lay = build_blocked_layout(rows_np, mv.n_rows, p.block_nnz,
+                                       p.block_rows)
+            vals_e, pi_e = expand_to_layout(lay, mv.sorted_vals, pi)
+
+            def call():
+                nonlocal calls
+                calls += 1
+                return phi_from_rows(mv.rows, mv.sorted_vals, pi, b,
+                                     mv.n_rows, strategy="cuda", layout=lay,
+                                     vals_e=vals_e, pi_e=pi_e, device=dev)
+
+            return cuda_ms(call, warmup=TIMING_WARMUP,
+                           iters=timing_iters) / 1e3
+
+        ranked = grid_search(time_fn, pols)
+        secs = {p: s for p, s, _ in ranked}
+        ok = [(p, s) for p, s, e in ranked if e is None]
+        failed = [(p.label(), e) for p, _, e in ranked if e is not None]
+        check(default in secs and math.isfinite(secs[default])
+              and math.isfinite(secs[heur]),
+              f"mode {n}: the default or heuristic point failed: {failed}")
+        (best, t_best), (worst, t_worst) = ok[0], ok[-1]
+        slow, t_slow = [(p, t) for p, t in ok if p.strategy == "cuda"][-1]
+        speedups.append(secs[default] / t_best)
+        print(f"grid mode {n} (rows {mv.n_rows}, nnz {mv.nnz}): "
+              f"{len(ok)} of {len(pols)} points timed; default "
+              f"{default.label()} {secs[default] * 1e3:.4f} ms, heuristic "
+              f"{heur.label()} {secs[heur] * 1e3:.4f} ms, best "
+              f"{best.label()} {t_best * 1e3:.4f} ms, worst "
+              f"{worst.label()} {t_worst * 1e3:.4f} ms (slowest kernel point "
+              f"{slow.label()} {t_slow * 1e3:.4f} ms); best speedup over "
+              f"default {secs[default] / t_best:.3f}x, heuristic regret "
+              f"{secs[heur] / t_best:.3f}x; failed {failed or 'none'}")
+        print("  all points (ms): " + ", ".join(
+            f"{p.label().rsplit(':', 1)[0]} {s * 1e3:.4f}" for p, s in ok))
+    geo = math.exp(sum(math.log(x) for x in speedups) / len(speedups))
+    launches = ops.launch_counts["phi_blocked"]
+    print(f"grid search: best speedup over the default, geomean over modes "
+          f"{geo:.3f}x (paper, GPU: 1.70x); phi_blocked launches {launches} "
+          f"for {calls} timed calls")
+    check(launches == calls > 0,
+          f"phi_blocked launched {launches} times for {calls} calls")
+    return launches
+
+
 def monotone(ll: list) -> bool:
     return all(b >= a - MONOTONE_SLACK * abs(a) for a, b in zip(ll, ll[1:]))
 
@@ -568,8 +823,31 @@ def main(argv=None) -> int:
     rows.update(dense_kernel_phase(dt, dinit, TIMING_ITERS))
     launches.update(dense_solve_phase(dt, dinit, dev))
 
+    # --- phase 7: STREAM -------------------------------------------------
+    t0 = time.perf_counter()
+    stream_rows, stream_launches, triad_bps = stream_phase(
+        dev, args.seed, TIMING_ITERS)
+    rows.update(stream_rows)
+    launches.update(stream_launches)
+    print(f"phase 7 (STREAM): {time.perf_counter() - t0:.1f} s")
+
+    # --- phase 8: roofline and PPA ---------------------------------------
+    t0 = time.perf_counter()
+    roofline_ppa_phase(t, init, mvs, rows["phi_blocked"]["calls_ms"],
+                       triad_bps, dev)
+    print(f"phase 8 (roofline, PPA): {time.perf_counter() - t0:.1f} s")
+
+    # --- phase 9: policy grid search ---------------------------------------
+    t0 = time.perf_counter()
+    grid_search_phase(init, mvs, dev, TIMING_ITERS)
+    print(f"phase 9 (grid search): {time.perf_counter() - t0:.1f} s")
+
     where = {k: (f"near-dense {dt.shape}" if k.startswith("dense")
                  else args.tensor) for k in rows}
+    timed = {k: f"sum over the modes of one call each, {where[k]}, rank {RANK}"
+             for k in rows}
+    timed.update({k: f"one call on 2^28 f32 elements, s = {STREAM_S}"
+                  for k in rows if k.startswith("stream")})
     record = {"kernels": [
         {"name": k, "route": "cuda", "source": f"{CSRC}/{KERNELS[k][0]}",
          "replaces": KERNELS[k][1], "launches": launches[k],
@@ -579,8 +857,7 @@ def main(argv=None) -> int:
          if v["bytes"] / HBM_BYTES_PER_S >= v["ops"] / F32_OPS_PER_S
          else "operations",
          "library_ms": v["library_ms"],
-         "timed": f"sum over the modes of one call each, {where[k]}, "
-                  f"rank {RANK}"}
+         "timed": timed[k]}
         for k, v in rows.items()
     ]}
     print(json.dumps(record))

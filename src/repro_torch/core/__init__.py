@@ -1,7 +1,17 @@
 """CP-APR and CP-ALS on sparse count tensors, in PyTorch: the solvers and
 their substrate."""
 from .layout import BlockedLayout, ModeStats, build_blocked_layout, mode_run_stats
-from .policy import PhiPolicy, default_policy, heuristic_policy
+from .policy import (
+    SEARCH_ERRORS,
+    PhiPolicy,
+    default_policy,
+    grid_search,
+    heuristic_policy,
+    model_ambiguous_prefix,
+    model_top_k,
+    policy_grid,
+    probe_error_is_retryable,
+)
 from .sparse_tensor import (
     KTensor,
     ModeView,
@@ -52,6 +62,7 @@ __all__ = [
     "ModeStats",
     "ModeView",
     "PhiPolicy",
+    "SEARCH_ERRORS",
     "SparseTensor",
     "build_blocked_layout",
     "build_dense_mode",
@@ -63,12 +74,15 @@ __all__ = [
     "dense_mode_from_numpy",
     "expand_to_layout",
     "fit_score",
+    "grid_search",
     "heuristic_policy",
     "kkt_violation",
     "krao_reduce_rows",
     "ktensor_from_numpy",
     "ktensor_full",
     "mode_run_stats",
+    "model_ambiguous_prefix",
+    "model_top_k",
     "model_values_at",
     "mttkrp",
     "mttkrp_mode",
@@ -77,7 +91,9 @@ __all__ = [
     "phi_mu_step",
     "pi_rows",
     "poisson_loglik",
+    "policy_grid",
     "policy_from_dict",
+    "probe_error_is_retryable",
     "random_ktensor",
     "random_poisson_tensor",
     "sort_mode",

@@ -5,23 +5,43 @@
     block_rows  ~ team share: rows of B/Φ per row block
     (grid size  ~ league: derived, = padded_nnz / block_nnz)
 
+The paper shows grid search over the policy gives 2.25x (CPU) / 1.70x (GPU)
+over defaults, and calls a selection *heuristic* "an obvious next step"
+(Sec. 5).  :func:`policy_grid` and :func:`grid_search` are the search;
+:func:`model_top_k` and :func:`model_ambiguous_prefix` prune model-scored
+candidates to the ones worth measuring.
+
 ``heuristic_policy`` gives the same outputs as the JAX package's for
-``platform="cpu"`` and ``"tpu"``.  It has no branch sized for the H100
-yet; any other platform takes the TPU sizing, and the solver on the card
-uses :func:`default_policy` blocking or an explicit :class:`PhiPolicy`.
+``platform="cpu"`` and ``"tpu"``; ``platform="cuda"`` sizes the blocking to
+the Φ kernel's shared memory on the H100.  The solver on the card still
+blocks at :func:`default_policy` (256 x 256) unless given a
+:class:`PhiPolicy`.
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
+import time
+from typing import Callable, Iterable, Sequence
 
 import numpy as np
+import torch
+
+from ..kernels._checks import SMEM_LIMIT
+from ..kernels.phi.kernel import smem_bytes as phi_smem_bytes
 
 __all__ = [
     "DENSE_FILL_BIN_MAX",
     "DENSE_MAX_ELEMS",
     "PhiPolicy",
+    "SEARCH_ERRORS",
     "default_policy",
+    "grid_search",
     "heuristic_policy",
+    "model_ambiguous_prefix",
+    "model_top_k",
+    "policy_grid",
+    "probe_error_is_retryable",
     "vmem_footprint_bytes",
 ]
 
@@ -62,6 +82,151 @@ def vmem_footprint_bytes(p: PhiPolicy, rank: int, itemsize: int = 4) -> int:
     )
 
 
+# Sizing of the heuristic's cuda branch.  The Φ kernel runs one block of
+# 256 threads per grid step, so an H100 SM (132 of them) holds 8 at once;
+# a quarter of a block's 227 KB of shared memory keeps 4 of them resident.
+_H100_SMS = 132
+_BLOCKS_PER_SM = 8
+_WAVES = 4
+_CUDA_SMEM_BUDGET = SMEM_LIMIT // 4
+
+
+def policy_grid(
+    strategies: Sequence[str] = ("segment", "blocked"),
+    block_nnz: Sequence[int] = (64, 128, 256, 512, 1024),
+    block_rows: Sequence[int] = (64, 128, 256, 512),
+) -> list:
+    """Cartesian policy grid (paper's league x team x vector sweep)."""
+    out = []
+    for s in strategies:
+        if s in ("scatter", "segment"):
+            out.append(PhiPolicy(strategy=s))
+        else:
+            for bn, br in itertools.product(block_nnz, block_rows):
+                out.append(PhiPolicy(strategy=s, block_nnz=bn, block_rows=br))
+    return out
+
+
+#: Errors a policy probe may legitimately raise: bad shapes or configs
+#: (``ValueError``, which includes a blocking whose shared memory exceeds
+#: the card's, ``NotImplementedError``) and running out of device memory.
+#: Anything else (a failed launch, a bug, KeyboardInterrupt) propagates
+#: out of the search.
+SEARCH_ERRORS = (ValueError, NotImplementedError, torch.cuda.OutOfMemoryError)
+
+
+def probe_error_is_retryable(e: BaseException) -> bool:
+    """Transient probe failures (device memory pressure) are worth one
+    retry; deterministic config rejections (``ValueError`` /
+    ``NotImplementedError``) are not: retrying them only slows the search
+    down."""
+    return not isinstance(e, (ValueError, NotImplementedError))
+
+
+def grid_search(
+    time_fn: Callable[[PhiPolicy], float],
+    policies: Iterable[PhiPolicy],
+    retries: int = 1,
+    backoff: float = 0.05,
+) -> list:
+    """Time every policy; returns [(policy, seconds, error)] fastest-first.
+
+    ``error`` is ``None`` for successful probes; for policies that fail
+    with an expected error (invalid configs are part of the search space,
+    see :data:`SEARCH_ERRORS`) the entry records ``float('inf')`` seconds
+    plus the failure reason so callers can report *why* a point was pruned.
+
+    Probes whose failure class is *retryable* (see
+    :func:`probe_error_is_retryable`) get up to ``retries`` extra
+    attempts with exponential backoff before ``inf`` is recorded, and
+    their error string is tagged ``(retryable)``; a probe that recovers on
+    retry records its measured time like any other.
+    """
+    results = []
+    for p in policies:
+        secs, err = float("inf"), None
+        for attempt in range(retries + 1):
+            try:
+                secs, err = time_fn(p), None
+                break
+            except SEARCH_ERRORS as e:
+                retryable = probe_error_is_retryable(e)
+                secs = float("inf")
+                err = f"{type(e).__name__}: {e}" + (
+                    " (retryable)" if retryable else ""
+                )
+                if not retryable or attempt >= retries:
+                    break
+                if backoff > 0:
+                    time.sleep(min(backoff * (2.0 ** attempt), 2.0))
+        results.append((p, secs, err))
+    results.sort(key=lambda x: x[1])
+    return results
+
+
+def model_top_k(
+    scored: Sequence[tuple],
+    k: int = 3,
+    per_family: bool = True,
+) -> list:
+    """Prune model-scored candidates to the K worth measuring.
+
+    ``scored`` is ``[(policy, model_seconds)]``; non-finite scores (model
+    failures) are dropped.  With ``per_family`` (default) the model-best
+    candidate of every strategy family keeps a slot before global ranking
+    fills the rest: a cost model ranks *across* families far more
+    reliably than *within* one family's block-size neighborhood.
+    Returns ``[(policy, model_seconds)]`` sorted fastest-predicted-first.
+    """
+    finite = sorted((x for x in scored if np.isfinite(x[1])),
+                    key=lambda x: x[1])
+    if k <= 0 or not finite:
+        return []
+    if not per_family:
+        return finite[:k]
+    picked, seen_fam = [], set()
+    for pol, s in finite:  # one slot per family first, in model order
+        if pol.strategy not in seen_fam:
+            seen_fam.add(pol.strategy)
+            picked.append((pol, s))
+        if len(picked) >= k:
+            break
+    if len(picked) < k:
+        chosen = {id(p) for p, _ in picked}
+        for pol, s in finite:
+            if id(pol) not in chosen:
+                picked.append((pol, s))
+                chosen.add(id(pol))
+            if len(picked) >= k:
+                break
+    picked.sort(key=lambda x: x[1])
+    return picked
+
+
+def model_ambiguous_prefix(
+    ranked: Sequence[tuple],
+    bound_factor: float,
+    cap: int = 3,
+) -> list:
+    """The prefix of model-ranked candidates the model cannot separate.
+
+    ``ranked`` is ``[(policy, model_seconds)]`` fastest-predicted-first
+    (e.g. the output of :func:`model_top_k`); ``bound_factor`` is a
+    multiplicative error bound (>= 1): candidates whose predicted time is
+    within ``bound_factor`` of the predicted best are *ambiguous* and must
+    be measured.  A prefix of length 1 means the predicted margin to the
+    runner-up exceeds the error bound.
+    """
+    if not ranked:
+        return []
+    best = ranked[0][1]
+    out = [ranked[0]]
+    for pol, s in ranked[1:cap]:
+        if s <= best * max(bound_factor, 1.0):
+            out.append((pol, s))
+    return out
+
+
 def heuristic_policy(
     nnz: int,
     n_rows: int,
@@ -82,7 +247,14 @@ def heuristic_policy(
       tier.
 
     ``platform="cpu"`` keeps the sorted segmented reduce with cache-model
-    block sizes; every other platform takes the TPU's blocked sizing.
+    block sizes.  ``platform="cuda"`` picks the Φ kernel (``cuda``):
+    block_nnz covers ~4 average rows but no more than keeps 4 waves of
+    blocks on the card's 132 SMs (one block per grid step, 8 resident per
+    SM), block_rows covers the p95 run as above, and the kernel's shared
+    memory (``kernels.phi.kernel.smem_bytes``: no lane padding, no one-hot
+    term) is
+    held to a quarter of a block's limit; ``vmem_budget`` is not read.
+    Every other platform takes the TPU's blocked sizing.
     """
     if stats is not None and getattr(stats, "fill_bin", -1) >= 0:
         fill = float(getattr(stats, "fill_frac", 0.0))
@@ -106,6 +278,21 @@ def heuristic_policy(
             p = dataclasses.replace(p, block_nnz=p.block_nnz // 2)
         while vmem_footprint_bytes(p, rank) > l2_budget and p.block_rows > 8:
             p = dataclasses.replace(p, block_rows=p.block_rows // 2)
+        return p
+    if platform == "cuda":
+        fill = nnz / (_WAVES * _H100_SMS * _BLOCKS_PER_SM)
+        bn = int(2 ** np.clip(np.floor(np.log2(max(min(4 * d, fill), 1.0))),
+                              6, 11))
+        br = int(2 ** np.clip(np.round(np.log2(max(bn / max(p95, 1.0), 8))),
+                              3, 10))
+        p = PhiPolicy(strategy="cuda", block_nnz=bn, block_rows=br)
+        def smem(q):
+            return phi_smem_bytes(q.block_nnz, q.block_rows, rank)
+
+        while smem(p) > _CUDA_SMEM_BUDGET and p.block_rows > 8:
+            p = dataclasses.replace(p, block_rows=p.block_rows // 2)
+        while smem(p) > _CUDA_SMEM_BUDGET and p.block_nnz > 64:
+            p = dataclasses.replace(p, block_nnz=p.block_nnz // 2)
         return p
     bn = int(2 ** np.clip(np.round(np.log2(4 * d)), 6, 11))
     br = int(2 ** np.clip(np.round(np.log2(max(bn / max(p95, 1.0), 8))), 3, 10))

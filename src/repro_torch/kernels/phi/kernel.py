@@ -15,13 +15,19 @@ import torch
 from .. import _build
 from .._build import DTYPE_CODE, F as _F, I as _I, P as _P, check_launch, stream_of
 
-__all__ = ["launch_phi", "launch_phi_mu", "load_library"]
+__all__ = ["launch_phi", "launch_phi_mu", "load_library", "smem_bytes"]
 
 _SIGNATURES = {
     "phi_blocked_launch": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "phi_mu_blocked_launch": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                               _I, ctypes.c_longlong, _F, _P],
 }
+
+
+def smem_bytes(block_nnz: int, block_rows: int, rank: int) -> int:
+    """Shared memory per block of the Φ kernels: the f32 weights of one
+    grid step and the f32 row window (no lane padding, no one-hot block)."""
+    return 4 * (block_nnz + block_rows * rank)
 
 
 def load_library() -> ctypes.CDLL:

@@ -4,7 +4,8 @@
 and the dense tier's Φ, fused step and MTTKRP (``dense.cu``), each in f32
 and bf16, then the solves that run them (CP-APR ``cuda`` and ``dense``,
 CP-ALS ``cuda`` and ``dense``) with their launch counts, against the
-``segment`` solves on the CPU.
+``segment`` solves on the CPU.  The STREAM kernel (``stream.cu``) is held
+bitwise to its plain version on the card.
 
 Everything here needs an NVIDIA GPU and skips with a reason without one.
 The file imports neither jax nor the JAX package, so it also runs on a
@@ -20,6 +21,7 @@ run, so they are held to the f32 tier ``TOL`` (bf16: ``TOL_BF16``), not
 bitwise.
 """
 import functools
+import re
 
 import numpy as np
 import pytest
@@ -42,6 +44,9 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.dense import ops as dense_ops
 from repro_torch.kernels.mttkrp import ops as mttkrp_ops
 from repro_torch.kernels.phi import ops
+from repro_torch.kernels.stream import ops as stream_ops
+from repro_torch.kernels.stream.ref import stream_ref
+from repro_torch.perf import roofline
 
 RANK = 4
 BN, BR = 64, 4
@@ -187,7 +192,7 @@ def test_build_is_cached_by_source_hash(card):
 @pytest.mark.cuda
 def test_every_source_builds(card):
     libs = _build.build_all()
-    assert set(libs) == {"dense", "mttkrp", "phi"}
+    assert set(libs) == {"dense", "mttkrp", "phi", "stream"}
     assert all(p.exists() for p in libs.values())
 
 
@@ -341,3 +346,73 @@ def test_dense_solves_match_segment(card, kind):
     _, want_fits = P_cpals.cp_als(t, RANK, n_iters=3, init=kt,
                                   strategy="segment", device="cpu")
     np.testing.assert_allclose(fits, want_fits, **TOL)
+
+
+# --- STREAM (stream.cu) ------------------------------------------------------
+
+# 37 tiles of 128 x 256: a length that is not a power of two times the tile
+STREAM_LEN = 128 * 256 * 37
+_BITS = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+
+
+def _stream_arrays(n, dtype, card):
+    rng = np.random.RandomState(5)
+    return tuple(torch.from_numpy(rng.standard_normal(n).astype(np.float32))
+                 .to(dtype).to(card) for _ in range(2))
+
+
+def _check_stream(op, b, c, block_rows=256, s=3.0):
+    name = f"stream_{op}"
+    before = stream_ops.launch_counts[name]
+    got = stream_ops.stream_op(op, b, c, block_rows=block_rows, s=s)
+    torch.cuda.synchronize()
+    assert stream_ops.launch_counts[name] == before + 1
+    assert got.dtype == b.dtype and got.shape == b.shape
+    assert got.data_ptr() not in (b.data_ptr(), c.data_ptr())
+    want = stream_ref(op, b, c if op in ("add", "triad") else None, s=s)
+    bits = _BITS[b.dtype]
+    assert torch.equal(got.view(bits), want.view(bits)), \
+        f"{name} {b.dtype} block_rows={block_rows}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+@pytest.mark.parametrize("op", stream_ops.STREAM_OPS)
+def test_stream_kernel_bitwise_equals_plain_version(card, op, dtype):
+    b, c = _stream_arrays(STREAM_LEN, dtype, card)
+    _check_stream(op, b, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block_rows", (1, 8, 37))
+def test_stream_kernel_across_block_rows(card, block_rows):
+    for dtype in (torch.float32, torch.bfloat16):
+        b, c = _stream_arrays(128 * block_rows * 5, dtype, card)
+        for op in stream_ops.STREAM_OPS:
+            _check_stream(op, b, c, block_rows=block_rows, s=-1.7)
+
+
+@pytest.mark.cuda
+def test_stream_kernel_rejects_what_it_cannot_take(card):
+    big = torch.zeros(128 * 257, device=card)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        stream_ops.stream_op("copy", big[1:1 + 128 * 256])
+    with pytest.raises(ValueError, match="contiguous"):
+        stream_ops.stream_op("copy", torch.zeros(128 * 512, device=card)[::2])
+    with pytest.raises(ValueError, match="b on"):
+        stream_ops.stream_op("add", big[:128 * 256],
+                             torch.zeros(128 * 256))
+    before = dict(stream_ops.launch_counts)
+    empty = stream_ops.stream_op("triad", big[:0], big[:0])
+    assert empty.shape == (0,) and stream_ops.launch_counts == before
+
+
+@pytest.mark.cuda
+def test_detect_hardware_spec_on_the_card(card):
+    name = torch.cuda.get_device_name()
+    if "H100" in name and "PCIe" not in name and "NVL" not in name:
+        assert roofline.detect_hardware_spec() is \
+            roofline.HARDWARE["h100_sxm"]
+    else:
+        with pytest.raises(ValueError, match=re.escape(name)):
+            roofline.detect_hardware_spec()
