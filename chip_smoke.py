@@ -22,7 +22,10 @@ Phases (any failure exits nonzero before the last line):
    kernel, its plain version, the ``segment`` strategy's ``index_add_``
    composite as a library yardstick the port never calls for these
    kernels, and the least time the card could take (bytes over 3.35 TB/s
-   or f32 operations over 67 TFLOP/s, whichever is larger).
+   or f32 operations over 67 TFLOP/s, whichever is larger).  The Φ
+   kernels are also run by direct launch of their C entry points, checked
+   and timed (not counted) beside their wrappers, device and host time
+   per call, which says where back-to-back calls are host-bound.
 3. Solve: the launch counts are zeroed, ``cpapr_mu`` runs with
    ``strategy="cuda"`` from the seeded starting model, and the counts are
    read: ``phi_blocked`` must have run once per mode update and
@@ -53,7 +56,8 @@ Phases (any failure exits nonzero before the last line):
    timed in f32 beside its plain version and the one PyTorch call that
    computes the same function (``out.copy_(b)``, ``torch.mul``,
    ``torch.add``, ``torch.add(alpha=s)``): GB/s of both and their ratio.
-   Copy and triad are also timed at other block_rows (CTA sizes).
+   Then the sweep of block_rows (which no longer shapes the launch: the
+   spread should be noise) for all four ops.
 8. Roofline and PPA (paper Sec. 3.2-3.3): the card's HardwareSpec, the
    paper-literal Φ intensity at rank 16 in 4-byte words, the Eq. 2 bound
    from the datasheet bandwidth and from phase 7's triad rate, and the
@@ -66,7 +70,8 @@ Phases (any failure exits nonzero before the last line):
    layout build and a CUDA-event timing of ``phi_from_rows(strategy=
    "cuda")``.  Per mode: the default (256 x 256), heuristic, best and
    worst points and the failed ones; best speedup over the default and
-   its geomean; the Φ kernel's launches must equal the timed calls.
+   its geomean, and the heuristic's regret (flagged as open above 1.10);
+   the Φ kernel's launches must equal the timed calls.
 
 Phases 7-9 print their own times.  The line before the last is the per-kernel JSON record; the last is
 ``{"ok": true, "device": {...}}``.
@@ -112,9 +117,10 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores, published
 STREAM_N = 1 << 28  # elements per STREAM array (phase 7)
 STREAM_S = 3.0  # the scalar of scale and triad
-STREAM_BLOCK_ROWS = (8, 32, 64, 256, 1024)  # phase 7's CTA-size sweep
+STREAM_BLOCK_ROWS = (8, 32, 64, 256, 1024)  # phase 7's block_rows sweep
 GRID_BLOCK_NNZ = (64, 128, 256, 512, 1024)  # phase 9's grid
 GRID_BLOCK_ROWS = (64, 128, 256, 512)
+HEURISTIC_REGRET_OPEN = 1.10  # phase 9: a regret above this is an open item
 PPA_ITERS = 5  # timed calls per perturbation (median), after 2 untimed
 CSRC = "src/repro_torch/kernels/csrc"
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
@@ -189,6 +195,79 @@ def tally(rows: dict, name: str, what: str, checks: list, times: tuple,
     row["ops"] += nops
 
 
+def device_and_host_ms(fn, *args, iters: int) -> tuple:
+    """Per call of ``fn`` over ``iters`` back-to-back calls after
+    TIMING_WARMUP untimed ones: device ms from CUDA events, and host ms
+    from the host clock around the same loop (the time to enqueue, before
+    the closing synchronize).  Where the host's exceeds the device's, the
+    loop is host-bound."""
+    import torch
+
+    for _ in range(TIMING_WARMUP):
+        fn(*args)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(iters):
+        fn(*args)
+    stop.record()
+    host = time.perf_counter() - t0
+    stop.synchronize()
+    return start.elapsed_time(stop) / iters, 1e3 * host / iters
+
+
+def direct_launch(lay, vals_e, pi_e, b, plain, mode: int,
+                  timing_iters: int) -> None:
+    """Phase 2b: the Φ kernels by direct launch of their C entry points
+    (``kernels/phi/kernel.py``, only a zeroed output allocated around
+    them) beside their wrappers (``ops``): each held against the plain
+    versions, then device and host ms per call.  Not counted (the counted
+    run is phase 3's solve)."""
+    import torch
+
+    from repro_torch.core.layout import pad_rows
+    from repro_torch.kernels.phi import kernel, ops
+
+    lt = lay.on(b.device)
+    b_pad = pad_rows(b, lay.n_rows_pad)
+    args = (lt.grid_rb, vals_e, lt.local_rows, pi_e, b_pad)
+    kw = dict(block_nnz=lay.block_nnz, block_rows=lay.block_rows, eps=1e-10)
+
+    def phi_direct():
+        phi = torch.zeros(b_pad.shape, dtype=torch.float32, device=b.device)
+        kernel.launch_phi(*args, phi, **kw)
+        return phi
+
+    def mu_direct():
+        phi = torch.zeros(b_pad.shape, dtype=torch.float32, device=b.device)
+        mu = torch.empty_like(b_pad)
+        viol = torch.zeros((), dtype=torch.float32, device=b.device)
+        kernel.launch_phi_mu(*args, phi, mu, viol, **kw)
+        return mu, viol
+
+    phi_p, mu_p, viol_p = plain
+    phi = phi_direct()
+    mu, viol = mu_direct()
+    torch.cuda.synchronize()
+    errs = [errors(phi, phi_p), errors(mu, mu_p), errors(viol, viol_p)]
+    check(all(e[2] for e in errs),
+          f"phi kernel by direct launch disagrees with its plain version on "
+          f"mode {mode}")
+    parts = []
+    for name, fn in (("phi direct", phi_direct),
+                     ("phi wrapper", lambda: ops.phi_blocked(
+                         lay, vals_e, pi_e, b)),
+                     ("phi_mu direct", mu_direct),
+                     ("phi_mu wrapper", lambda: ops.phi_mu_blocked(
+                         lay, vals_e, pi_e, b))):
+        dev_ms, host_ms = device_and_host_ms(fn, iters=timing_iters)
+        parts.append(f"{name} {dev_ms:.4f} ms (host {host_ms:.4f} ms)")
+    print(f"mode {mode} Φ kernels, device ms per call (host ms to enqueue): "
+          + ", ".join(parts))
+
+
 def kernel_phase(t, init, mvs, layouts, timing_iters: int) -> dict:
     import torch
 
@@ -248,6 +327,8 @@ def kernel_phase(t, init, mvs, layouts, timing_iters: int) -> dict:
             "phi_blocked": [errors(phi_k, phi_p)],
             "phi_mu_blocked": [errors(mu_k, mu_p), errors(viol_k, viol_p)],
         }
+        direct_launch(lay, vals_e, pi_e, b, (phi_p, mu_p, viol_p), n,
+                      timing_iters)
         sizes = {"phi_blocked": (phi_bytes, phi_ops_n),
                  "phi_mu_blocked": (mu_bytes, mu_ops_n)}
         what = (f"mode {n} (rows {mv.n_rows}, nnz {nnz}, grid steps "
@@ -549,15 +630,16 @@ def stream_phase(dev, seed: int, timing_iters: int) -> tuple:
         nbytes, _ = ref.stream_bytes_flops(op, STREAM_N, 2)
         print(f"stream_{op} bf16: kernel {k_ms:.4f} ms = "
               f"{bandwidth_gbs(nbytes, k_ms / 1e3):.1f} GB/s")
-    for op in ("copy", "triad"):  # the CTA size: block_rows * 128 elements
+    for op in ops.STREAM_OPS:  # block_rows is only the wrapper's check now
         nbytes, _ = ref.stream_bytes_flops(op, STREAM_N, 4)
         sweep = {br: cuda_ms(ops.stream_op, op, b32, c32, block_rows=br,
                              s=STREAM_S, warmup=TIMING_WARMUP,
                              iters=timing_iters)
                  for br in STREAM_BLOCK_ROWS}
+        spread = max(sweep.values()) / min(sweep.values()) - 1
         print(f"stream_{op} f32 by block_rows: " + ", ".join(
             f"{br}: {t:.4f} ms = {bandwidth_gbs(nbytes, t / 1e3):.1f} GB/s"
-            for br, t in sweep.items()))
+            for br, t in sweep.items()) + f"; spread {100 * spread:.2f}%")
     triad_bps = ref.stream_bytes_flops("triad", STREAM_N, 4)[0] / (
         ms["triad"] / 1e3)
     return rows, launches, triad_bps
@@ -678,6 +760,9 @@ def grid_search_phase(init, mvs, dev, timing_iters: int) -> int:
               f"{slow.label()} {t_slow * 1e3:.4f} ms); best speedup over "
               f"default {secs[default] / t_best:.3f}x, heuristic regret "
               f"{secs[heur] / t_best:.3f}x; failed {failed or 'none'}")
+        if secs[heur] / t_best > HEURISTIC_REGRET_OPEN:
+            print(f"  open: heuristic regret {secs[heur] / t_best:.3f}x above "
+                  f"{HEURISTIC_REGRET_OPEN} on mode {n}")
         print("  all points (ms): " + ", ".join(
             f"{p.label().rsplit(':', 1)[0]} {s * 1e3:.4f}" for p, s in ok))
     geo = math.exp(sum(math.log(x) for x in speedups) / len(speedups))

@@ -82,9 +82,12 @@ def vmem_footprint_bytes(p: PhiPolicy, rank: int, itemsize: int = 4) -> int:
     )
 
 
-# Sizing of the heuristic's cuda branch.  The Φ kernel runs one block of
-# 256 threads per grid step, so an H100 SM (132 of them) holds 8 at once;
-# a quarter of a block's 227 KB of shared memory keeps 4 of them resident.
+# Sizing of the heuristic's cuda branch: block_nnz is held to 4 waves of
+# one-step blocks, 8 per SM on an H100's 132 SMs, and the Φ kernel's shared
+# memory to a quarter of a block's.  Neither premise holds for the
+# persistent per-warp kernel: its CTAs walk contiguous slot ranges, and its
+# footprint (at most 56 KB, independent of block_rows) never reaches the
+# budget.  Retuning waits for a measured grid (ROADMAP A7).
 _H100_SMS = 132
 _BLOCKS_PER_SM = 8
 _WAVES = 4
@@ -248,12 +251,13 @@ def heuristic_policy(
 
     ``platform="cpu"`` keeps the sorted segmented reduce with cache-model
     block sizes.  ``platform="cuda"`` picks the Φ kernel (``cuda``):
-    block_nnz covers ~4 average rows but no more than keeps 4 waves of
-    blocks on the card's 132 SMs (one block per grid step, 8 resident per
-    SM), block_rows covers the p95 run as above, and the kernel's shared
-    memory (``kernels.phi.kernel.smem_bytes``: no lane padding, no one-hot
-    term) is
-    held to a quarter of a block's limit; ``vmem_budget`` is not read.
+    block_nnz covers ~4 average rows but no more than would keep 4 waves
+    of one-step blocks on the card's 132 SMs (the first kernel design's
+    launch, 8 resident per SM; the persistent kernel no longer launches
+    so), block_rows covers the p95 run as above, and the kernel's shared
+    memory (``kernels.phi.kernel.smem_bytes``) is held to a quarter of a
+    block's limit, which its per-warp ring never reaches;
+    ``vmem_budget`` is not read.
     Every other platform takes the TPU's blocked sizing.
     """
     if stats is not None and getattr(stats, "fill_bin", -1) >= 0:

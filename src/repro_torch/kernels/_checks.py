@@ -12,7 +12,7 @@ import torch
 
 from .dtypes import check_kernel_dtype
 
-__all__ = ["MAX_RANK", "SMEM_LIMIT", "check_layout_operands"]
+__all__ = ["MAX_RANK", "SMEM_LIMIT", "check_card_limits", "check_layout_operands"]
 
 MAX_RANK = 1024  # the kernels put one thread per rank column
 SMEM_LIMIT = 232_448  # bytes of shared memory a block may use on Hopper
@@ -55,15 +55,24 @@ def check_layout_operands(name: str, grid_rb, vals_e, local_rows, rows_e,
         raise ValueError(f"{name}: operands must be contiguous")
     dev = rows_e.device
     if dev.type == "cuda":
-        if not 1 <= r <= MAX_RANK:
-            raise ValueError(f"{name}: rank {r} outside 1..{MAX_RANK}")
-        smem = smem_bytes(r)
-        if smem > SMEM_LIMIT:
-            raise ValueError(
-                f"{name}: block_nnz={block_nnz}, block_rows={block_rows} at "
-                f"rank {r} need {smem} bytes of shared memory per block "
-                f"(limit {SMEM_LIMIT})"
-            )
+        check_card_limits(name, r, block_nnz=block_nnz,
+                          block_rows=block_rows, smem_bytes=smem_bytes)
     elif dev.type != "cpu":
         raise ValueError(f"{name}: no kernel for device {dev}")
     return dt
+
+
+def check_card_limits(name: str, rank: int, *, block_nnz: int,
+                      block_rows: int,
+                      smem_bytes: Callable[[int], int]) -> None:
+    """Raise where a launch on the card could not run: a rank outside
+    1..MAX_RANK, or ``smem_bytes(rank)`` above Hopper's shared memory."""
+    if not 1 <= rank <= MAX_RANK:
+        raise ValueError(f"{name}: rank {rank} outside 1..{MAX_RANK}")
+    smem = smem_bytes(rank)
+    if smem > SMEM_LIMIT:
+        raise ValueError(
+            f"{name}: block_nnz={block_nnz}, block_rows={block_rows} at "
+            f"rank {rank} need {smem} bytes of shared memory per block "
+            f"(limit {SMEM_LIMIT})"
+        )

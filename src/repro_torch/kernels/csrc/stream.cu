@@ -23,16 +23,19 @@
 // The roof is device memory (3.35 TB/s published); the design reads each
 // input and writes the output once, in 16-byte accesses.
 //
-// Design.  The TPU walks (block_rows, 128) tiles in order on one core; here
-// each CTA covers block_rows*128 elements (block_rows keeps the meaning the
-// wrapper's length checks give it) and its threads stride over that span in
-// 16-byte vectors (4 f32 or 8 bf16 through a uint4), neighbouring threads on
-// neighbouring addresses, so every load and store is a full 128-bit
-// coalesced access.  At n = 2^28 and block_rows = 256 that is 8192 CTAs of
-// 256 threads, each thread with 32 vectors per array: enough bytes in flight
-// on every SM to cover the memory latency.  Loads and stores are plain:
-// streaming cache hints (__ldcs / __stcs) measured no different on the card
-// at these sizes.
+// Design.  The TPU walks (block_rows, 128) tiles in order on one core; on
+// the card the launch shape is sized for the SMs instead, and block_rows
+// keeps only the meaning of the wrapper's length check.  Each thread moves
+// one 16-byte vector (4 f32 or 8 bf16 through a uint4) per array, a CTA of
+// 256 threads covers 256 consecutive vectors (every access a full 128-bit
+// coalesced one), and the ragged last CTA is masked: at n = 2^28 f32 that
+// is 262144 CTAs, and the tail of the last wave is a negligible share,
+// where the block_rows-sized CTAs of the first design (8192 CTAs at
+// block_rows = 256, ~8 waves, each thread looping over 32 vectors) lost
+// ~4% to it.  More vectors per thread, all loads issued before the first
+// store, measured no faster on an H100 (K = 2, 4, 8 within ~1% of K = 1;
+// PERF.md).  Loads and stores are plain: streaming cache hints (__ldcs /
+// __stcs) measured no different on the card at these sizes.
 #include <string.h>
 
 #include "common.cuh"
@@ -72,40 +75,36 @@ __device__ __forceinline__ uint4 apply_vec(uint4 vb, uint4 vc, float s) {
 template <int OP, typename T>
 __global__ void __launch_bounds__(kThreads)
 stream_kernel(const uint4* __restrict__ b, const uint4* __restrict__ c,
-              uint4* __restrict__ out, int vec_per_cta, float s) {
+              uint4* __restrict__ out, long long n_vec, float s) {
   constexpr bool kTwoInputs = OP == kAdd || OP == kTriad;
-  const long long base = (long long)blockIdx.x * vec_per_cta;
-#pragma unroll 4
-  for (int i = threadIdx.x; i < vec_per_cta; i += blockDim.x) {
-    const uint4 vb = b[base + i];
-    const uint4 vc = kTwoInputs ? c[base + i] : vb;
-    out[base + i] = apply_vec<OP, T>(vb, vc, s);
-  }
+  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (i >= n_vec) return;
+  const uint4 vb = b[i];
+  out[i] = apply_vec<OP, T>(vb, kTwoInputs ? c[i] : vb, s);
 }
 
 template <int OP, typename T>
 cudaError_t launch(const void* b, const void* c, void* out, long long n,
-                   int block_rows, float s, cudaStream_t stream) {
+                   float s, cudaStream_t stream) {
   constexpr int kLanes = 16 / sizeof(T);
-  const int vec_per_cta = block_rows * (128 / kLanes);
-  const long long n_cta = n / (128LL * block_rows);
+  const long long n_vec = n / kLanes;
+  const long long n_cta = (n_vec + kThreads - 1) / kThreads;
   if (n_cta > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  const int threads = vec_per_cta < kThreads ? vec_per_cta : kThreads;
-  stream_kernel<OP, T><<<(unsigned)n_cta, threads, 0, stream>>>(
+  if (n_cta == 0) return cudaGetLastError();
+  stream_kernel<OP, T><<<(unsigned)n_cta, kThreads, 0, stream>>>(
       static_cast<const uint4*>(b), static_cast<const uint4*>(c),
-      static_cast<uint4*>(out), vec_per_cta, s);
+      static_cast<uint4*>(out), n_vec, s);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_op(int op, const void* b, const void* c, void* out,
-                      long long n, int block_rows, float s,
-                      cudaStream_t stream) {
+                      long long n, float s, cudaStream_t stream) {
   switch (op) {
-    case kCopy: return launch<kCopy, T>(b, c, out, n, block_rows, s, stream);
-    case kScale: return launch<kScale, T>(b, c, out, n, block_rows, s, stream);
-    case kAdd: return launch<kAdd, T>(b, c, out, n, block_rows, s, stream);
-    case kTriad: return launch<kTriad, T>(b, c, out, n, block_rows, s, stream);
+    case kCopy: return launch<kCopy, T>(b, c, out, n, s, stream);
+    case kScale: return launch<kScale, T>(b, c, out, n, s, stream);
+    case kAdd: return launch<kAdd, T>(b, c, out, n, s, stream);
+    case kTriad: return launch<kTriad, T>(b, c, out, n, s, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -116,16 +115,16 @@ extern "C" {
 
 // op: 0 copy, 1 scale, 2 add, 3 triad.  dtype: 0 = float32, 1 = bfloat16.
 // b, c, out: n elements each, 16-byte aligned; n a multiple of
-// 128*block_rows; c is read only by add and triad.
+// 128*block_rows; c is read only by add and triad.  The launch shape does
+// not depend on block_rows.
 int stream_launch(int op, int dtype, const void* b, const void* c, void* out,
                   long long n, int block_rows, float s, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (block_rows < 1 || n % (128LL * block_rows) != 0)
     return (int)cudaErrorInvalidValue;
-  if (dtype == 0)
-    return (int)launch_op<float>(op, b, c, out, n, block_rows, s, st);
+  if (dtype == 0) return (int)launch_op<float>(op, b, c, out, n, s, st);
   if (dtype == 1)
-    return (int)launch_op<__nv_bfloat16>(op, b, c, out, n, block_rows, s, st);
+    return (int)launch_op<__nv_bfloat16>(op, b, c, out, n, s, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -37,7 +37,8 @@ def _check_inputs(name, grid_rb, vals_e, local_rows, pi_e, b_win,
     return check_layout_operands(
         name, grid_rb, vals_e, local_rows, pi_e, n_rows_pad, b_win,
         block_nnz=block_nnz, block_rows=block_rows,
-        smem_bytes=lambda r: kernel.smem_bytes(block_nnz, block_rows, r))
+        smem_bytes=lambda r: kernel.smem_bytes(block_nnz, block_rows, r,
+                                               pi_e.dtype))
 
 
 def phi_blocked_arrays(grid_rb, vals_e, local_rows, pi_e, b_win, *,

@@ -31,7 +31,7 @@ from repro_torch.core import cpals as P_cpals
 from repro_torch.core import cpapr as P_cpapr
 from repro_torch.core.convert import sparse_tensor_from_numpy
 from repro_torch.core.dense import build_dense_mode
-from repro_torch.core.layout import build_blocked_layout
+from repro_torch.core.layout import build_blocked_layout, pad_rows
 from repro_torch.core.phi import _dense_operands, expand_to_layout
 from repro_torch.core.pi import pi_rows
 from repro_torch.core.policy import PhiPolicy
@@ -43,7 +43,9 @@ from repro_torch.core.sparse_tensor import (
 from repro_torch.kernels import _build
 from repro_torch.kernels.dense import ops as dense_ops
 from repro_torch.kernels.mttkrp import ops as mttkrp_ops
+from repro_torch.kernels.phi import kernel as phi_kernel
 from repro_torch.kernels.phi import ops
+from repro_torch.kernels.phi import ref as phi_ref
 from repro_torch.kernels.stream import ops as stream_ops
 from repro_torch.kernels.stream.ref import stream_ref
 from repro_torch.perf import roofline
@@ -161,6 +163,116 @@ def test_kernels_propagate_nan(card):
     _, viol = ops.phi_mu_blocked(lay, vals_e.to(card), pi_e.to(card),
                                  b.to(card))
     assert torch.isnan(viol)
+
+
+# --- the Φ accumulation kernel's ring, lane groups and row window ----------
+
+
+def _random_layout(rows, n_rows, rank, bn, br, dtype, seed=0):
+    """Layout-expanded random operands of the given rank for sorted rows:
+    Π and B uniform in [0.1, 1.1), x Poisson(1.5) (some zeros, which the
+    kernel must skip), padding slots zero."""
+    rng = np.random.RandomState(seed)
+    lay = build_blocked_layout(rows, n_rows, bn, br)
+    n = len(rows)
+    vals = np.zeros(lay.n_grid * bn, np.float32)
+    vals[lay.valid] = rng.poisson(1.5, n)
+    pi = np.zeros((lay.n_grid * bn, rank), np.float32)
+    pi[lay.valid] = rng.rand(n, rank) + 0.1
+    b = np.zeros((lay.n_rows_pad, rank), np.float32)
+    b[:n_rows] = rng.rand(n_rows, rank) + 0.1
+    lt = lay.on("cpu")
+    return lay, (lt.grid_rb, torch.from_numpy(vals).to(dtype), lt.local_rows,
+                 torch.from_numpy(pi).to(dtype), torch.from_numpy(b).to(dtype))
+
+
+def _check_accum(card, lay, args, tol, what):
+    """Both C entry points against the plain versions."""
+    kw = dict(block_nnz=lay.block_nnz, block_rows=lay.block_rows, eps=1e-10)
+    d = [a.to(card) for a in args]
+    want = phi_ref.phi_blocked_ref(*args, **kw)
+    mu_w, viol_w = phi_ref.phi_mu_blocked_ref(*args, **kw)
+    phi = torch.zeros(d[4].shape, dtype=torch.float32, device=card)
+    phi_kernel.launch_phi(*d, phi, **kw)
+    phi2 = torch.zeros_like(phi)
+    mu = torch.empty_like(d[4])
+    viol = torch.zeros((), dtype=torch.float32, device=card)
+    phi_kernel.launch_phi_mu(*d, phi2, mu, viol, **kw)
+    torch.cuda.synchronize()
+    _close(phi, want, tol, f"phi {what}")
+    _close(phi2, want, tol, f"phi (fused) {what}")
+    _close(mu, mu_w, tol, f"mu {what}")
+    _close(viol, viol_w, tol, f"viol {what}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+@pytest.mark.parametrize("rank", (1, 3, 5, 16, 33, 64))
+def test_phi_kernel_across_ranks(card, rank, dtype):
+    """Aligned 16-byte lane slices (rank a multiple of 4 in f32, 8 in bf16)
+    and the one-element path, a lane group narrower than a warp and ranks
+    above 32 (several slices per lane), hub and spread rows."""
+    tol = TOL if dtype == torch.float32 else TOL_BF16
+    rng = np.random.RandomState(rank)
+    for kind in ("spread", "hub"):
+        rows = np.sort(rng.randint(0, 300, 4000))
+        if kind == "hub":
+            rows[rng.rand(rows.size) < 0.6] = 7
+            rows = np.sort(rows)
+        lay, args = _random_layout(rows, 300, rank, 256, 64, dtype, seed=rank)
+        _check_accum(card, lay, args, tol, f"rank {rank} {kind} {dtype}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bn", (1, 50, 100, 129, 300, 1000))
+@pytest.mark.parametrize("rank", (16, 64))
+def test_phi_kernel_block_nnz_off_the_chunk(card, bn, rank):
+    """block_nnz smaller than a ring chunk, and not a multiple of it (the
+    chunk is 128 nonzeros at rank 16 and 32 at rank 64 in f32)."""
+    rows = np.sort(np.random.RandomState(bn).randint(0, 500, 3000))
+    lay, args = _random_layout(rows, 500, rank, bn, 32, torch.float32)
+    _check_accum(card, lay, args, TOL, f"bn {bn} rank {rank}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rank,br", ((16, 64), (4, 1024), (1024, 32)))
+def test_phi_kernel_step_spans_its_row_block(card, rank, br):
+    """Every row of a row block in one step: a run ends at every other
+    slot, so every set of slots takes the segmented scan; at rank 1024 a
+    stage holds a single row."""
+    rows = np.repeat(np.arange(3 * br), 2)
+    lay, args = _random_layout(rows, 3 * br, rank, 2 * br, br, torch.float32)
+    assert int(lay.local_rows.max()) == br - 1
+    _check_accum(card, lay, args, TOL, f"rank {rank} br {br}")
+
+
+@pytest.mark.cuda
+def test_phi_kernel_hub_and_nan(card):
+    """The hub fixture, and a NaN in B reaching its row of Φ (and nothing
+    else)."""
+    lay, vals_e, pi_e, b = _inputs("hub", 0, torch.float32)
+    b = b.clone()
+    _check_accum(card, lay, (lay.on("cpu").grid_rb, vals_e,
+                             lay.on("cpu").local_rows, pi_e,
+                             pad_rows(b, lay.n_rows_pad)), TOL, "hub")
+    b[3, 1] = float("nan")
+    d = [x.to(card) for x in (vals_e, pi_e, pad_rows(b, lay.n_rows_pad))]
+    lt = lay.on(card)
+    phi = torch.zeros(d[2].shape, dtype=torch.float32, device=card)
+    phi_kernel.launch_phi(lt.grid_rb, d[0], lt.local_rows, d[1], d[2], phi,
+                          block_nnz=lay.block_nnz, block_rows=lay.block_rows,
+                          eps=1e-10)
+    nan_rows = torch.isnan(phi).any(dim=1).nonzero().flatten().tolist()
+    assert nan_rows == [3]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+def test_phi_smem_bytes_equals_the_kernels(card, dtype):
+    for bn, br in ((64, 4), (256, 256), (2048, 1024), (1024, 512), (1, 1)):
+        for rank in (1, 3, 16, 64, 200, 1024):
+            assert phi_kernel.library_smem_bytes(bn, br, rank, dtype) == \
+                phi_kernel.smem_bytes(bn, br, rank, dtype), (bn, br, rank)
 
 
 @pytest.mark.cuda
@@ -390,6 +502,19 @@ def test_stream_kernel_across_block_rows(card, block_rows):
         b, c = _stream_arrays(128 * block_rows * 5, dtype, card)
         for op in stream_ops.STREAM_OPS:
             _check_stream(op, b, c, block_rows=block_rows, s=-1.7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block_rows", (1, 3, 5))
+def test_stream_kernel_at_odd_tile_counts(card, block_rows):
+    """n = 128*k for odd k (a ragged last CTA), bitwise, under
+    several block_rows; the launch shape ignores block_rows."""
+    for k_tiles in (1, 3, 7, 129, 1025):
+        n = 128 * block_rows * k_tiles
+        for dtype in (torch.float32, torch.bfloat16):
+            b, c = _stream_arrays(n, dtype, card)
+            for op in stream_ops.STREAM_OPS:
+                _check_stream(op, b, c, block_rows=block_rows, s=0.7)
 
 
 @pytest.mark.cuda

@@ -28,6 +28,9 @@ from repro_torch.core import pi as P_pi
 from repro_torch.core.convert import ktensor_from_numpy, sparse_tensor_from_numpy
 from repro_torch.core.layout import build_blocked_layout as p_build_layout
 from repro_torch.core.sparse_tensor import sort_mode as p_sort_mode
+from repro_torch.core import policy as P_policy
+from repro_torch.kernels._checks import MAX_RANK, SMEM_LIMIT, check_card_limits
+from repro_torch.kernels.phi import kernel as P_kernel
 from repro_torch.kernels.phi import ops as P_ops
 from repro_torch.kernels.phi import ref as P_ref
 
@@ -333,3 +336,89 @@ def test_tensors_off_device_raise():
     with pytest.raises(ValueError, match="device"):
         P_phi.phi_from_rows(pmv.rows, pmv.sorted_vals, port["pi"], port["b"],
                             pmv.n_rows, device="meta")
+
+
+# --- the Φ accumulation kernel's shared memory -------------------------------
+
+# the blockings the on-card tests run (tests/test_torch_cuda.py)
+ON_CARD_BLOCKINGS = ((64, 4), (256, 256), (2048, 1024))
+SMEM_RANKS = (1, 16, 64, 1024)
+SMEM_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _blockings():
+    grid = [(p.block_nnz, p.block_rows)
+            for p in P_policy.policy_grid(strategies=("cuda",))]
+    return grid + list(ON_CARD_BLOCKINGS)
+
+
+@pytest.mark.parametrize("dtype", SMEM_DTYPES)
+@pytest.mark.parametrize("rank", SMEM_RANKS)
+def test_smem_bytes_fits_at_every_blocking(rank, dtype):
+    """Every policy_grid point and the on-card blockings fit a block's
+    shared memory, at ranks up to MAX_RANK, in both element dtypes."""
+    for bn, br in _blockings():
+        smem = P_kernel.smem_bytes(bn, br, rank, dtype)
+        assert 0 < smem <= SMEM_LIMIT, (bn, br, rank, dtype, smem)
+
+
+@pytest.mark.parametrize("dtype", SMEM_DTYPES)
+@pytest.mark.parametrize("rank", SMEM_RANKS)
+def test_smem_bytes_does_not_grow_with_block_nnz_times_rank(rank, dtype):
+    """The ring holds fixed-size chunks: past one chunk, block_nnz adds
+    nothing, and block_rows never counts."""
+    isz = torch.finfo(dtype).bits // 8
+    chunk = max(1, 2048 // (4 * rank))  # nonzeros per stage, either dtype
+    at_chunk = P_kernel.smem_bytes(chunk, 64, rank, dtype)
+    for bn in (chunk + 1, 2 * chunk + 3, 4096, 1 << 20):
+        for br in (1, 64, 1 << 20):
+            assert P_kernel.smem_bytes(bn, br, rank, dtype) == at_chunk
+    # at most 8 warps of two stages, each at most 2 KB of f32 Π rows (or
+    # one row) with its values, local rows and row blocks, each region
+    # padded by at most 31 bytes
+    stage = max(2048, 4 * rank) + chunk * (isz + 4) + 8 + 4 * 31
+    assert at_chunk <= 8 * 2 * stage
+    assert at_chunk <= 56 * 1024
+
+
+def test_smem_bytes_defaults_to_f32():
+    for bn, br in _blockings():
+        for rank in SMEM_RANKS:
+            f32 = P_kernel.smem_bytes(bn, br, rank, torch.float32)
+            assert P_kernel.smem_bytes(bn, br, rank) == f32
+            assert P_kernel.smem_bytes(bn, br, rank, torch.bfloat16) <= f32
+
+
+@pytest.mark.parametrize("rank", SMEM_RANKS + (3, 200, MAX_RANK + 1, 0))
+def test_card_check_raises_exactly_above_the_limit(rank):
+    """The wrappers' card check (``check_card_limits``) raises where a
+    footprint exceeds SMEM_LIMIT and nowhere else: never for the Φ
+    kernel's footprint, at a window-only footprint exactly on the limit
+    and one row past it; and for ranks outside 1..MAX_RANK."""
+    def check(bn, br, fn):
+        check_card_limits("phi_blocked", rank, block_nnz=bn, block_rows=br,
+                          smem_bytes=fn)
+
+    if not 1 <= rank <= MAX_RANK:
+        with pytest.raises(ValueError, match="outside"):
+            check(256, 256, lambda r: 0)
+        return
+    for bn, br in _blockings() + [(1 << 16, 1 << 16), (1, 1)]:
+        for dtype in SMEM_DTYPES:
+            fn = functools.partial(P_kernel.smem_bytes, bn, br, dtype=dtype)
+            assert fn(rank) <= SMEM_LIMIT
+            check(bn, br, fn)
+    rows_at_limit = SMEM_LIMIT // (4 * rank)
+    check(256, rows_at_limit, lambda r: 4 * rows_at_limit * r)
+    with pytest.raises(ValueError, match="shared memory"):
+        check(256, rows_at_limit + 1, lambda r: 4 * (rows_at_limit + 1) * r)
+
+
+@pytest.mark.parametrize("rank", (1, 16, 200, 1024))
+def test_cuda_heuristic_fits_the_new_footprint(rank):
+    """The ``cuda`` heuristic sizes its blocking with ``smem_bytes`` and
+    keeps it within a quarter of a block's shared memory."""
+    for nnz, n_rows in ((3_309_490, 24), (3_309_490, 1717), (5000, 5000)):
+        p = P_policy.heuristic_policy(nnz, n_rows, rank, platform="cuda")
+        assert P_kernel.smem_bytes(p.block_nnz, p.block_rows, rank) <= \
+            SMEM_LIMIT // 4

@@ -125,3 +125,34 @@ def test_stream_bytes_flops_equal(op, itemsize):
     for n in (0, 128, 1 << 28):
         assert P_ref.stream_bytes_flops(op, n, itemsize) == \
             R_ref.stream_bytes_flops(op, n, itemsize)
+
+
+@pytest.mark.parametrize("block_rows", (1, 3, 5))
+@pytest.mark.parametrize("op", P_ops.STREAM_OPS)
+def test_stream_odd_tile_counts_match_reference(op, block_rows):
+    """n = 128*block_rows*k for odd k: lengths whose vectors do not fill
+    the kernel's last CTA (its launch shape ignores block_rows)."""
+    for k_tiles in (1, 3, 7):
+        n = 128 * block_rows * k_tiles
+        (jb, jc), (tb, tc) = _arrays(n, "float32", seed=k_tiles)
+        want = R_ops.stream_op(op, jb, jc, block_rows=block_rows,
+                               interpret=True, s=0.7)
+        got = P_ops.stream_op(op, tb, tc, block_rows=block_rows, s=0.7)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   **STREAM_F32_TOL)
+
+
+@pytest.mark.parametrize("op", P_ops.STREAM_OPS)
+def test_stream_odd_tile_counts_match_reference_bf16(op):
+    """The odd tile counts in bf16 (8 elements per 16-byte vector), where
+    triad rounds its product to bf16 before the add."""
+    for block_rows, k_tiles in ((1, 3), (3, 5), (5, 7)):
+        n = 128 * block_rows * k_tiles
+        (jb, jc), (tb, tc) = _arrays(n, "bfloat16", seed=k_tiles)
+        want = R_ops.stream_op(op, jb, jc, block_rows=block_rows,
+                               interpret=True, s=0.7)
+        got = P_ops.stream_op(op, tb, tc, block_rows=block_rows, s=0.7)
+        assert got.dtype == torch.bfloat16
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want.astype(jnp.float32)),
+                                   **TOL_BF16)
