@@ -24,8 +24,10 @@ Phases (any failure exits nonzero before the last line):
    kernels, and the least time the card could take (bytes over 3.35 TB/s
    or f32 operations over 67 TFLOP/s, whichever is larger).  The Φ
    kernels are also run by direct launch of their C entry points, checked
-   and timed (not counted) beside their wrappers, device and host time
-   per call, which says where back-to-back calls are host-bound.
+   and timed (not counted) beside their wrappers: device and host ms per
+   call of a back-to-back loop, which says where such calls are
+   host-bound, and device ms per call inside a CUDA graph (the record's
+   ``direct_ms``), which leaves the host out.
 3. Solve: the launch counts are zeroed, ``cpapr_mu`` runs with
    ``strategy="cuda"`` from the seeded starting model, and the counts are
    read: ``phi_blocked`` must have run once per mode update and
@@ -36,6 +38,7 @@ Phases (any failure exits nonzero before the last line):
    kernel (``mttkrp_blocked``) runs on the starting model's Khatri-Rao
    rows and is held against its plain version.  Its library yardstick is
    the ``segment`` ``krao_reduce_rows`` (a multiply and ``index_add_``).
+   Then, as in phase 2, by direct launch beside the wrapper.
 5. CP-ALS, counted: the counts are zeroed, ``cp_als`` runs with
    ``strategy="cuda"`` for 10 iterations from the seeded starting model,
    and ``mttkrp_blocked`` must have run once per mode update; its fits
@@ -44,7 +47,9 @@ Phases (any failure exits nonzero before the last line):
 6. The dense tier at its cap: a near-dense (128, 256, 128) tensor
    (exactly ``DENSE_MAX_ELEMS`` cells, fill 0.40, values Poisson(2) + 1)
    is made from the seed.  On every mode the dense Φ, fused Φ -> MU and
-   MTTKRP kernels are held against their plain versions; then
+   MTTKRP kernels are held against their plain versions, then, as in
+   phase 2, run by direct launch beside the wrappers (each also checked
+   bitwise equal from call to call); then
    ``cpapr_mu(strategy="dense")`` (counted: ``dense_phi`` once per mode
    update, ``dense_phi_mu`` once per inner iteration) is held against
    the ``segment`` solve, and ``cp_als(strategy="dense")`` (counted:
@@ -72,6 +77,11 @@ Phases (any failure exits nonzero before the last line):
    worst points and the failed ones; best speedup over the default and
    its geomean, and the heuristic's regret (flagged as open above 1.10);
    the Φ kernel's launches must equal the timed calls.
+
+10. One launch per fused dense step: the device kernels of one
+    ``phi_mu_dense`` call on the near-dense tensor's mode 0, counted with
+    torch.profiler (last, so that no timed phase runs under its set-up):
+    one accumulation kernel and at most one fill of a few bytes.
 
 Phases 7-9 print their own times.  The line before the last is the per-kernel JSON record; the last is
 ``{"ok": true, "device": {...}}``.
@@ -163,7 +173,8 @@ def errors(got, want) -> tuple:
 def new_rows(names) -> dict:
     return {k: {"max_abs_err": 0.0, "max_rel_err": 0.0, "ms": 0.0,
                 "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
-                "bytes": 0, "ops": 0, "calls_ms": []} for k in names}
+                "direct_ms": 0.0, "bytes": 0, "ops": 0, "calls_ms": []}
+            for k in names}
 
 
 def tally(rows: dict, name: str, what: str, checks: list, times: tuple,
@@ -218,13 +229,90 @@ def device_and_host_ms(fn, *args, iters: int) -> tuple:
     return start.elapsed_time(stop) / iters, 1e3 * host / iters
 
 
+def graph_ms(fn, iters: int) -> float:
+    """Device ms per call of ``fn`` with no host time in the way: ``iters``
+    calls captured into one CUDA graph (after an untimed call that loads
+    the library and caches the launch set-up), replayed between CUDA
+    events.  Allocations inside come from the graph's own pool."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def device_kernels(fn) -> list:
+    """(name, count) of the device kernels one call of ``fn`` runs, from
+    torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = []
+    for ev in prof.key_averages():
+        dev_us = (getattr(ev, "device_time_total", 0)
+                  or getattr(ev, "cuda_time_total", 0))
+        if dev_us > 0:
+            out.append((ev.key, ev.count))
+    return out
+
+
+def one_launch_phase(x, c, a, b) -> None:
+    """Phase 10: the device kernels of one fused dense step, counted with
+    torch.profiler (last, so that the profiler's set-up touches no timed
+    phase): one accumulation kernel and at most one fill of a few bytes."""
+    from repro_torch.kernels.dense import ops
+
+    kernels = device_kernels(lambda: ops.phi_mu_dense(x, c, a, b))
+    print("phi_mu_dense device kernels per call: "
+          + ", ".join(f"{name[:90]} x{n}" for name, n in kernels))
+    check(sum(n for name, n in kernels if "dense_accum_kernel" in name) == 1
+          and sum(n for _, n in kernels) <= 2,
+          f"the fused dense step is not one kernel launch: {kernels}")
+
+
+def direct_and_wrapper(title: str, calls, timing_iters: int) -> dict:
+    """Time each ``(name, fn)`` of ``calls`` with ``device_and_host_ms``
+    (device and host ms per call of a back-to-back loop) and, for the
+    direct launches, with ``graph_ms`` (device ms with the host out of the
+    way); print one line; returns ``{name: graph device ms per call}``
+    for the names ending in "direct"."""
+    out, parts = {}, []
+    for name, fn in calls:
+        dev_ms, host_ms = device_and_host_ms(fn, iters=timing_iters)
+        part = f"{name} {dev_ms:.4f} ms (host {host_ms:.4f} ms"
+        if name.endswith("direct"):
+            out[name] = graph_ms(fn, timing_iters)
+            part += f", graph {out[name]:.4f} ms"
+        parts.append(part + ")")
+    print(f"{title}, device ms per call of a loop (host ms to enqueue, "
+          f"device ms per call in a CUDA graph): " + ", ".join(parts))
+    return out
+
+
 def direct_launch(lay, vals_e, pi_e, b, plain, mode: int,
-                  timing_iters: int) -> None:
+                  timing_iters: int) -> dict:
     """Phase 2b: the Φ kernels by direct launch of their C entry points
     (``kernels/phi/kernel.py``, only a zeroed output allocated around
     them) beside their wrappers (``ops``): each held against the plain
     versions, then device and host ms per call.  Not counted (the counted
-    run is phase 3's solve)."""
+    run is phase 3's solve).  Returns the direct launches' device ms."""
     import torch
 
     from repro_torch.core.layout import pad_rows
@@ -255,17 +343,14 @@ def direct_launch(lay, vals_e, pi_e, b, plain, mode: int,
     check(all(e[2] for e in errs),
           f"phi kernel by direct launch disagrees with its plain version on "
           f"mode {mode}")
-    parts = []
-    for name, fn in (("phi direct", phi_direct),
-                     ("phi wrapper", lambda: ops.phi_blocked(
-                         lay, vals_e, pi_e, b)),
-                     ("phi_mu direct", mu_direct),
-                     ("phi_mu wrapper", lambda: ops.phi_mu_blocked(
-                         lay, vals_e, pi_e, b))):
-        dev_ms, host_ms = device_and_host_ms(fn, iters=timing_iters)
-        parts.append(f"{name} {dev_ms:.4f} ms (host {host_ms:.4f} ms)")
-    print(f"mode {mode} Φ kernels, device ms per call (host ms to enqueue): "
-          + ", ".join(parts))
+    ms = direct_and_wrapper(f"mode {mode} Φ kernels", (
+        ("phi direct", phi_direct),
+        ("phi wrapper", lambda: ops.phi_blocked(lay, vals_e, pi_e, b)),
+        ("phi_mu direct", mu_direct),
+        ("phi_mu wrapper", lambda: ops.phi_mu_blocked(lay, vals_e, pi_e, b))),
+        timing_iters)
+    return {"phi_blocked": ms["phi direct"],
+            "phi_mu_blocked": ms["phi_mu direct"]}
 
 
 def kernel_phase(t, init, mvs, layouts, timing_iters: int) -> dict:
@@ -327,8 +412,8 @@ def kernel_phase(t, init, mvs, layouts, timing_iters: int) -> dict:
             "phi_blocked": [errors(phi_k, phi_p)],
             "phi_mu_blocked": [errors(mu_k, mu_p), errors(viol_k, viol_p)],
         }
-        direct_launch(lay, vals_e, pi_e, b, (phi_p, mu_p, viol_p), n,
-                      timing_iters)
+        direct = direct_launch(lay, vals_e, pi_e, b, (phi_p, mu_p, viol_p),
+                               n, timing_iters)
         sizes = {"phi_blocked": (phi_bytes, phi_ops_n),
                  "phi_mu_blocked": (mu_bytes, mu_ops_n)}
         what = (f"mode {n} (rows {mv.n_rows}, nnz {nnz}, grid steps "
@@ -336,6 +421,7 @@ def kernel_phase(t, init, mvs, layouts, timing_iters: int) -> dict:
         for name in rows:
             tally(rows, name, what, checks[name], times[name], *sizes[name],
                   "segment index_add_")
+            rows[name]["direct_ms"] += direct[name]
     return rows
 
 
@@ -345,7 +431,7 @@ def mttkrp_phase(t, init, mvs, layouts, timing_iters: int) -> dict:
 
     from repro_torch.core.phi import expand_to_layout, krao_reduce_rows
     from repro_torch.core.pi import pi_rows
-    from repro_torch.kernels.mttkrp import ops, ref
+    from repro_torch.kernels.mttkrp import kernel, ops, ref
     from repro_torch.perf.timing import cuda_ms
 
     dev = t.device
@@ -378,6 +464,27 @@ def mttkrp_phase(t, init, mvs, layouts, timing_iters: int) -> dict:
               f"mode {n} (rows {mv.n_rows}, nnz {mv.nnz})",
               [errors(got, want)], times, nbytes, 2 * r * mv.nnz,
               "segment krao_reduce_rows")
+
+        # phase 4b: by direct launch of the C entry point, beside the
+        # wrapper (not counted)
+        def direct():
+            out = torch.zeros((lay.n_rows_pad, r), dtype=torch.float32,
+                              device=dev)
+            kernel.launch_mttkrp(*plain_args, out, block_nnz=lay.block_nnz,
+                                 block_rows=lay.block_rows)
+            return out
+
+        got = direct()
+        torch.cuda.synchronize()
+        check(errors(got, want)[2], f"mttkrp kernel by direct launch "
+                                    f"disagrees with its plain version on "
+                                    f"mode {n}")
+        ms = direct_and_wrapper(f"mode {n} MTTKRP kernel", (
+            ("mttkrp direct", direct),
+            ("mttkrp wrapper", lambda: ops.mttkrp_blocked(lay, vals_e,
+                                                          kr_e))),
+            timing_iters)
+        rows["mttkrp_blocked"]["direct_ms"] += ms["mttkrp direct"]
     return rows
 
 
@@ -446,12 +553,14 @@ def dense_kernel_phase(t, init, timing_iters: int) -> dict:
 
     r = init.rank
     rows = new_rows(("dense_phi_mu", "dense_phi", "dense_mttkrp"))
+    first = None
     for n in range(t.ndim):
         mv = sort_mode(t, n)
         dn = build_dense_mode(mv.sorted_idx, mv.sorted_vals, t.shape, n,
                               device=t.device)
         b = init.factors[n] * init.lam[None, :]
         x, c, a = _dense_operands(dn, init.factors, b)
+        first = first or (x, c, a, b)
         k, i, j = x.shape
         phi_k = ops.phi_dense(x, c, a, b)
         mu_k, viol_k = ops.phi_mu_dense(x, c, a, b)
@@ -500,7 +609,78 @@ def dense_kernel_phase(t, init, timing_iters: int) -> dict:
         for name in rows:
             tally(rows, name, what, checks[name], times[name], *sizes[name],
                   "einsum" if name == "dense_mttkrp" else "single call")
-    return rows
+        direct = dense_direct(x, c, a, b, (phi_p, mu_p, viol_p, m_p), n,
+                              timing_iters)
+        for name in rows:
+            rows[name]["direct_ms"] += direct[name]
+    return rows, first
+
+
+def dense_direct(x, c, a, b, plain, mode: int, timing_iters: int) -> dict:
+    """Phase 6a': the dense kernel by direct launch of its C entry points
+    (only the outputs allocated around them, the work buffers the
+    launcher's own) beside
+    the wrappers: each held against its plain version and checked bitwise
+    equal from call to call (the partials are summed in a fixed order),
+    then device and host ms per call.  Not counted.  Returns the direct
+    launches' device ms."""
+    import torch
+
+    from repro_torch.kernels.dense import kernel, ops
+
+    k, i, j = x.shape
+    r = c.shape[1]
+    shapes = {name: kernel.launch_shape(k, i, j, r, x.dtype, name)
+              for name in kernel.OPS}
+    print(f"dense mode {mode} launch shapes: " + ", ".join(
+        f"{name} ti {sh.ti} jc {sh.jc} n_ks {sh.n_ks} ({sh.n_itiles * sh.n_ks}"
+        f" CTAs, {sh.smem} B shared)" for name, sh in shapes.items()))
+
+    def window():
+        return torch.empty((i, r), dtype=torch.float32, device=x.device)
+
+    def phi_direct():
+        sh = shapes["dense_phi"]
+        phi, (part, tickets) = window(), kernel.workspace(sh, x.device)
+        kernel.launch_phi(x, c, a, b, phi, part, tickets, sh, eps=1e-10)
+        return phi
+
+    def mu_direct():
+        sh = shapes["dense_phi_mu"]
+        mu = torch.empty_like(b)
+        viol = torch.zeros((), dtype=torch.float32, device=x.device)
+        part, tickets = kernel.workspace(sh, x.device)
+        kernel.launch_phi_mu(x, c, a, b, mu, viol, part, tickets, sh,
+                             eps=1e-10)
+        return mu, viol
+
+    def mttkrp_direct():
+        sh = shapes["dense_mttkrp"]
+        out, (part, tickets) = window(), kernel.workspace(sh, x.device)
+        kernel.launch_mttkrp(x, c, a, out, part, tickets, sh)
+        return out
+
+    phi_p, mu_p, viol_p, m_p = plain
+    phi, (mu, viol), m = phi_direct(), mu_direct(), mttkrp_direct()
+    again = (phi_direct(), *mu_direct(), mttkrp_direct())
+    torch.cuda.synchronize()
+    errs = [errors(phi, phi_p), errors(mu, mu_p), errors(viol, viol_p),
+            errors(m, m_p)]
+    check(all(e[2] for e in errs),
+          f"dense kernels by direct launch disagree with their plain "
+          f"versions on mode {mode}")
+    check(all(torch.equal(u, v) for u, v in zip((phi, mu, viol, m), again)),
+          f"dense kernels not bitwise reproducible on mode {mode}")
+    ms = direct_and_wrapper(f"dense mode {mode} kernels", (
+        ("dense_phi_mu direct", mu_direct),
+        ("dense_phi_mu wrapper", lambda: ops.phi_mu_dense(x, c, a, b)),
+        ("dense_phi direct", phi_direct),
+        ("dense_phi wrapper", lambda: ops.phi_dense(x, c, a, b)),
+        ("dense_mttkrp direct", mttkrp_direct),
+        ("dense_mttkrp wrapper", lambda: ops.mttkrp_dense(x, c, a))),
+        timing_iters)
+    return {k: ms[f"{k} direct"]
+            for k in ("dense_phi_mu", "dense_phi", "dense_mttkrp")}
 
 
 def dense_solve_phase(t, init, dev) -> dict:
@@ -905,7 +1085,8 @@ def main(argv=None) -> int:
           f"{time.perf_counter() - t0:.1f} s")
     dinit = random_ktensor(dt.shape, RANK, seed=args.seed,
                            device=dev).normalize()
-    rows.update(dense_kernel_phase(dt, dinit, TIMING_ITERS))
+    dense_rows, dense_first = dense_kernel_phase(dt, dinit, TIMING_ITERS)
+    rows.update(dense_rows)
     launches.update(dense_solve_phase(dt, dinit, dev))
 
     # --- phase 7: STREAM -------------------------------------------------
@@ -927,6 +1108,9 @@ def main(argv=None) -> int:
     grid_search_phase(init, mvs, dev, TIMING_ITERS)
     print(f"phase 9 (grid search): {time.perf_counter() - t0:.1f} s")
 
+    # --- phase 10: one launch per fused dense step ------------------------
+    one_launch_phase(*dense_first)
+
     where = {k: (f"near-dense {dt.shape}" if k.startswith("dense")
                  else args.tensor) for k in rows}
     timed = {k: f"sum over the modes of one call each, {where[k]}, rank {RANK}"
@@ -942,6 +1126,7 @@ def main(argv=None) -> int:
          if v["bytes"] / HBM_BYTES_PER_S >= v["ops"] / F32_OPS_PER_S
          else "operations",
          "library_ms": v["library_ms"],
+         "direct_ms": v.get("direct_ms"),
          "timed": timed[k]}
         for k, v in rows.items()
     ]}

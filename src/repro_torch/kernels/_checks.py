@@ -14,7 +14,7 @@ from .dtypes import check_kernel_dtype
 
 __all__ = ["MAX_RANK", "SMEM_LIMIT", "check_card_limits", "check_layout_operands"]
 
-MAX_RANK = 1024  # the kernels put one thread per rank column
+MAX_RANK = 1024  # the largest rank the CUDA kernels take
 SMEM_LIMIT = 232_448  # bytes of shared memory a block may use on Hopper
 
 

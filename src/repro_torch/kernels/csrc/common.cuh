@@ -1,12 +1,19 @@
-// Pieces shared by the port's CUDA sources: element-dtype conversions and
-// the fused MU epilogue (mu = B*Φ, viol = max |min(B, 1-Φ)|), which both the
-// sparse (phi.cu) and the dense (dense.cu) fused steps run as their second
-// pass.  Included by each .cu; the build hashes this header with them.
+// Pieces shared by the port's CUDA sources: element-dtype conversions, the
+// fused MU epilogue (mu = B*Φ, viol = max |min(B, 1-Φ)|) that the sparse
+// fused step (phi.cu) runs as its second pass and the dense one (dense.cu)
+// inlines into its accumulation, 16-byte cp.async, and the once-per-shape
+// launch set-up (dynamic shared-memory limit, resident CTAs).  Included by
+// each .cu; the build hashes this header with them.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <map>
+#include <mutex>
+#include <tuple>
+#include <utility>
 
 namespace repro_torch {
 
@@ -34,34 +41,84 @@ __device__ __forceinline__ float max_eps(float s, float eps) {
 
 constexpr int kThreads = 256;
 
-// threads per block: R-wide groups filling ~256 threads (R <= 1024)
-inline int block_threads(int R) { return R <= kThreads ? R * (kThreads / R) : R; }
+// 16 bytes from global to shared memory without a register round trip;
+// with src_bytes < 16 only that many are read and the rest is zero-filled.
+__device__ __forceinline__ void cp_async16(void* sdst, const void* gsrc,
+                                           int src_bytes = 16) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(sdst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(a),
+               "l"(gsrc), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
-// Elementwise over the (rows, R) window: mu = B*Φ in B's dtype, and
-// max |min(B, 1-Φ)| folded into one f32 with an unsigned atomicMax on its
-// bits (all values are >= 0 or +NaN after fabsf, so the bit order is the
-// value order and a NaN wins, as jnp.max lets it).
-template <typename T>
-__global__ void mu_epilogue_kernel(const T* __restrict__ b,
-                                   const float* __restrict__ phi,
-                                   T* __restrict__ mu,
-                                   unsigned int* __restrict__ viol_bits,
-                                   long long n) {
-  unsigned int hi = 0u;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    const float bv = to_f(b[i]);
-    const float p = phi[i];
-    const float q = 1.f - p;
-    const float m = (isnan(bv) || isnan(q)) ? __int_as_float(0x7fc00000)
-                                             : fminf(bv, q);
-    hi = max(hi, __float_as_uint(fabsf(m)));
-    mu[i] = from_f<T>(bv * p);
+// CTAs of one kernel instance resident at once at (threads, smem) on the
+// current device, queried on the first launch of each (instance, device,
+// threads, smem) and kept, so a launch makes no runtime query but
+// cudaGetDevice.  That first query also raises the instance's dynamic
+// shared-memory limit on the device to smem where it was lower (only ever
+// raised, so every shape seen before still launches).
+inline cudaError_t resident_ctas(const void* kern, int threads, long long smem,
+                                 int* out) {
+  static std::mutex mu;
+  static std::map<std::tuple<const void*, int, int, long long>, int> known;
+  static std::map<std::pair<const void*, int>, long long> smem_limit;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(mu);
+  const auto key = std::make_tuple(kern, dev, threads, smem);
+  const auto it = known.find(key);
+  if (it != known.end()) {
+    *out = it->second;
+    return cudaSuccess;
   }
+  long long& limit = smem_limit[std::make_pair(kern, dev)];
+  if (smem > limit) {
+    if ((err = cudaFuncSetAttribute(
+             kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)) !=
+        cudaSuccess)
+      return err;
+    limit = smem;
+  }
+  int sms = 0, per_sm = 0;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kern, threads, (size_t)smem)) != cudaSuccess)
+    return err;
+  *out = known[key] = (per_sm > 0 ? per_sm : 1) * sms;
+  return cudaSuccess;
+}
+
+// One entry of the MU epilogue: writes mu = B*Φ in B's dtype and returns
+// the bits of |min(B, 1-Φ)| as an unsigned (all values are >= 0 or +NaN
+// after fabsf, so the bit order is the value order and a NaN wins, as
+// jnp.max lets it).
+template <typename T>
+__device__ __forceinline__ unsigned mu_entry(T b, float phi, T* mu) {
+  const float bv = to_f(b);
+  const float q = 1.f - phi;
+  const float m = (isnan(bv) || isnan(q)) ? __int_as_float(0x7fc00000)
+                                           : fminf(bv, q);
+  *mu = from_f<T>(bv * phi);
+  return __float_as_uint(fabsf(m));
+}
+
+// Max of every thread's hi over the block (at most kThreads threads, all
+// of them calling), folded into *viol_bits with one atomicMax.
+__device__ __forceinline__ void block_max_into(unsigned hi,
+                                               unsigned* viol_bits) {
   for (int off = 16; off > 0; off >>= 1)
     hi = max(hi, __shfl_down_sync(0xffffffffu, hi, off));
-  __shared__ unsigned int warp_hi[kThreads / 32];
+  __shared__ unsigned warp_hi[kThreads / 32];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   if (lane == 0) warp_hi[warp] = hi;
   __syncthreads();
@@ -71,6 +128,22 @@ __global__ void mu_epilogue_kernel(const T* __restrict__ b,
       hi = max(hi, __shfl_down_sync(0xffffffffu, hi, off));
     if (lane == 0 && hi != 0u) atomicMax(viol_bits, hi);
   }
+}
+
+// Elementwise over the (rows, R) window: mu = B*Φ and viol = max
+// |min(B, 1-Φ)| (mu_entry, block_max_into).
+template <typename T>
+__global__ void mu_epilogue_kernel(const T* __restrict__ b,
+                                   const float* __restrict__ phi,
+                                   T* __restrict__ mu,
+                                   unsigned int* __restrict__ viol_bits,
+                                   long long n) {
+  unsigned int hi = 0u;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += stride)
+    hi = max(hi, mu_entry<T>(b[i], phi[i], mu + i));
+  block_max_into(hi, viol_bits);
 }
 
 template <typename T>

@@ -6,7 +6,9 @@ factor-side operands ``c (J, R)`` and ``a (K, R)`` (built by
 are the JAX package's; its TPU tile padding (I to the sublane, J and R to
 128 lanes, K to whole ``block_k`` tiles) has no counterpart here.
 Results come back in the caller's element dtype (f32, or bf16 rounded
-once from the f32 accumulator); f64 and mixed dtypes raise.
+once from the f32 accumulator); f64 and mixed dtypes raise.  On the card
+each call is one kernel launch (the fused step also zeroes its 4-byte
+viol), and its results are bitwise the same from run to run.
 
 A wrapper given tensors on the CPU computes the kernel's plain version
 (``ref.py``); given CUDA tensors it launches the kernel or raises.  Each
@@ -16,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from .._checks import MAX_RANK
+from .._checks import MAX_RANK, SMEM_LIMIT
 from ..dtypes import ACC_DTYPE, check_kernel_dtype
 from . import kernel, ref
 
@@ -33,9 +35,12 @@ def reset_launch_counts() -> None:
 
 
 def default_block_k(dt=torch.float32) -> int:
-    """Slices of K each CUDA block reduces before its atomics.  Small, so
-    that a (128, 256, 128) tensor at the tier's cap splits into 512-1024
-    blocks over the 132 SMs; the same for every element dtype."""
+    """The reference's K-tile argument (slices per grid step of the TPU
+    kernels), kept in the wrappers' signatures and checked (>= 1).  The
+    CUDA kernel does not use it: its split of K over CTAs is sized for the
+    card by :func:`repro_torch.kernels.dense.kernel.launch_shape`, and
+    every result is the same whatever block_k says.  The same for every
+    element dtype."""
     return 2
 
 
@@ -59,30 +64,36 @@ def _prep(name, x, c, a, b, block_k) -> tuple:
         raise ValueError(f"{name}: operands on several devices")
     if not all(t.is_contiguous() for t in ops):
         raise ValueError(f"{name}: operands must be contiguous")
-    if x.device.type == "cuda":
-        if r > MAX_RANK:
-            raise ValueError(f"{name}: rank {r} outside 1..{MAX_RANK}")
-    elif x.device.type != "cpu":
-        raise ValueError(f"{name}: no kernel for device {x.device}")
     block_k = default_block_k(dt) if block_k is None else int(block_k)
     if block_k < 1:
         raise ValueError(f"{name}: block_k must be >= 1, got {block_k}")
-    return dt, block_k
+    if x.device.type == "cpu":
+        return dt, None
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {x.device}")
+    if r > MAX_RANK:
+        raise ValueError(f"{name}: rank {r} outside 1..{MAX_RANK}")
+    shape = kernel.launch_shape(k, i, j, r, dt, name)
+    if shape.smem > SMEM_LIMIT:
+        raise ValueError(f"{name}: rank {r} needs {shape.smem} bytes of "
+                         f"shared memory per block (limit {SMEM_LIMIT})")
+    return dt, shape
 
 
 def _window(x, c) -> torch.Tensor:
-    return torch.zeros((x.shape[1], c.shape[1]), dtype=ACC_DTYPE,
+    return torch.empty((x.shape[1], c.shape[1]), dtype=ACC_DTYPE,
                        device=x.device)
 
 
 def mttkrp_dense(x, c, a, *, block_k: int | None = None) -> torch.Tensor:
     """Matrix-free dense MTTKRP: ``M = sum_k (x[k] @ c) * a[k]``, (I, R)
     in the caller's element dtype."""
-    dt, block_k = _prep("dense_mttkrp", x, c, a, None, block_k)
-    if x.device.type == "cpu":
+    dt, shape = _prep("dense_mttkrp", x, c, a, None, block_k)
+    if shape is None:
         return ref.mttkrp_dense_ref(x, c, a).to(dt)
     out = _window(x, c)
-    kernel.launch_mttkrp(x, c, a, out, block_k=block_k)
+    part, tickets = kernel.workspace(shape, x.device)
+    kernel.launch_mttkrp(x, c, a, out, part, tickets, shape)
     launch_counts["dense_mttkrp"] += 1
     return out.to(dt)
 
@@ -92,11 +103,12 @@ def phi_dense(x, c, a, b, *, eps: float = 1e-10,
     """Dense Φ^(n): Poisson weights against the model slices formed
     in-kernel.  Zero entries contribute zero weight, so it equals the
     sparse strategies' Φ.  Returns (I, R) in the caller's dtype."""
-    dt, block_k = _prep("dense_phi", x, c, a, b, block_k)
-    if x.device.type == "cpu":
+    dt, shape = _prep("dense_phi", x, c, a, b, block_k)
+    if shape is None:
         return ref.phi_dense_ref(x, c, a, b, float(eps)).to(dt)
     phi = _window(x, c)
-    kernel.launch_phi(x, c, a, b, phi, block_k=block_k, eps=float(eps))
+    part, tickets = kernel.workspace(shape, x.device)
+    kernel.launch_phi(x, c, a, b, phi, part, tickets, shape, eps=float(eps))
     launch_counts["dense_phi"] += 1
     return phi.to(dt)
 
@@ -106,13 +118,13 @@ def phi_mu_dense(x, c, a, b, *, eps: float = 1e-10,
     """Fused dense MU step: ``(mu, viol)`` with ``mu = B * Φ`` (I, R) in
     the caller's dtype and ``viol`` the 0-d f32 KKT violation
     ``max |min(B, 1 - Φ)|``."""
-    _, block_k = _prep("dense_phi_mu", x, c, a, b, block_k)
-    if x.device.type == "cpu":
+    _, shape = _prep("dense_phi_mu", x, c, a, b, block_k)
+    if shape is None:
         return ref.phi_mu_dense_ref(x, c, a, b, float(eps))
-    phi = _window(x, c)
     mu = torch.empty_like(b)
     viol = torch.zeros((), dtype=ACC_DTYPE, device=x.device)
-    kernel.launch_phi_mu(x, c, a, b, phi, mu, viol, block_k=block_k,
+    part, tickets = kernel.workspace(shape, x.device)
+    kernel.launch_phi_mu(x, c, a, b, mu, viol, part, tickets, shape,
                          eps=float(eps))
     launch_counts["dense_phi_mu"] += 1
     return mu, viol

@@ -16,10 +16,11 @@ import torch
 from ...core.layout import BlockedLayout
 from .._checks import check_layout_operands
 from ..dtypes import ACC_DTYPE
+from ..phi import kernel as phi_kernel
 from . import kernel, ref
 
 __all__ = ["launch_counts", "mttkrp_blocked", "mttkrp_blocked_arrays",
-           "reset_launch_counts"]
+           "reset_launch_counts", "smem_bytes"]
 
 #: kernel launches since the last reset
 launch_counts = {"mttkrp_blocked": 0}
@@ -30,6 +31,15 @@ def reset_launch_counts() -> None:
         launch_counts[k] = 0
 
 
+def smem_bytes(block_nnz: int, block_rows: int, rank: int,
+               dtype: torch.dtype = torch.float32) -> int:
+    """Shared memory per CTA of the MTTKRP kernel: it runs the Φ kernels'
+    accumulation (``csrc/accum.cuh``), so this is their footprint
+    (:func:`repro_torch.kernels.phi.kernel.smem_bytes`), which does not
+    grow with block_nnz x rank and ignores block_rows."""
+    return phi_kernel.smem_bytes(block_nnz, block_rows, rank, dtype)
+
+
 def mttkrp_blocked_arrays(grid_rb, vals_e, local_rows, kr_e, *,
                           block_nnz: int, block_rows: int,
                           n_rows_pad: int) -> torch.Tensor:
@@ -38,7 +48,8 @@ def mttkrp_blocked_arrays(grid_rb, vals_e, local_rows, kr_e, *,
     dt = check_layout_operands(
         "mttkrp_blocked", grid_rb, vals_e, local_rows, kr_e, n_rows_pad,
         block_nnz=block_nnz, block_rows=block_rows,
-        smem_bytes=lambda r: 4 * block_rows * r)
+        smem_bytes=lambda r: smem_bytes(block_nnz, block_rows, r,
+                                        kr_e.dtype))
     kw = dict(block_nnz=block_nnz, block_rows=block_rows)
     if kr_e.device.type == "cpu":
         return ref.mttkrp_blocked_ref(grid_rb, vals_e, local_rows, kr_e,

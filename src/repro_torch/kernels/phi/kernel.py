@@ -25,7 +25,8 @@ _SIGNATURES = {
     "phi_accum_smem_bytes": [_I, _I, _I, _I],
 }
 
-# phi.cu's per-warp ring; smem_bytes mirrors its accum_shape
+# the per-warp ring of csrc/accum.cuh (the accumulation kernel that Φ and
+# sparse MTTKRP share); smem_bytes mirrors its accum_shape
 _STAGES = 2
 _CHUNK_BYTES = 2048
 _SMEM_BUDGET = 56 * 1024
@@ -39,12 +40,13 @@ def _region(n: int) -> int:
 
 def smem_bytes(block_nnz: int, block_rows: int, rank: int,
                dtype: torch.dtype = torch.float32) -> int:
-    """Shared memory per CTA of the Φ accumulation kernel (f32 unless
-    ``dtype`` says bf16).  Each warp has a ring of two stages, each a chunk
-    of Π rows (2 KB of f32 rows, the same count of bf16 rows; at least one
-    row, at most a grid step) with its values, local rows and row blocks,
-    each region padded to copy at any 16-byte phase; a CTA has as many
-    warps (at most 8) as fit 56 KB in f32.  The footprint does not grow with
+    """Shared memory per CTA of the accumulation kernel that Φ and sparse
+    MTTKRP share (``csrc/accum.cuh``; f32 unless ``dtype`` says bf16).
+    Each warp has a ring of two stages, each a chunk of Π (or Khatri-Rao)
+    rows (2 KB of f32 rows, the same count of bf16 rows; at least one row,
+    at most a grid step) with its values, local rows and row blocks, each
+    region padded to copy at any 16-byte phase; a CTA has as many warps (at
+    most 8) as fit 56 KB in f32.  The footprint does not grow with
     block_nnz x rank and does not depend on block_rows."""
     chunk = min(block_nnz, max(1, _CHUNK_BYTES // (4 * rank)))
 

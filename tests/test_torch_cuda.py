@@ -20,6 +20,7 @@ The kernels sum with float atomics in an order that changes from run to
 run, so they are held to the f32 tier ``TOL`` (bf16: ``TOL_BF16``), not
 bitwise.
 """
+import dataclasses
 import functools
 import re
 
@@ -41,8 +42,11 @@ from repro_torch.core.sparse_tensor import (
     sort_mode,
 )
 from repro_torch.kernels import _build
+from repro_torch.kernels.dense import kernel as dense_kernel
 from repro_torch.kernels.dense import ops as dense_ops
+from repro_torch.kernels.mttkrp import kernel as mttkrp_kernel
 from repro_torch.kernels.mttkrp import ops as mttkrp_ops
+from repro_torch.kernels.mttkrp import ref as mttkrp_ref
 from repro_torch.kernels.phi import kernel as phi_kernel
 from repro_torch.kernels.phi import ops
 from repro_torch.kernels.phi import ref as phi_ref
@@ -346,6 +350,101 @@ def test_mttkrp_kernel_counts_negative_values(card, bn, br):
         _close(got, want, TOL, f"mttkrp hub mode {mode} {bn}x{br}")
 
 
+# --- the MTTKRP instance of the accumulation kernel (accum.cuh) ------------
+
+
+def _check_mttkrp(card, lay, args, tol, what):
+    """The C entry point and the wrapper against the plain version; args
+    as _random_layout's (the Π rows serve as Khatri-Rao rows, B unused)."""
+    grid_rb, vals, lrow, kr, _ = args
+    kw = dict(block_nnz=lay.block_nnz, block_rows=lay.block_rows)
+    want = mttkrp_ref.mttkrp_blocked_ref(grid_rb, vals, lrow, kr,
+                                         n_rows_pad=lay.n_rows_pad, **kw)
+    d = [t.to(card) for t in (grid_rb, vals, lrow, kr)]
+    out = torch.zeros((lay.n_rows_pad, kr.shape[1]), dtype=torch.float32,
+                      device=card)
+    mttkrp_kernel.launch_mttkrp(*d, out, **kw)
+    got = mttkrp_ops.mttkrp_blocked_arrays(*d, n_rows_pad=lay.n_rows_pad,
+                                           **kw)
+    torch.cuda.synchronize()
+    _close(out, want, tol, f"mttkrp {what}")
+    _close(got, want, tol, f"mttkrp wrapper {what}")
+    return out
+
+
+def _signed(args, seed):
+    """The values with two in three negated, so that sums cancel."""
+    grid_rb, vals, lrow, kr, b = args
+    sign = torch.from_numpy(np.where(
+        np.random.RandomState(seed).rand(vals.numel()) < 1 / 3, 1.0,
+        -1.0).astype(np.float32)).to(vals.dtype)
+    return grid_rb, vals * sign, lrow, kr, b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+@pytest.mark.parametrize("rank", (1, 3, 5, 16, 33, 64))
+def test_mttkrp_kernel_across_ranks(card, rank, dtype):
+    """Aligned 16-byte lane slices and the one-element path, lane groups
+    narrower than a warp and several slices per lane; spread and hub
+    rows; signed values."""
+    tol = TOL if dtype == torch.float32 else TOL_BF16
+    rng = np.random.RandomState(100 + rank)
+    for kind in ("spread", "hub"):
+        rows = np.sort(rng.randint(0, 300, 4000))
+        if kind == "hub":
+            rows[rng.rand(rows.size) < 0.6] = 7
+            rows = np.sort(rows)
+        lay, args = _random_layout(rows, 300, rank, 256, 64, dtype, seed=rank)
+        _check_mttkrp(card, lay, _signed(args, rank), tol,
+                      f"rank {rank} {kind} {dtype}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bn", (1, 50, 100, 129, 300, 1000))
+@pytest.mark.parametrize("rank", (16, 64))
+def test_mttkrp_kernel_block_nnz_off_the_chunk(card, bn, rank):
+    rows = np.sort(np.random.RandomState(bn).randint(0, 500, 3000))
+    lay, args = _random_layout(rows, 500, rank, bn, 32, torch.float32)
+    _check_mttkrp(card, lay, _signed(args, bn), TOL, f"bn {bn} rank {rank}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rank,br", ((16, 64), (4, 1024), (1024, 32)))
+def test_mttkrp_kernel_step_spans_its_row_block(card, rank, br):
+    rows = np.repeat(np.arange(3 * br), 2)
+    lay, args = _random_layout(rows, 3 * br, rank, 2 * br, br, torch.float32)
+    assert int(lay.local_rows.max()) == br - 1
+    _check_mttkrp(card, lay, args, TOL, f"rank {rank} br {br}")
+
+
+@pytest.mark.cuda
+def test_mttkrp_kernel_on_an_empty_mode_and_nan(card):
+    """An empty mode gives zeros; a NaN value reaches its row (and nothing
+    else), as x != 0 counts a slot."""
+    lay = build_blocked_layout(np.zeros(0, np.int64), 9, BN, BR)
+    vals_e = torch.zeros(lay.n_grid * BN, device=card)
+    kr_e = torch.rand(lay.n_grid * BN, RANK, device=card)
+    assert not mttkrp_ops.mttkrp_blocked(lay, vals_e, kr_e).any()
+    lay, vals_e, kr_e, _ = _inputs("hub", 0, torch.float32)
+    vals_e = vals_e.clone()
+    j = int(lay.valid.nonzero()[0][5])
+    vals_e[j] = float("nan")
+    got = mttkrp_ops.mttkrp_blocked(lay, vals_e.to(card), kr_e.to(card))
+    row = int(lay.grid_rb[j // BN]) * BR + int(lay.local_rows[j])
+    nan_rows = torch.isnan(got).any(dim=1).nonzero().flatten().tolist()
+    assert nan_rows == [row]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+def test_mttkrp_smem_bytes_equals_the_kernels(card, dtype):
+    for bn, br in ((64, 4), (256, 256), (2048, 1024), (1024, 512), (1, 1)):
+        for rank in (1, 3, 16, 64, 200, 1024):
+            assert mttkrp_kernel.library_smem_bytes(bn, br, rank, dtype) == \
+                mttkrp_ops.smem_bytes(bn, br, rank, dtype), (bn, br, rank)
+
+
 # --- the dense tier (dense.cu) ---------------------------------------------
 
 
@@ -416,6 +515,117 @@ def test_dense_kernels_propagate_nan(card):
     b[2, 3] = float("nan")
     _, viol = dense_ops.phi_mu_dense(*(v.to(card) for v in (x, c, a, b)))
     assert torch.isnan(viol)
+
+
+def _random_dense(shape, rank, dtype, seed):
+    """x Poisson(0.7) (mostly zeros), c, a, B uniform in [0.1, 1.1)."""
+    g = torch.Generator().manual_seed(seed)
+    k, i, j = shape
+    x = torch.poisson(torch.full(shape, 0.7), generator=g)
+    c, a, b = (torch.rand(n, rank, generator=g) + 0.1 for n in (j, k, i))
+    return tuple(t.to(dtype) for t in (x, c, a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+@pytest.mark.parametrize("rank", (1, 3, 5, 16, 33, 64))
+def test_dense_kernels_across_ranks(card, rank, dtype):
+    """R not a multiple of 4 (zero-padded in shared memory), R = 64 (256
+    output tiles of phase B, one split); I, J not multiples of the tile."""
+    tol = TOL if dtype == torch.float32 else TOL_BF16
+    _check_dense(card, *_random_dense((6, 45, 70), rank, dtype, rank), tol,
+                 f"rank {rank} {dtype}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+def test_dense_kernels_at_max_rank(card, dtype):
+    """R = 1024 at a small I and J: 4-row tiles, 8-column chunks."""
+    tol = TOL if dtype == torch.float32 else TOL_BF16
+    _check_dense(card, *_random_dense((3, 9, 20), 1024, dtype, 1024), tol,
+                 f"rank 1024 {dtype}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ((1, 70, 13), (1, 1, 1), (5, 33, 301),
+                                   (9, 4, 1000), (130, 3, 17), (2, 129, 129)))
+def test_dense_kernels_on_ragged_shapes(card, shape):
+    """K = 1; I, J, K not multiples of the tiles; J wider than one column
+    chunk; J * 4 bytes not a multiple of 16 (the ring without cp.async)."""
+    _check_dense(card, *_random_dense(shape, 16, torch.float32, sum(shape)),
+                 TOL, f"{shape}")
+
+
+@pytest.mark.cuda
+def test_dense_kernels_are_bitwise_reproducible(card):
+    """Partials summed in a fixed order: two calls give the same bits."""
+    d = [t.to(card) for t in _random_dense((64, 96, 128), 16, torch.float32,
+                                           3)]
+    first = (dense_ops.phi_dense(*d), *dense_ops.phi_mu_dense(*d),
+             dense_ops.mttkrp_dense(*d[:3]))
+    second = (dense_ops.phi_dense(*d), *dense_ops.phi_mu_dense(*d),
+              dense_ops.mttkrp_dense(*d[:3]))
+    assert all(torch.equal(u, v) for u, v in zip(first, second))
+
+
+@pytest.mark.cuda
+def test_dense_kernels_leave_their_tickets_zero(card):
+    """Each launch resets the tickets it took, so the next call on the
+    stream finds them zero; three calls in a row agree bitwise."""
+    d = [t.to(card) for t in _random_dense((40, 70, 50), 16, torch.float32,
+                                           4)]
+    first = dense_ops.phi_dense(*d)
+    for name in dense_kernel.OPS:
+        sh = dense_kernel.launch_shape(40, 70, 50, 16, torch.float32, name)
+        dense_ops.phi_mu_dense(*d), dense_ops.mttkrp_dense(*d[:3])
+        torch.cuda.synchronize()
+        assert not dense_kernel.workspace(sh, card)[1].any(), name
+    assert torch.equal(dense_ops.phi_dense(*d), first)
+
+
+@pytest.mark.cuda
+def test_dense_nan_reaches_its_row(card):
+    """A NaN in B makes its row of Φ and mu NaN, and viol NaN; a NaN in x
+    reaches its row of M (and, failing x > 0, adds nothing to Φ)."""
+    x, c, a, b = (t.to(card) for t in _random_dense((4, 20, 24), 5,
+                                                     torch.float32, 9))
+    b2 = b.clone()
+    b2[2, 3] = float("nan")
+    phi = dense_ops.phi_dense(x, c, a, b2)
+    mu, viol = dense_ops.phi_mu_dense(x, c, a, b2)
+    assert torch.isnan(phi).any(dim=1).nonzero().flatten().tolist() == [2]
+    assert torch.isnan(mu).any(dim=1).nonzero().flatten().tolist() == [2]
+    assert torch.isnan(viol)
+    x2 = x.clone()
+    x2[1, 7, 5] = float("nan")
+    m = dense_ops.mttkrp_dense(x2, c, a)
+    assert torch.isnan(m).any(dim=1).nonzero().flatten().tolist() == [7]
+    assert not torch.isnan(dense_ops.phi_dense(x2, c, a, b)).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+def test_dense_smem_bytes_equals_the_kernels(card, dtype):
+    for op in dense_kernel.OPS:
+        for rank in (1, 3, 16, 33, 64, 200, 1024):
+            for ti, jc in ((4, 8), (32, 128), (16, 256), (8, 24)):
+                assert dense_kernel.library_smem_bytes(
+                    rank, ti, jc, dtype, op) == dense_kernel.smem_bytes(
+                    rank, ti, jc, dtype, op), (op, rank, ti, jc)
+
+
+@pytest.mark.cuda
+def test_dense_launcher_rejects_bad_shapes(card):
+    x, c, a, b = (t.to(card) for t in _random_dense((4, 8, 16), 4,
+                                                     torch.float32, 1))
+    good = dense_kernel.launch_shape(4, 8, 16, 4)
+    for bad in (dict(ti=6), dict(jc=12), dict(n_ks=5), dict(n_ks=0)):
+        sh = dataclasses.replace(good, **bad)
+        phi = torch.empty(8, 4, device=card)
+        part, tickets = dense_kernel.workspace(good, card)
+        with pytest.raises(RuntimeError, match="cudaError"):
+            dense_kernel.launch_phi(x, c, a, b, phi, part, tickets, sh,
+                                    eps=1e-10)
 
 
 # --- the solves that run them ------------------------------------------------

@@ -35,6 +35,8 @@ from repro_torch.core.convert import (
 from repro_torch.core.policy import PhiPolicy as PPolicy
 from repro_torch.core.sparse_tensor import sort_mode as p_sort_mode
 from repro_torch.data.tensors import make_near_dense
+from repro_torch.kernels._checks import MAX_RANK, SMEM_LIMIT
+from repro_torch.kernels.dense import kernel as P_kernel
 from repro_torch.kernels.dense import ops as P_ops
 
 from test_conformance import FIXTURES, RANK, TOL, TOL_BF16, make_fixture
@@ -329,3 +331,82 @@ def test_make_near_dense():
     assert torch.equal(t.values, again.values)
     dn = P_dense.build_dense_mode(t.indices, t.values, shape, 1, device="cpu")
     assert float(dn.x.sum()) == pytest.approx(float(t.values.sum()))
+
+
+# --- the dense kernel's launch shape (computed on the host) ------------------
+
+# (K, I, J): the near-dense cap's three modes, other shapes at the cap
+# (DENSE_MAX_ELEMS = 2^22 cells), and ragged, tiny and K = 1 shapes
+LAUNCH_SHAPES = ((128, 128, 256), (128, 256, 128), (64, 256, 256),
+                 (16, 1024, 256), (4096, 32, 32), (1, 2048, 2048),
+                 (3, 37, 300), (7, 33, 9), (1, 1, 1), (2, 5, 2000))
+LAUNCH_RANKS = (1, 3, 5, 16, 33, 64, 200, MAX_RANK)
+LAUNCH_DTYPES = (torch.float32, torch.bfloat16)
+
+
+@pytest.mark.parametrize("op", tuple(P_kernel.OPS))
+@pytest.mark.parametrize("rank", LAUNCH_RANKS)
+def test_launch_shape_covers_every_cell_once(rank, op):
+    """The CTAs (row tile, k-range) cover every (k, i) of x exactly once;
+    the tiles are what the kernel takes (ti a multiple of 4 with phase B's
+    4 x 4 output tiles one per thread, jc a multiple of 8) and the
+    footprint fits a block's shared memory."""
+    for k, i, j in LAUNCH_SHAPES:
+        for dtype in LAUNCH_DTYPES:
+            sh = P_kernel.launch_shape(k, i, j, rank, dtype, op)
+            what = (k, i, j, rank, dtype, op, sh)
+            assert sh.ti % 4 == 0 and sh.ti >= 4 and sh.jc % 8 == 0, what
+            assert (sh.ti // 4) * (-(-rank // 4)) <= 256, what
+            assert 1 <= sh.n_ks <= k and sh.n_itiles == -(-i // sh.ti), what
+            assert sh.jc <= max(8, -(-j // 8) * 8), what
+            assert sh.smem == P_kernel.smem_bytes(rank, sh.ti, sh.jc, dtype,
+                                                  op)
+            assert 0 < sh.smem <= SMEM_LIMIT, what
+            seen = np.zeros((k, sh.n_itiles * sh.ti), np.int64)
+            for ks in range(sh.n_ks):
+                for it in range(sh.n_itiles):
+                    kr = sh.k_range(ks, k)
+                    seen[kr.start:kr.stop, it * sh.ti:(it + 1) * sh.ti] += 1
+            assert (seen == 1).all(), what
+            assert sh.part_numel == sh.n_ks * sh.n_itiles * sh.ti * rank
+
+
+@pytest.mark.parametrize("dtype", LAUNCH_DTYPES)
+def test_launch_shape_fills_the_card_at_the_cap(dtype):
+    """At rank 16 on the near-dense cell's modes: about one wave of two
+    CTAs per SM over the H100's 132 SMs, equal k-ranges, and a footprint
+    that lets two CTAs share an SM."""
+    for op in P_kernel.OPS:
+        for k, i, j in ((128, 128, 256), (128, 256, 128)):
+            sh = P_kernel.launch_shape(k, i, j, 16, dtype, op)
+            ctas = sh.n_itiles * sh.n_ks
+            assert 132 <= ctas <= 2 * 132, (op, k, i, j, sh)
+            assert k % sh.n_ks == 0, sh
+            assert 2 * sh.smem <= 228 * 1024, sh
+
+
+@pytest.mark.parametrize("op", tuple(P_kernel.OPS))
+def test_dense_footprint_does_not_grow_with_j(op):
+    for rank in (1, 16, 64, MAX_RANK):
+        for dtype in LAUNCH_DTYPES:
+            wide = {P_kernel.launch_shape(128, 64, j, rank, dtype, op).smem
+                    for j in (1 << 12, 1 << 16, 1 << 20)}
+            assert len(wide) == 1, (rank, dtype, wide)
+
+
+def test_workspace_is_kept_per_stream_and_size():
+    """One partials buffer and one zeroed ticket buffer per (device,
+    stream, size), reused by later calls of the same size."""
+    sh = P_kernel.launch_shape(128, 256, 128, 16, torch.float32, "dense_phi")
+    part, tickets = P_kernel.workspace(sh, "cpu")
+    assert part.shape == (sh.part_numel,) and part.dtype == torch.float32
+    # per row tile one ticket for the last level and one per group of 8
+    assert sh.n_tickets == sh.n_itiles * (-(-sh.n_ks // 8) + 1)
+    assert tickets.shape == (sh.n_tickets,) and tickets.dtype == torch.int32
+    assert not tickets.any()
+    again = P_kernel.workspace(sh, "cpu")
+    assert again[0] is part and again[1] is tickets
+    other = P_kernel.launch_shape(128, 256, 128, 8, torch.float32,
+                                  "dense_phi")
+    assert other.part_numel != sh.part_numel
+    assert P_kernel.workspace(other, "cpu")[0] is not part

@@ -30,10 +30,13 @@ from repro_torch.core import phi as P_phi
 from repro_torch.core import pi as P_pi
 from repro_torch.core.convert import ktensor_from_numpy, sparse_tensor_from_numpy
 from repro_torch.core.layout import build_blocked_layout as p_build_layout
+from repro_torch.core import policy as P_policy
 from repro_torch.core.policy import PhiPolicy as PPolicy
 from repro_torch.core.sparse_tensor import sort_mode as p_sort_mode
 from repro_torch.kernels.mttkrp import ops as P_ops
 from repro_torch.kernels.mttkrp import ref as P_ref
+from repro_torch.kernels._checks import SMEM_LIMIT, check_card_limits
+from repro_torch.kernels.phi import kernel as P_phi_kernel
 
 from test_conformance import BN, BR, FIXTURES, RANK, TOL, TOL_BF16, make_fixture
 
@@ -289,3 +292,47 @@ def test_blocked_plain_version_matches_unblocked(kind):
     raw = P_ref.mttkrp_ref(pmv.rows, pmv.sorted_vals, port["kr"], pmv.n_rows)
     np.testing.assert_allclose(pad[:pmv.n_rows].numpy(), raw.numpy(), **TOL)
     assert not pad[pmv.n_rows:].any()
+
+
+# --- the kernel's shared memory: the Φ accumulation's ------------------------
+
+SMEM_RANKS = (1, 16, 64, 1024)
+SMEM_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _grid_blockings():
+    return sorted({(p.block_nnz, p.block_rows)
+                   for p in P_policy.policy_grid(strategies=("cuda",))})
+
+
+@pytest.mark.parametrize("dtype", SMEM_DTYPES)
+@pytest.mark.parametrize("rank", SMEM_RANKS)
+def test_wrapper_footprint_is_the_phi_kernels(rank, dtype):
+    """B3 runs the Φ kernels' accumulation, so the wrapper checks the Φ
+    footprint, in the caller's dtype, at every policy_grid point."""
+    for bn, br in _grid_blockings():
+        assert P_ops.smem_bytes(bn, br, rank, dtype) == \
+            P_phi_kernel.smem_bytes(bn, br, rank, dtype), (bn, br)
+
+
+@pytest.mark.parametrize("dtype", SMEM_DTYPES)
+@pytest.mark.parametrize("rank", SMEM_RANKS)
+def test_wrapper_card_check_raises_exactly_above_the_limit(rank, dtype):
+    """The card check with the wrapper's footprint passes at every
+    policy_grid point (including the blockings the old row window of
+    4 * block_rows * R bytes refused), and the same check raises exactly
+    where a footprint exceeds SMEM_LIMIT."""
+    refused_before = 0
+    for bn, br in _grid_blockings():
+        fn = functools.partial(P_ops.smem_bytes, bn, br, dtype=dtype)
+        assert fn(rank) <= SMEM_LIMIT
+        check_card_limits("mttkrp_blocked", rank, block_nnz=bn,
+                          block_rows=br, smem_bytes=fn)
+        refused_before += 4 * br * rank > SMEM_LIMIT
+    assert refused_before == (20 if rank == 1024 else 0)
+    kw = dict(block_nnz=256, block_rows=256)
+    check_card_limits("mttkrp_blocked", rank, smem_bytes=lambda r: SMEM_LIMIT,
+                      **kw)
+    with pytest.raises(ValueError, match="shared memory"):
+        check_card_limits("mttkrp_blocked", rank,
+                          smem_bytes=lambda r: SMEM_LIMIT + 1, **kw)
