@@ -78,12 +78,35 @@ Phases (any failure exits nonzero before the last line):
    its geomean, and the heuristic's regret (flagged as open above 1.10);
    the Φ kernel's launches must equal the timed calls.
 
+11. Ladder and resume (run after phase 9): ``fail_strategy("cuda",
+    mode=1)`` on the phase 3 solve with the ladder turned on
+    (``max_demotions=4``; it is off by default) must demote mode 1
+    ``cuda -> blocked``
+    once and land within LOGLIK_RTOL of phase 3's log-likelihoods; the
+    same solve checkpointing every sweep, killed at the start of sweep
+    KILL_AT and resumed, must end within LOGLIK_RTOL of phase 3 with
+    equal inner counts (B1-B3's float atomics change the last bits from
+    run to run); the near-dense ``dense`` solve, killed and resumed, must
+    be bitwise the uninterrupted one.  A child process launches the fused
+    Φ kernel on a pointer into the null page, ladder on: the sticky
+    illegal address must reach the caller unclassified, not be demoted.
+12. Autotune (run after phase 11): ``policy="auto"`` on the full-width
+    tensor with a fresh cache under ``build/chip_smoke/``; per mode the
+    tuned policy, its probes, and the fused MU step of the tuned, default
+    (256 x 256), heuristic and phase 9's best blockings timed in the same
+    CUDA-graph burst harness; a second solve on the same cache (counted)
+    must make zero probes and hit once per mode and agree with phase 3;
+    its seconds per sweep beside phase 3's; a poisoned entry, ladder on,
+    must end in ``demote_policy`` and a finished solve.
 10. One launch per fused dense step: the device kernels of one
     ``phi_mu_dense`` call on the near-dense tensor's mode 0, counted with
     torch.profiler (last, so that no timed phase runs under its set-up):
     one accumulation kernel and at most one fill of a few bytes.
 
-Phases 7-9 print their own times.  The line before the last is the per-kernel JSON record; the last is
+The counted main-path solves of phases 3, 5 and 6 fail on any demotion
+(``recoveries`` must be empty): a ladder that quietly ran a plain
+strategy would otherwise pass as the kernel.  Phases 7-9, 11 and 12
+print their own times.  The line before the last is the per-kernel JSON record; the last is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -132,6 +155,7 @@ GRID_BLOCK_NNZ = (64, 128, 256, 512, 1024)  # phase 9's grid
 GRID_BLOCK_ROWS = (64, 128, 256, 512)
 HEURISTIC_REGRET_OPEN = 1.10  # phase 9: a regret above this is an open item
 PPA_ITERS = 5  # timed calls per perturbation (median), after 2 untimed
+KILL_AT = 3  # phase 11: the sweep at whose start the solves are killed
 CSRC = "src/repro_torch/kernels/csrc"
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "phi_blocked": ("phi.cu", "src/repro/kernels/phi/kernel.py:139"),
@@ -503,18 +527,21 @@ def timed_cp_als(t, init, strategy: str, dev, counts=None) -> tuple:
 
     from repro_torch.core.cpals import cp_als
 
-    def run(iters):
+    def run(iters, recoveries=None):
         t0 = time.perf_counter()
         fits = cp_als(t, RANK, n_iters=iters, init=init, strategy=strategy,
-                      device=dev)[1]
+                      recoveries=recoveries, device=dev)[1]
         torch.cuda.synchronize()
         return fits, time.perf_counter() - t0
 
     run(1)
     if counts is not None:
         counts.reset_launch_counts()
-    fits, _ = run(ALS_ITERS)
+    recoveries: list = []
+    fits, _ = run(ALS_ITERS, recoveries)
     launched = None if counts is None else dict(counts.launch_counts)
+    check(recoveries == [],
+          f"cp_als {strategy} demoted a mode: {recoveries}")
     secs = [run(n)[1] for n in (1, 1 + TIMED_ITERS)]
     return fits, (secs[1] - secs[0]) / TIMED_ITERS, launched
 
@@ -701,7 +728,8 @@ def dense_solve_phase(t, init, dev) -> dict:
           f"{res.inner_iters}, launches {launches}")
     print(f"  loglik {res.loglik_history}")
     print(f"  seconds per sweep {res.sweep_seconds}")
-    check(res.recoveries is None, f"guard recoveries: {res.recoveries}")
+    check(res.recoveries is None,
+          f"guard recoveries or demotions: {res.recoveries}")
     check(launches["dense_phi"] == n_updates,
           f"dense_phi launched {launches['dense_phi']} times, expected "
           f"{n_updates} (one per mode update)")
@@ -870,9 +898,10 @@ def roofline_ppa_phase(t, init, mvs, phi_calls_ms, triad_bps: float,
               f"PPA mode {n}: missing or non-finite result {res}")
 
 
-def grid_search_phase(init, mvs, dev, timing_iters: int) -> int:
+def grid_search_phase(init, mvs, dev, timing_iters: int) -> tuple:
     """Phase 9: policy grid search of the Φ kernel on every mode; returns
-    its counted launches."""
+    its counted launches and, per mode, its fastest kernel point and
+    that point's time (s)."""
     from repro_torch.core.layout import build_blocked_layout, mode_run_stats
     from repro_torch.core.phi import expand_to_layout, phi_from_rows
     from repro_torch.core.pi import pi_rows
@@ -894,6 +923,7 @@ def grid_search_phase(init, mvs, dev, timing_iters: int) -> int:
     ops.reset_launch_counts()
     calls = 0
     speedups = []
+    best_kernel = []
     for n, mv in enumerate(mvs):
         pi = pi_rows(mv.sorted_idx, init.factors, n)
         b = init.factors[n] * init.lam[None, :]
@@ -929,7 +959,9 @@ def grid_search_phase(init, mvs, dev, timing_iters: int) -> int:
               and math.isfinite(secs[heur]),
               f"mode {n}: the default or heuristic point failed: {failed}")
         (best, t_best), (worst, t_worst) = ok[0], ok[-1]
-        slow, t_slow = [(p, t) for p, t in ok if p.strategy == "cuda"][-1]
+        kernel_points = [(p, t) for p, t in ok if p.strategy == "cuda"]
+        slow, t_slow = kernel_points[-1]
+        best_kernel.append(kernel_points[0])
         speedups.append(secs[default] / t_best)
         print(f"grid mode {n} (rows {mv.n_rows}, nnz {mv.nnz}): "
               f"{len(ok)} of {len(pols)} points timed; default "
@@ -952,7 +984,255 @@ def grid_search_phase(init, mvs, dev, timing_iters: int) -> int:
           f"for {calls} timed calls")
     check(launches == calls > 0,
           f"phi_blocked launched {launches} times for {calls} calls")
-    return launches
+    return launches, best_kernel
+
+
+def _work_path(name: str) -> str:
+    """A fresh path under ``build/chip_smoke/`` (gitignored)."""
+    d = os.path.join(HERE, "build", "chip_smoke")
+    os.makedirs(d, exist_ok=True)
+    path = os.path.join(d, name)
+    for stale in (path, path + ".corrupt"):
+        if os.path.exists(stale):
+            os.remove(stale)
+    return path
+
+
+def _killed_then_resumed(t, cfg, dev, **init) -> tuple:
+    """Run ``cpapr_mu`` with ``cfg`` (checkpointing every sweep), kill it
+    at the start of sweep KILL_AT, resume it from its checkpoint; returns
+    the resumed result."""
+    from repro_torch.core.cpapr import cpapr_mu
+    from repro_torch.testing import faults
+
+    killed = False
+    try:
+        with faults.kill_at_sweep(KILL_AT):
+            cpapr_mu(t, RANK, device=dev, config=cfg, **init)
+    except faults.KilledError:
+        killed = True
+    check(killed, f"kill_at_sweep({KILL_AT}) did not fire")
+    res = cpapr_mu(t, RANK, device=dev, config=cfg,
+                   resume_from=cfg.checkpoint_path, **init)
+    kinds = [e.kind for e in (res.recoveries or [])]
+    check(kinds == ["resume"], f"resumed solve recorded {kinds}")
+    return res
+
+
+# A launch of the fused Φ kernel whose Π-rows pointer lies in the unmapped
+# null page, in a child process: the illegal address is sticky (cudaError
+# 700), so the solve must raise instead of demoting.  (A pointer to a
+# buffer PyTorch had freed with empty_cache did not fault on the H100.)
+STICKY_CHILD = """
+import sys, torch
+sys.path.insert(0, "src")
+from repro_torch.core.cpapr import CPAPRConfig, cpapr_mu
+from repro_torch.core.resilience import classify_failure
+from repro_torch.core.sparse_tensor import random_poisson_tensor
+from repro_torch.kernels.phi import kernel
+t, _ = random_poisson_tensor((40, 30, 25), nnz=1500, rank=4, seed=0,
+                             device="cuda")
+lib = kernel.load_library()
+class NullPagePi:
+    def __getattr__(self, name):
+        return getattr(lib, name)
+    def phi_mu_blocked_launch(self, *args):
+        args = list(args)
+        args[4] = 256  # dtype, grid_rb, vals_e, local_rows, pi_e, ...
+        return lib.phi_mu_blocked_launch(*args)
+kernel.load_library = NullPagePi
+try:
+    res = cpapr_mu(t, 4, seed=0, device="cuda", config=CPAPRConfig(
+        rank=4, max_outer=2, strategy="cuda", max_demotions=4))
+except Exception as e:
+    print("propagated:", type(e).__name__, "kind", classify_failure(e),
+          "|", str(e).strip().splitlines()[0][:160])
+    sys.exit(0 if classify_failure(e) is None else 3)
+print("not propagated; recoveries:", res.recoveries)
+sys.exit(1)
+"""
+
+
+def ladder_phase(t, res, dt, dinit, dev, seed: int) -> None:
+    """Phase 11: an injected demotion on the main path, kill and resume
+    on uber (``cuda``) and on the near-dense tensor (``dense``, bitwise),
+    and a sticky CUDA error in a child process."""
+    import torch
+
+    from repro_torch.core.cpapr import CPAPRConfig, cpapr_mu
+    from repro_torch.testing import faults
+
+    cfg = dict(rank=RANK, max_outer=MAX_OUTER, max_inner=MAX_INNER)
+    with faults.fail_strategy("cuda", mode=1) as budget:
+        inj = cpapr_mu(t, RANK, seed=seed, device=dev,
+                       config=CPAPRConfig(strategy="cuda", max_demotions=4,
+                                          **cfg))
+    rec = [(e.kind, e.mode, e.detail.get("action")) for e in inj.recoveries]
+    print(f"injected cuda failure on mode 1: recoveries {rec}, inner "
+          f"iterations {inj.inner_iters}, loglik {inj.loglik_history}")
+    check(budget == [0] and rec == [("demote_kernel", 1, "cuda->blocked")],
+          f"the injected failure was not demoted once: {rec}")
+    ll_err = max(abs(a - b) / abs(b)
+                 for a, b in zip(inj.loglik_history, res.loglik_history))
+    print(f"demoted vs clean cuda solve: loglik max rel diff {ll_err:.3e} "
+          f"(rtol {LOGLIK_RTOL})")
+    check(len(inj.loglik_history) == len(res.loglik_history)
+          and ll_err <= LOGLIK_RTOL, "the demoted solve disagrees")
+
+    ck = _work_path("uber_cuda.ckpt")
+    resumed = _killed_then_resumed(
+        t, CPAPRConfig(strategy="cuda", checkpoint_every=1,
+                       checkpoint_path=ck, **cfg), dev, seed=seed)
+    ll_err = abs(resumed.loglik_history[-1] - res.loglik_history[-1]) / abs(
+        res.loglik_history[-1])
+    print(f"uber cuda killed at sweep {KILL_AT} and resumed: inner "
+          f"iterations {resumed.inner_iters} (uninterrupted "
+          f"{res.inner_iters}), final loglik {resumed.loglik_history[-1]} "
+          f"(uninterrupted {res.loglik_history[-1]}, rel diff {ll_err:.3e}, "
+          f"rtol {LOGLIK_RTOL}); sweeps run after the resume "
+          f"{len(resumed.sweep_seconds)}")
+    check(resumed.inner_iters == res.inner_iters and ll_err <= LOGLIK_RTOL,
+          "the resumed uber solve disagrees with the uninterrupted one")
+
+    ref = cpapr_mu(dt, RANK, init=dinit, device=dev,
+                   config=CPAPRConfig(strategy="dense", **cfg))
+    dck = _work_path("near_dense.ckpt")
+    dres = _killed_then_resumed(
+        dt, CPAPRConfig(strategy="dense", checkpoint_every=1,
+                        checkpoint_path=dck, **cfg), dev, init=dinit)
+    same = (all(torch.equal(a, b) for a, b in zip(dres.ktensor.factors,
+                                                  ref.ktensor.factors))
+            and torch.equal(dres.ktensor.lam, ref.ktensor.lam)
+            and dres.kkt_history == ref.kkt_history
+            and dres.loglik_history == ref.loglik_history
+            and dres.inner_iters == ref.inner_iters)
+    print(f"near-dense dense killed at sweep {KILL_AT} and resumed: "
+          f"factors, lam and histories bitwise equal to the uninterrupted "
+          f"solve: {same}")
+    check(same, "the resumed dense solve is not bitwise the uninterrupted")
+
+    env = dict(os.environ, PYTHONPATH=SRC)
+    child = subprocess.run([sys.executable, "-c", STICKY_CHILD], cwd=HERE,
+                           env=env, capture_output=True, text=True,
+                           timeout=300)
+    print(f"sticky fault in a child process (exit {child.returncode}): "
+          f"{child.stdout.strip()}")
+    check(child.returncode == 0,
+          f"the sticky fault was not propagated as unclassified: "
+          f"{child.stdout.strip()} {child.stderr.strip()[-400:]}")
+
+
+def autotune_phase(t, init, mvs, res, grid_best, dev, seed: int) -> None:
+    """Phase 12: ``policy="auto"`` on the full-width tensor with a fresh
+    cache; per mode the tuned, default, heuristic and phase 9's best
+    blockings timed as one CUDA-graph burst; a second solve served from
+    the cache (counted, no probes); a poisoned entry demoted."""
+    import statistics
+
+    from repro_torch.core.cpapr import CPAPRConfig, cpapr_mu
+    from repro_torch.core.layout import mode_run_stats
+    from repro_torch.core.pi import pi_rows
+    from repro_torch.core.policy import PhiPolicy, default_policy, heuristic_policy
+    from repro_torch.kernels.phi import ops
+    from repro_torch.perf.autotune import Autotuner
+    from repro_torch.perf.timing import step_burst_seconds
+    from repro_torch.testing import faults
+
+    cfg = dict(rank=RANK, max_outer=MAX_OUTER, max_inner=MAX_INNER)
+    path = _work_path("autotune.json")
+    tuner = Autotuner(cache_path=path)
+    t0 = time.perf_counter()
+    first = cpapr_mu(t, RANK, seed=seed, device=dev,
+                     config=CPAPRConfig(policy="auto", autotuner=tuner, **cfg))
+    print(f"auto solve with a fresh cache: {time.perf_counter() - t0:.2f} s "
+          f"(tuning included), tuner {tuner.counters()}, policies "
+          f"{[p.label() for p in first.policies]}")
+    check(first.recoveries is None, f"auto solve recoveries: "
+          f"{first.recoveries}")
+    check(tuner.n_searches == t.ndim, f"{tuner.n_searches} tunes for "
+          f"{t.ndim} modes")
+    dp = default_policy(RANK)
+    default = PhiPolicy(strategy="cuda", block_nnz=dp.block_nnz,
+                        block_rows=dp.block_rows)
+    width = math.prod(t.shape)
+    for n, mv in enumerate(mvs):
+        rows_np = mv.rows.cpu().numpy()
+        key, _ = tuner.mode_key(mv.rows, mv.n_rows, RANK, stats=mode_run_stats(
+            rows_np, mv.n_rows, row_width=width // t.shape[n]))
+        entry = tuner.cache.entries[key]
+        tuned = first.policies[n]
+        heur = heuristic_policy(mv.nnz, mv.n_rows, RANK, platform="cuda",
+                                stats=mode_run_stats(rows_np, mv.n_rows))
+        best, best_s = grid_best[n]
+        pi = pi_rows(mv.sorted_idx, init.factors, n)
+        b = init.factors[n] * init.lam[None, :]
+        ms = {}
+        for label, pol in (("tuned", tuned), ("default", default),
+                           ("heuristic", heur), ("phase 9 best", best)):
+            step, _ = tuner.probe_step(pol, mv.rows, mv.sorted_vals, pi,
+                                       mv.n_rows)
+            ms[label] = 1e3 * step_burst_seconds(step, b, tuner.burst,
+                                                 warmup=1, iters=5)
+        probes = {k: round(1e3 * v, 4)
+                  for k, v in entry.get("probe_seconds", {}).items()}
+        print(f"autotune mode {n} (rows {mv.n_rows}, nnz {mv.nnz}): tuned "
+              f"{tuned.label()} (source {entry['source']}, probes "
+              f"{entry.get('probes')} of {entry.get('n_candidates')} "
+              f"candidates, probe ms per step {probes})")
+        print(f"  fused MU step, ms per step in a {tuner.burst}-step CUDA "
+              f"graph burst: tuned {ms['tuned']:.4f}, default "
+              f"{default.label()} {ms['default']:.4f}, heuristic "
+              f"{heur.label()} {ms['heuristic']:.4f}, phase 9 best "
+              f"{best.label()} {ms['phase 9 best']:.4f} (phase 9's own "
+              f"wrapper timing of its Φ call {1e3 * best_s:.4f}); regret of "
+              f"auto vs the phase 9 best {ms['tuned'] / ms['phase 9 best']:.3f}x"
+              f", default/tuned {ms['default'] / ms['tuned']:.3f}x")
+        check(all(math.isfinite(v) and v > 0 for v in ms.values()),
+              f"mode {n}: a burst time is not finite: {ms}")
+
+    again = Autotuner(cache_path=path)
+    ops.reset_launch_counts()
+    second = cpapr_mu(t, RANK, seed=seed, device=dev,
+                      config=CPAPRConfig(policy="auto", autotuner=again,
+                                         **cfg))
+    launches = dict(ops.launch_counts)
+    print(f"auto solve from the cache: tuner {again.counters()}, launches "
+          f"{launches}, inner iterations {second.inner_iters}")
+    check(again.n_probes == 0 and again.n_hits == t.ndim
+          and again.n_searches == 0,
+          f"the second solve did not serve every mode from the cache: "
+          f"{again.counters()}")
+    check(second.recoveries is None, f"recoveries {second.recoveries}")
+    if all(p.strategy == "cuda" for p in second.policies):
+        check(launches["phi_blocked"] == second.n_outer * t.ndim
+              and launches["phi_mu_blocked"] == sum(second.inner_iters),
+              f"auto solve launches {launches}")
+    ll_err = max(abs(a - b) / abs(b) for a, b in
+                 zip(second.loglik_history, res.loglik_history))
+    print(f"auto vs default solve: loglik max rel diff {ll_err:.3e} (rtol "
+          f"{LOGLIK_RTOL}); s/sweep (median after the first) auto "
+          f"{statistics.median(second.sweep_seconds[1:]):.6f}, default "
+          f"{statistics.median(res.sweep_seconds[1:]):.6f}; sweeps auto "
+          f"{second.sweep_seconds}, default {res.sweep_seconds}")
+    check(len(second.loglik_history) == len(res.loglik_history)
+          and ll_err <= LOGLIK_RTOL, "auto solve disagrees with the default")
+
+    poisoned = Autotuner(cache_path=_work_path("autotune_poisoned.json"),
+                         measure=False)
+    faults.poison_autotune(poisoned, mvs[0], RANK, shape=t.shape)
+    pres = cpapr_mu(t, RANK, seed=seed, device=dev,
+                    config=CPAPRConfig(policy="auto", autotuner=poisoned,
+                                       rank=RANK, max_outer=2,
+                                       max_inner=MAX_INNER,
+                                       max_demotions=4))
+    rec = [(e.kind, e.mode, e.detail.get("action"))
+           for e in (pres.recoveries or [])]
+    print(f"poisoned entry on mode 0: recoveries {rec}, sweeps "
+          f"{pres.n_outer}, loglik {pres.loglik_history}")
+    check(("demote_policy", 0, "warpspeed->segment") in rec
+          and pres.n_outer == 2
+          and all(math.isfinite(x) for x in pres.loglik_history),
+          "the poisoned solve did not demote and finish")
 
 
 def monotone(ll: list) -> bool:
@@ -1035,7 +1315,8 @@ def main(argv=None) -> int:
     print(f"  kkt {res.kkt_history}")
     print(f"  loglik {res.loglik_history}")
     print(f"  seconds per sweep {res.sweep_seconds}")
-    check(res.recoveries is None, f"guard recoveries: {res.recoveries}")
+    check(res.recoveries is None,
+          f"guard recoveries or demotions: {res.recoveries}")
     check(launches["phi_blocked"] == n_updates,
           f"phi_blocked launched {launches['phi_blocked']} times, expected "
           f"{n_updates} (one per mode update)")
@@ -1105,8 +1386,18 @@ def main(argv=None) -> int:
 
     # --- phase 9: policy grid search ---------------------------------------
     t0 = time.perf_counter()
-    grid_search_phase(init, mvs, dev, TIMING_ITERS)
+    _, grid_best = grid_search_phase(init, mvs, dev, TIMING_ITERS)
     print(f"phase 9 (grid search): {time.perf_counter() - t0:.1f} s")
+
+    # --- phase 11: the degradation ladder, checkpoints and resume ---------
+    t0 = time.perf_counter()
+    ladder_phase(t, res, dt, dinit, dev, args.seed)
+    print(f"phase 11 (ladder, resume): {time.perf_counter() - t0:.1f} s")
+
+    # --- phase 12: the autotuner on the full-width tensor ------------------
+    t0 = time.perf_counter()
+    autotune_phase(t, init, mvs, res, grid_best, dev, args.seed)
+    print(f"phase 12 (autotune): {time.perf_counter() - t0:.1f} s")
 
     # --- phase 10: one launch per fused dense step ------------------------
     one_launch_phase(*dense_first)

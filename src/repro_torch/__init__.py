@@ -9,6 +9,10 @@ hand-written CUDA kernels (:mod:`repro_torch.kernels.phi`), CP-ALS
 (:func:`repro_torch.core.cp_als`) with the sparse MTTKRP kernel
 (:mod:`repro_torch.kernels.mttkrp`), and the dense matrix-free tier
 (``strategy="dense"`` in both solvers, :mod:`repro_torch.kernels.dense`).
+Both solvers run under the fault-tolerant runtime
+(:mod:`repro_torch.core.resilience`: the degradation ladder, and for
+CP-APR checkpoints and resume) and take ``policy="auto"``, the persistent
+autotuner (:mod:`repro_torch.perf.autotune`).
 """
 from . import core
 from .core import CPAPRConfig, CPAPRResult, cp_als, cpapr_mu

@@ -10,9 +10,14 @@ Khatri-Rao rows as Π^(n), so the Φ reduction machinery is reused through
 Each per-mode ALS update (Khatri-Rao gather, MTTKRP, Gram product, ridge
 solve) is built once per mode before the iteration loop; the Khatri-Rao
 gather and its layout expansion run once per mode update, as in
-``cpapr_mu``.  This slice of the port runs on one device: ``mesh``,
-``n_shards`` and ``policy="auto"`` raise ``NotImplementedError``, and a
-kernel that fails to build or launch raises (no degradation ladder yet).
+``cpapr_mu``.  ``policy="auto"`` asks the autotuner per mode, as in
+``cpapr_mu``.  When the caller passes a ``recoveries=`` list, a
+classified runtime failure of a mode (a kernel that fails to build, is
+refused by the card's limits or fails to launch; an unknown served
+strategy) drops that mode straight to ``segment`` and retries it,
+recorded in that list; without one every failure propagates.  This slice of
+the port runs on one device: ``mesh`` and ``n_shards`` raise
+``NotImplementedError`` (ROADMAP A8) before anything runs.
 """
 from __future__ import annotations
 
@@ -23,7 +28,7 @@ import torch
 from ..device import resolve_device
 from . import resilience
 from .cpapr import hoisted_mode_inputs, resolve_mode_policies
-from .phi import krao_reduce_rows
+from .phi import canonical_strategy, krao_reduce_rows
 from .pi import pi_rows
 from .sparse_tensor import KTensor, ModeView, SparseTensor, random_ktensor, sort_mode
 
@@ -108,10 +113,12 @@ def cp_als(
     init: KTensor | None = None,
     strategy: str = "scatter",
     policy=None,
+    autotuner=None,
     mesh=None,
     n_shards: int | None = None,
     mode_views: Sequence[ModeView] | None = None,
     validate: bool = True,
+    recoveries: "list | None" = None,
     device="cuda",
 ) -> tuple:
     """Plain CP-ALS on a sparse tensor (least squares, not Poisson).
@@ -122,17 +129,25 @@ def cp_als(
     folded into the first factor; without it one is drawn from ``seed``
     (default 0).  ``t`` and ``init`` are moved to ``device``.
     ``strategy``/``policy`` route the MTTKRP through the same resolver as
-    CP-APR's Φ (an explicit :class:`PhiPolicy` sets the blocking).
+    CP-APR's Φ (an explicit :class:`PhiPolicy` sets the blocking,
+    ``policy="auto"`` engages the autotuner, ``autotuner`` as in
+    ``CPAPRConfig``).
+
+    Passing a list as ``recoveries`` turns on the one-rung degradation
+    ladder: a classified runtime failure drops the failing mode to
+    ``segment`` and retries it, and the list collects one
+    :class:`repro_torch.core.resilience.RecoveryEvent` per demotion.
+    Without a list (the default) every failure propagates, so a kernel
+    that fails on the card is never replaced unseen by its plain version.
     """
     dev = resolve_device(device)
-    unported = {"policy='auto'": (policy == "auto", "ROADMAP A7 (autotune)"),
-                "mesh": (mesh is not None, "ROADMAP A8 (multi-device)"),
-                "n_shards": (n_shards is not None,
-                             "ROADMAP A8 (multi-device)")}
-    for name, (is_set, item) in unported.items():
+    for name, is_set in (("mesh", mesh is not None),
+                         ("n_shards", n_shards is not None)):
         if is_set:
-            raise NotImplementedError(
-                f"cp_als: {name} is not ported yet: {item}")
+            raise resilience.NotPortedError(
+                f"cp_als: {name} is not ported yet: ROADMAP A8 "
+                f"(multi-device)")
+    canonical_strategy(strategy)  # sharded/grid raise here
     t = t.to(dev)
     if validate:
         resilience.validate_decomposition_inputs(t, rank, where="cp_als")
@@ -145,17 +160,47 @@ def cp_als(
     mvs = list(mode_views) if mode_views is not None else [
         sort_mode(t, n) for n in range(t.ndim)
     ]
+    ones = torch.ones((rank,), dtype=factors[0].dtype, device=dev)
     strategies, layouts, _ = resolve_mode_policies(
-        mvs, rank=rank, strategy=strategy, policy=policy, shape=t.shape)
+        mvs, rank=rank, strategy=strategy, policy=policy, shape=t.shape,
+        factors=factors, lam=ones, autotuner=autotuner)
     updates = [_make_als_mode_update(mvs[n], rank, strategies[n], layouts[n],
                                      dev)
                for n in range(t.ndim)]
 
+    def _demote_mode(n: int, it: int, exc: BaseException) -> None:
+        """One-rung degradation ladder: a classified runtime failure
+        drops the mode straight to the always-available ``segment``."""
+        kind = resilience.classify_failure(exc)
+        if recoveries is None or kind is None or strategies[n] == "segment":
+            raise exc
+        detail = {"error": f"{type(exc).__name__}: {exc}"[:200],
+                  "action": f"{strategies[n]}->segment"}
+        if strategies[n] == "dense":
+            # a dense launch that did not complete may leave its stream's
+            # tickets dirty: no later dense call may reuse them
+            from ..kernels.dense.kernel import drop_workspace
+
+            drop_workspace(dev)
+        strategies[n], layouts[n] = "segment", None
+        updates[n] = _make_als_mode_update(mvs[n], rank, "segment", None, dev)
+        recoveries.append(resilience.RecoveryEvent(
+            f"demote_{kind}", outer=it + 1, mode=n, detail=detail))
+
     norm_x = torch.sqrt(torch.sum(t.values ** 2))
     fits = []
-    for _ in range(n_iters):
+    for it in range(n_iters):
         for n in range(t.ndim):
-            factors[n] = updates[n](factors)
+            try:
+                if resilience.have_hooks():
+                    resilience.fire_mode_hooks({
+                        "outer": it + 1, "mode": n,
+                        "strategy": strategies[n], "local": strategies[n],
+                        "combine": "auto", "n_shards": 1})
+                factors[n] = updates[n](factors)
+            except Exception as e:
+                _demote_mode(n, it, e)
+                factors[n] = updates[n](factors)
         fits.append(float(fit_score(t, factors, norm_x)))
     lam = torch.ones((rank,), dtype=factors[0].dtype, device=dev)
     return KTensor(lam=lam, factors=tuple(factors)).normalize(), fits

@@ -20,11 +20,28 @@ after every iteration to decide whether to go on; the iteration that
 finds viol <= tol is counted and leaves B unchanged, as in the JAX
 package's ``lax.while_loop``.
 
-This slice of the port runs on one device.  ``mesh``, ``n_shards``,
-``grid_shape``, ``policy="auto"``, ``rebalance_every``, checkpoints and
-``resume_from`` raise ``NotImplementedError`` (ROADMAP A4, A7, A8).  A
-kernel that fails to build or launch raises: there is no degradation
-ladder yet, and ``cuda`` is never demoted.
+Strategy + blocking policy is the paper's "parallel policy": implicit
+(``CPAPRConfig.strategy`` with default block sizes), explicit (a
+:class:`PhiPolicy`) or ``policy="auto"``: the persistent autotuner
+(:mod:`repro_torch.perf.autotune`) picks a policy per mode, cached across
+processes in the port's own JSON store.
+
+With ``CPAPRConfig.max_demotions > 0`` every mode update runs under the
+degradation ladder (:mod:`repro_torch.core.resilience`): a classified
+failure (a kernel that fails to build, is refused by the card's limits
+or fails to launch; a served policy naming an unknown strategy) demotes
+the mode one rung (``cuda -> blocked -> segment``, ``dense -> segment``)
+and retries it, and every demotion is recorded in
+``CPAPRResult.recoveries``.  The ladder is off by default, so every such
+failure reaches the caller.  A sticky CUDA error always propagates.  ``checkpoint_every``/``checkpoint_path`` write
+the solver state in the JAX package's checkpoint format and
+``resume_from`` continues from it (a checkpoint resumes across the two
+packages in both directions).
+
+This slice of the port runs on one device: ``mesh``, ``n_shards``,
+``grid_shape``, ``rebalance_every`` and the ``sharded``/``grid``
+strategies raise ``NotImplementedError`` (ROADMAP A8) before anything
+runs, so the ladder never sees them.
 """
 from __future__ import annotations
 
@@ -38,8 +55,9 @@ import torch
 
 from ..device import resolve_device
 from . import resilience
+from .convert import policy_from_dict
 from .dense import DenseModeData, build_dense_mode
-from .layout import BlockedLayout, build_blocked_layout
+from .layout import BlockedLayout, ModeStats, build_blocked_layout, mode_run_stats
 from .phi import (
     _dense_operands,
     canonical_strategy,
@@ -49,20 +67,26 @@ from .phi import (
 )
 from .pi import pi_rows
 from .policy import PhiPolicy, default_policy
-from .resilience import RecoveryEvent
+from .resilience import STRATEGY_DEMOTION, NotPortedError, RecoveryEvent
 from .sparse_tensor import KTensor, ModeView, SparseTensor, random_ktensor, sort_mode
 
 __all__ = [
     "CPAPRConfig",
     "CPAPRResult",
+    "ModeCutout",
     "SweepOutcome",
     "cpapr_mu",
+    "extract_mode_cutout",
     "hoisted_mode_inputs",
     "kkt_violation",
     "poisson_loglik",
     "resolve_mode_policies",
     "sweep_step",
 ]
+
+# the JAX package's name of a port strategy, in checkpoints and their
+# fingerprints (a checkpoint resumes in either package)
+_REFERENCE_NAME = {"cuda": "pallas"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,9 +99,12 @@ class CPAPRConfig:
     kappa: float = 1e-2  # "scooch" offset for inadmissible zeros
     kappa_tol: float = 1e-10
     strategy: str = "segment"
-    # PhiPolicy (explicit blocking) or None (default 256 x 256 blocking);
-    # "auto" (the autotuner) is not ported yet
+    # PhiPolicy (explicit blocking), "auto" (persistent autotuner), or None
+    # (default 256 x 256 blocking)
     policy: "PhiPolicy | str | None" = None
+    # Optional repro_torch.perf.autotune.Autotuner for policy="auto"; a
+    # default one (persistent user-level cache) is created when absent.
+    autotuner: "object | None" = None
     track_loglik: bool = True
     # multi-device fields of the JAX package: not ported yet, must stay unset
     mesh: "object | None" = None
@@ -94,7 +121,23 @@ class CPAPRConfig:
     # up after guard_retries.
     guard: bool = True
     guard_retries: int = 3
-    # checkpointing is not ported yet: must stay off
+    # Degradation ladder: runtime failures classified by
+    # repro_torch.core.resilience.classify_failure demote the failing mode
+    # (cuda -> blocked -> segment, dense -> segment), each retried after
+    # bounded exponential backoff (demote_backoff * 2^attempt, capped), at
+    # most max_demotions rungs per mode invocation.  Off by default (the
+    # JAX package takes 4 rungs after 0.05 s): a kernel that fails to
+    # build or launch is then an error, never a run of its plain version
+    # on the card.  Every failure the ladder demotes on one device is
+    # deterministic and the retry runs another strategy, so waiting
+    # changes nothing here.
+    demote_backoff: float = 0.0
+    max_demotions: int = 0
+    # Sweep-level checkpointing: every checkpoint_every outer sweeps the
+    # solver state (factors, lam, outer index, histories, per-mode
+    # strategies, policies and kappas) is written atomically to
+    # checkpoint_path; cpapr_mu(resume_from=...) continues from it.
+    # 0 / None disables.
     checkpoint_every: int = 0
     checkpoint_path: "str | None" = None
 
@@ -108,9 +151,11 @@ class CPAPRResult:
     inner_iters: list  # per outer iter: total inner iterations
     converged: bool
     seconds: float
-    sweep_seconds: list  # per outer iter: host seconds of the sweep
+    # per outer iter run in this process: host seconds of the sweep
+    sweep_seconds: list
     policies: list | None = None  # per-mode PhiPolicy, blocked/cuda/dense
-    # RecoveryEvents (numerical-guard restores), in order
+    # RecoveryEvents (numerical-guard restores, degradation-ladder
+    # demotions, checkpoint quarantine/resume), in order
     recoveries: list | None = None
 
 
@@ -175,6 +220,47 @@ def hoisted_mode_inputs(mv: ModeView, factors, strategy: str, layout) -> tuple:
     return pi, vals_e, pi_e
 
 
+@dataclasses.dataclass(frozen=True)
+class ModeCutout:
+    """One mode's fused-MU burst problem, cut out of the solver.
+
+    The (rows, vals, Π, B) quadruple the solver's inner loop consumes,
+    as a standalone problem: a tuner or benchmark can measure the MU
+    burst on exactly the tensors the solver would feed it, without a
+    whole decomposition per probe.  Policy-dependent layout expansion is
+    not part of the cutout: it differs per candidate, and the autotuner
+    hoists it per probe as the solver hoists it per mode update.
+    """
+
+    mode: int
+    rows: torch.Tensor  # (nnz,) sorted row ids
+    vals: torch.Tensor  # (nnz,) values in sorted order
+    pi: torch.Tensor  # (nnz, R) Khatri-Rao rows (hoisted gather)
+    b: torch.Tensor  # (I_n, R) scaled factor  B = A_n * lam
+    n_rows: int
+    rank: int
+    stats: ModeStats  # segment-run statistics of the sorted rows
+    n_modes: int = 3  # the tensor's order
+
+    @property
+    def nnz(self) -> int:
+        return int(self.rows.shape[0])
+
+
+def extract_mode_cutout(t: SparseTensor, kt: KTensor, mode: int) -> ModeCutout:
+    """Extract :class:`ModeCutout` for ``mode`` of ``(t, kt)`` through the
+    solver's own plumbing (:func:`sort_mode`, :func:`hoisted_mode_inputs`
+    with ``segment``, :func:`mode_run_stats`), so the cutout cannot drift
+    from what :func:`cpapr_mu` runs.  ``t`` and ``kt`` on one device."""
+    mv = sort_mode(t, mode)
+    pi, _, _ = hoisted_mode_inputs(mv, kt.factors, "segment", None)
+    b = kt.factors[mode] * kt.lam[None, :]
+    stats = mode_run_stats(mv.rows.detach().cpu().numpy(), mv.n_rows)
+    return ModeCutout(mode=mode, rows=mv.rows, vals=mv.sorted_vals, pi=pi,
+                      b=b, n_rows=mv.n_rows, rank=int(kt.rank), stats=stats,
+                      n_modes=t.ndim)
+
+
 def kkt_violation(b: torch.Tensor, phi: torch.Tensor) -> torch.Tensor:
     """max |min(B, 1 - Φ)| — zero iff the KKT conditions hold (C&K Sec. 4)."""
     return torch.max(torch.abs(torch.minimum(b, 1.0 - phi)))
@@ -198,6 +284,17 @@ def _dense_mode_data(mv: ModeView, shape) -> DenseModeData:
                             device=mv.sorted_vals.device)
 
 
+def _mode_row_width(shape, n: int) -> int:
+    """Cells per mode-``n`` row: the product of the other mode sizes (the
+    denominator of the fill fraction that keys the dense-tier cut)."""
+    return math.prod(int(d) for m, d in enumerate(shape) if m != n)
+
+
+def _blocked_layout(mv: ModeView, pol: PhiPolicy) -> BlockedLayout:
+    return build_blocked_layout(mv.rows.detach().cpu().numpy(), mv.n_rows,
+                                pol.block_nnz, pol.block_rows)
+
+
 def resolve_mode_policies(
     mvs: Sequence[ModeView],
     *,
@@ -205,6 +302,9 @@ def resolve_mode_policies(
     strategy: str,
     policy: "PhiPolicy | str | None" = None,
     shape: "tuple | None" = None,
+    factors: "Sequence[torch.Tensor] | None" = None,
+    lam: "torch.Tensor | None" = None,
+    autotuner: "object | None" = None,
 ) -> tuple:
     """Per-mode ``(strategies, layouts, policies)`` lists.
 
@@ -214,15 +314,43 @@ def resolve_mode_policies(
     else :func:`default_policy`'s.  ``dense`` modes get their
     :class:`DenseModeData` in the layouts slot; they need the tensor's
     ``shape``.
+
+    ``policy="auto"`` asks the autotuner (``autotuner``, else a default
+    :class:`repro_torch.perf.autotune.Autotuner`) per mode, from the
+    mode's Π rows under ``factors`` and its ``B = A_n * lam``; a mode the
+    tuner sends to the dense tier runs it while the others keep their
+    sparse winners.  As in the JAX package, a served policy's strategy is
+    adopted unchecked: an unknown one fails inside the mode's first
+    update, where the degradation ladder's ``policy`` rung catches it
+    when the caller has turned the ladder on.
     """
-    if policy == "auto":
-        raise NotImplementedError(
-            "policy='auto' (the autotuner) is not ported yet: ROADMAP A7")
-    strategy = canonical_strategy(strategy)
     n_modes = len(mvs)
-    strategies = [strategy] * n_modes
     layouts: list = [None] * n_modes
     policies: list = [None] * n_modes
+    if policy == "auto":
+        from ..perf.autotune import Autotuner  # deferred: avoids a cycle
+
+        if shape is None or factors is None or lam is None:
+            raise ValueError("policy='auto' needs the tensor's shape, the "
+                             "factors and lam")
+        tuner = autotuner if autotuner is not None else Autotuner()
+        strategies = [strategy] * n_modes
+        for n, mv in enumerate(mvs):
+            stats = mode_run_stats(mv.rows.detach().cpu().numpy(), mv.n_rows,
+                                   row_width=_mode_row_width(shape, n))
+            pol = tuner.policy_for_mode(
+                mv.rows, mv.sorted_vals, pi_rows(mv.sorted_idx, factors, n),
+                factors[n] * lam[None, :], n_rows=mv.n_rows, rank=rank,
+                stats=stats, n_modes=n_modes)
+            policies[n] = pol
+            strategies[n] = pol.strategy
+            if pol.strategy == "dense":
+                layouts[n] = _dense_mode_data(mv, shape)
+            elif pol.strategy in ("blocked", "cuda"):
+                layouts[n] = _blocked_layout(mv, pol)
+        return strategies, layouts, policies
+    strategy = canonical_strategy(strategy)
+    strategies = [strategy] * n_modes
     if strategy == "dense":
         if shape is None:
             raise ValueError("strategy='dense' needs the tensor's shape")
@@ -235,11 +363,21 @@ def resolve_mode_policies(
         pol = policy if isinstance(policy, PhiPolicy) else default_policy(rank)
         for n, mv in enumerate(mvs):
             policies[n] = pol
-            layouts[n] = build_blocked_layout(
-                mv.rows.detach().cpu().numpy(), mv.n_rows,
-                pol.block_nnz, pol.block_rows,
-            )
+            layouts[n] = _blocked_layout(mv, pol)
     return strategies, layouts, policies
+
+
+def _restore_mode_layouts(mvs, strategies, policies, shape) -> list:
+    """Rebuild per-mode layouts exactly as checkpointed (tuned block
+    sizes from the saved policies, densified dense-tier modes), so the
+    resumed schedule is the killed run's."""
+    layouts: list = [None] * len(mvs)
+    for n, mv in enumerate(mvs):
+        if strategies[n] == "dense":
+            layouts[n] = _dense_mode_data(mv, shape)
+        elif strategies[n] in ("blocked", "cuda") and policies[n] is not None:
+            layouts[n] = _blocked_layout(mv, policies[n])
+    return layouts
 
 
 def _hoisted_steps(mv: ModeView, cfg: CPAPRConfig, strategy: str, layout,
@@ -310,25 +448,74 @@ def _make_mode_update(mv: ModeView, cfg: CPAPRConfig, strategy: str,
     return update
 
 
-def _check_supported(cfg: CPAPRConfig, resume_from) -> None:
+def _check_supported(cfg: CPAPRConfig) -> None:
+    """Raise :class:`NotPortedError` for every multi-device option, before
+    anything runs: the ladder must never "demote" one into a run."""
     unported = {
-        "mesh": (cfg.mesh is not None, "ROADMAP A8 (multi-device)"),
-        "n_shards": (cfg.n_shards is not None, "ROADMAP A8 (multi-device)"),
-        "grid_shape": (cfg.grid_shape is not None,
-                       "ROADMAP A8 (multi-device)"),
-        "rebalance_every": (cfg.rebalance_every != 0,
-                            "ROADMAP A8 (multi-device)"),
-        "checkpoint_every": (cfg.checkpoint_every != 0,
-                             "ROADMAP A4 (checkpoints)"),
-        "checkpoint_path": (cfg.checkpoint_path is not None,
-                            "ROADMAP A4 (checkpoints)"),
-        "resume_from": (resume_from is not None, "ROADMAP A4 (checkpoints)"),
-        "policy": (cfg.policy == "auto", "ROADMAP A7 (autotune)"),
+        "mesh": cfg.mesh is not None,
+        "n_shards": cfg.n_shards is not None,
+        "grid_shape": cfg.grid_shape is not None,
+        "rebalance_every": cfg.rebalance_every != 0,
     }
-    for name, (is_set, item) in unported.items():
+    for name, is_set in unported.items():
         if is_set:
-            raise NotImplementedError(
-                f"cpapr_mu: {name} is not ported yet: {item}")
+            raise NotPortedError(f"cpapr_mu: {name} is not ported yet: "
+                                 f"ROADMAP A8 (multi-device)")
+    canonical_strategy(cfg.strategy)  # sharded/grid raise here
+
+
+def _reference_name(strategy: str) -> str:
+    return _REFERENCE_NAME.get(strategy, strategy)
+
+
+def _ckpt_fingerprint(t: SparseTensor, cfg: CPAPRConfig) -> str:
+    """Problem/config fingerprint a checkpoint must match to be resumed.
+
+    Exactly the JAX package's fields and values, so a checkpoint resumes
+    across the packages: the port has no ``combine``, ``shard_pi`` or
+    ``grid_shape`` field and hashes the JAX package's defaults, and
+    ``cuda`` hashes as its JAX name ``pallas``.
+    """
+    return resilience.config_fingerprint({
+        "shape": [int(s) for s in t.shape],
+        "nnz": int(t.nnz),
+        "rank": int(cfg.rank),
+        "max_inner": int(cfg.max_inner),
+        "tol": float(cfg.tol),
+        "eps": float(cfg.eps),
+        "kappa": float(cfg.kappa),
+        "kappa_tol": float(cfg.kappa_tol),
+        "strategy": _reference_name(cfg.strategy),
+        "combine": "auto",
+        "shard_pi": True,
+        "grid_shape": None,
+    })
+
+
+def _load_resume_state(path: str, fp: str, recoveries: list) -> "dict | None":
+    """The verified state of checkpoint ``path``, or None after
+    quarantining a corrupt or mismatched file (recorded in
+    ``recoveries``).  A sound checkpoint of sharded or grid modes raises
+    :class:`NotPortedError` and stays where it is."""
+    try:
+        state = resilience.load_checkpoint(path)
+        if state.get("fingerprint") != fp:
+            raise resilience.CheckpointError(
+                f"{path}: checkpoint fingerprint "
+                f"{state.get('fingerprint')!r} does not match this "
+                f"problem/config ({fp!r})")
+    except resilience.CheckpointError as e:
+        qpath = resilience.quarantine_checkpoint(path)
+        recoveries.append(RecoveryEvent(
+            "checkpoint_corrupt", outer=0,
+            detail={"error": str(e), "quarantined": qpath}))
+        return None
+    if any(int(s) > 1 for s in state.get("mode_shards", [])):
+        raise NotPortedError(f"{path}: the checkpoint's modes are sharded, "
+                             f"which is not ported yet: ROADMAP A8")
+    state["strategies"] = [canonical_strategy(s)
+                           for s in state["strategies"]]
+    return state
 
 
 def cpapr_mu(
@@ -346,12 +533,16 @@ def cpapr_mu(
     ``init`` (a KTensor, e.g. from :mod:`repro_torch.core.convert`) is the
     starting model; without it one is drawn from ``seed`` (default 0).
     ``t`` and ``init`` are moved to ``device`` if they lie elsewhere.
+    ``resume_from`` continues a checkpointed solve (see
+    ``CPAPRConfig.checkpoint_every``); a corrupt or mismatched checkpoint
+    is quarantined (recorded in ``result.recoveries``) and the solve
+    starts fresh instead of dying.
     """
     dev = resolve_device(device)
     cfg = config or CPAPRConfig(rank=rank)
     if cfg.rank != rank:
         raise ValueError(f"cpapr_mu: rank={rank} but config.rank={cfg.rank}")
-    _check_supported(cfg, resume_from)
+    _check_supported(cfg)
     t = t.to(dev)
     if cfg.validate:
         resilience.validate_decomposition_inputs(t, rank, where="cpapr_mu")
@@ -366,33 +557,150 @@ def cpapr_mu(
     mvs = list(mode_views) if mode_views is not None else [
         sort_mode(t, n) for n in range(n_modes)
     ]
-    strategies, layouts, policies = resolve_mode_policies(
-        mvs, rank=rank, strategy=cfg.strategy, policy=cfg.policy,
-        shape=t.shape)
-    # per-mode effective config: the kappa ladder mutates these without
-    # touching the caller's cfg
-    mode_cfgs = [cfg] * n_modes
-    updates = [_make_mode_update(mvs[n], cfg, strategies[n], layouts[n], dev)
-               for n in range(n_modes)]
     recoveries: list = []
+    fp = _ckpt_fingerprint(t, cfg)
+    resume_state = None
+    if resume_from is not None:
+        resume_state = _load_resume_state(resume_from, fp, recoveries)
+
+    start_outer = 0
+    kkt_hist: list = []
+    ll_hist: list = []
+    inner_hist: list = []
+    if resume_state is None:
+        strategies, layouts, policies = resolve_mode_policies(
+            mvs, rank=rank, strategy=cfg.strategy, policy=cfg.policy,
+            shape=t.shape, factors=factors, lam=lam,
+            autotuner=cfg.autotuner)
+        # per-mode effective config: the kappa ladder mutates these
+        # without touching the caller's cfg
+        mode_cfgs = [cfg] * n_modes
+    else:
+        start_outer = int(resume_state["outer"])
+        factors = [resilience.array_to_tensor(f, dev)
+                   for f in resume_state["factors"]]
+        lam = resilience.array_to_tensor(resume_state["lam"], dev)
+        strategies = list(resume_state["strategies"])
+        policies = [policy_from_dict(p) if p else None
+                    for p in resume_state["policies"]]
+        layouts = _restore_mode_layouts(mvs, strategies, policies, t.shape)
+        # the per-mode kappa ladder, so the resumed trajectory matches the
+        # killed run even mid-recovery
+        mode_cfgs = [dataclasses.replace(cfg, kappa=float(k))
+                     for k in resume_state["kappas"]]
+        kkt_hist = list(resume_state["kkt_history"])
+        ll_hist = list(resume_state["loglik_history"])
+        inner_hist = list(resume_state["inner_iters"])
+        recoveries.extend(RecoveryEvent(**r)
+                          for r in resume_state.get("recoveries", []))
+        recoveries.append(RecoveryEvent(
+            "resume", outer=start_outer, detail={"path": resume_from}))
+
+    updates = [_make_mode_update(mvs[n], mode_cfgs[n], strategies[n],
+                                 layouts[n], dev)
+               for n in range(n_modes)]
 
     def _rebuild(n: int) -> None:
         updates[n] = _make_mode_update(mvs[n], mode_cfgs[n], strategies[n],
                                        layouts[n], dev)
 
-    def _run_mode(n: int, factors, lam):
+    def _ctx(outer: int, n: int) -> dict:
+        return {"outer": outer, "mode": n, "strategy": strategies[n],
+                "local": strategies[n], "combine": "auto", "n_shards": 1}
+
+    def _invoke(outer: int, n: int, factors, lam):
+        """One raw mode-update attempt: fault hooks, the update, the
+        post-update hooks, then the guard."""
+        ctx = _ctx(outer, n)
+        if resilience.have_hooks():
+            resilience.fire_mode_hooks(ctx)
         a_new, lam_new, viol, n_inner = updates[n](factors, lam)
+        if resilience.have_post_update_hooks():
+            a_new, lam_new = resilience.apply_post_update_hooks(
+                ctx, a_new, lam_new)
         ok = resilience.guard_ok(a_new, lam_new) if cfg.guard else None
         return a_new, lam_new, viol, n_inner, ok
 
-    kkt_hist: list = []
-    ll_hist: list = []
-    inner_hist: list = []
+    def _demote(n: int, kind: str, exc: BaseException) -> "dict | None":
+        """Take one degradation-ladder rung for mode ``n``; returns the
+        recovery detail, or None when no rung applies (the error then
+        propagates).  The OOM, fingerprint and grid rungs are multi-device
+        (ROADMAP A8)."""
+        if kind not in ("kernel", "policy"):
+            return None
+        old = strategies[n]
+        if old in STRATEGY_DEMOTION:
+            new = STRATEGY_DEMOTION[old]
+        elif kind == "policy" and old != "segment":
+            # e.g. a poisoned autotune entry naming a strategy that does
+            # not exist: fall to the always-available baseline
+            new = "segment"
+        else:
+            return None
+        if old == "dense":
+            # a dense launch that started and did not complete leaves its
+            # stream's tickets dirty: no later dense call may reuse them
+            from ..kernels.dense.kernel import drop_workspace
+
+            drop_workspace(dev)
+        strategies[n] = new
+        if new not in ("blocked", "cuda"):
+            layouts[n] = None
+        return {"error": f"{type(exc).__name__}: {exc}"[:200],
+                "action": f"{old}->{new}"}
+
+    def _run_mode(outer: int, n: int, factors, lam):
+        """Mode update under the degradation ladder: classified runtime
+        failures demote one rung and retry with bounded backoff."""
+        for attempt in range(cfg.max_demotions + 1):
+            try:
+                return _invoke(outer, n, factors, lam)
+            except Exception as e:
+                kind = resilience.classify_failure(e)
+                if kind is None or attempt >= cfg.max_demotions:
+                    raise
+                detail = _demote(n, kind, e)
+                if detail is None:
+                    raise
+                recoveries.append(RecoveryEvent(
+                    f"demote_{kind}", outer=outer, mode=n, attempt=attempt,
+                    detail=detail))
+                resilience.backoff_sleep(attempt, cfg.demote_backoff)
+                _rebuild(n)
+        raise AssertionError("unreachable")  # pragma: no cover
+
+    def _write_checkpoint(n_outer: int) -> None:
+        resilience.save_checkpoint(cfg.checkpoint_path, {
+            "fingerprint": fp,
+            "outer": int(n_outer),
+            "kkt_history": kkt_hist,
+            "loglik_history": ll_hist,
+            "inner_iters": inner_hist,
+            "rebalances": [],
+            "recoveries": [dataclasses.asdict(r) for r in recoveries],
+            "policies": [
+                None if p is None else dict(
+                    dataclasses.asdict(p),
+                    strategy=_reference_name(p.strategy))
+                for p in policies],
+            "strategies": [_reference_name(s) for s in strategies],
+            "locals": [_reference_name(s) if s in ("blocked", "cuda")
+                       else "blocked" for s in strategies],
+            "combines": ["auto"] * n_modes,
+            "kappas": [float(mc.kappa) for mc in mode_cfgs],
+            "mode_shards": [1] * n_modes,
+            "mode_grids": [None] * n_modes,
+            "rb_bounds": {},
+            "lam": lam,
+            "factors": factors,
+        })
+
     sweep_secs: list = []
     converged = False
     t0 = time.perf_counter()
-    n_outer = 0
-    for k in range(cfg.max_outer):
+    n_outer = start_outer
+    k = start_outer
+    while k < cfg.max_outer:
         n_outer = k + 1
         ts = time.perf_counter()
         # sweep-start snapshot: the guards restore it (and redo the whole
@@ -401,7 +709,8 @@ def cpapr_mu(
         ll = None
         for sweep_attempt in range(cfg.guard_retries + 1):
             out = sweep_step((factors, lam),
-                             [partial(_run_mode, n) for n in range(n_modes)],
+                             [partial(_run_mode, n_outer, n)
+                              for n in range(n_modes)],
                              guard=cfg.guard)
             factors, lam, bad = out.factors, out.lam, out.bad
             worst = out.worst if out.worst is not None else 0.0
@@ -455,6 +764,10 @@ def cpapr_mu(
         if worst <= cfg.tol:
             converged = True
             break
+        if (cfg.checkpoint_every > 0 and cfg.checkpoint_path
+                and n_outer % cfg.checkpoint_every == 0):
+            _write_checkpoint(n_outer)
+        k += 1
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     seconds = time.perf_counter() - t0

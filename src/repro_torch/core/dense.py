@@ -83,8 +83,8 @@ def build_dense_mode(idx, vals, shape, mode: int,
     k_modes = tuple(m for m in others if m != j_mode)
     if isinstance(idx, torch.Tensor):
         idx = idx.detach().cpu().numpy()
-    if isinstance(vals, torch.Tensor):
-        vals = vals.detach().cpu().numpy()
+    if isinstance(vals, torch.Tensor):  # x is f32 whatever the values' dtype
+        vals = vals.detach().cpu().float().numpy()
     idx = np.asarray(idx)
     vals = np.asarray(vals, np.float32)
     n_k = math.prod(shape[m] for m in k_modes) if k_modes else 1

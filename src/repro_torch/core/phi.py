@@ -54,6 +54,7 @@ from .dense import build_dense_mode, dense_kr_factors
 from .layout import BlockedLayout, build_blocked_layout, mode_run_stats, pad_rows
 from .pi import pi_rows
 from .policy import default_policy, heuristic_policy
+from .resilience import NotPortedError
 from .sparse_tensor import ModeView
 
 __all__ = [
@@ -81,7 +82,7 @@ def canonical_strategy(strategy: str) -> str:
     the strategies that later slices will add."""
     s = _ALIASES.get(strategy, strategy)
     if s in _LATER:
-        raise NotImplementedError(
+        raise NotPortedError(
             f"strategy {strategy!r} is not ported yet: {_LATER[s]}")
     if s not in PHI_STRATEGIES:
         raise ValueError(f"unknown strategy {strategy!r}")
@@ -122,10 +123,25 @@ def _uniform_segment_sum(contrib: torch.Tensor, n_rows: int) -> torch.Tensor:
     return c.reshape(n_rows, group, r).sum(dim=1)
 
 
+def _index_add_rows(rows, contrib, n_rows: int, strategy: str,
+                    rows_dtype: torch.dtype) -> torch.Tensor:
+    """``out[rows[j]] += contrib[j]`` in the result dtype of the JAX
+    package's strategy: ``scatter`` adds into a buffer of the gathered
+    rows' dtype (``jnp.zeros(.., pi.dtype).at[rows].add``, so mixed bf16
+    rows and f32 values give bf16), ``segment`` keeps the contributions'
+    promoted dtype (``segment_sum``: f32 there)."""
+    dt = rows_dtype if strategy == "scatter" else contrib.dtype
+    out = torch.zeros((n_rows, contrib.shape[1]), dtype=dt,
+                      device=contrib.device)
+    return out.index_add_(0, rows, contrib.to(dt))
+
+
 def _phi_unblocked(rows, vals, pi, b, n_rows: int, eps: float,
-                   perturb: str | None = None) -> torch.Tensor:
+                   perturb: str | None = None,
+                   strategy: str = "segment") -> torch.Tensor:
     """``scatter`` and ``segment``: one ``index_add_`` over the stream
-    (the stream's order is the only difference between the two)."""
+    (the stream's order and, on mixed dtypes, the result dtype are the
+    only differences between the two)."""
     if perturb == "perfect_reuse":
         rows = torch.zeros_like(rows)
     s = torch.sum(b[rows] * pi, dim=1)
@@ -133,16 +149,16 @@ def _phi_unblocked(rows, vals, pi, b, n_rows: int, eps: float,
     contrib = w[:, None] * pi
     if perturb == "no_conflict":
         return _uniform_segment_sum(contrib, n_rows)
-    out = torch.zeros((n_rows, pi.shape[1]), dtype=pi.dtype, device=pi.device)
-    return out.index_add_(0, rows, contrib)
+    return _index_add_rows(rows, contrib, n_rows, strategy, pi.dtype)
 
 
-def _krao_unblocked(rows, vals, kr, n_rows: int) -> torch.Tensor:
+def _krao_unblocked(rows, vals, kr, n_rows: int,
+                    strategy: str = "segment") -> torch.Tensor:
     """Plain Khatri-Rao reduction ``out[i] += x_j * kr_j`` (unblocked):
     ``scatter`` and ``segment`` of :func:`krao_reduce_rows`.  ``index_add_``
     is correct in any row order, so unsorted COO needs no special case."""
-    out = torch.zeros((n_rows, kr.shape[1]), dtype=kr.dtype, device=kr.device)
-    return out.index_add_(0, rows, vals[:, None] * kr)
+    return _index_add_rows(rows, vals[:, None] * kr, n_rows, strategy,
+                           kr.dtype)
 
 
 def _phi_blocked_core(vals, pi, local_rows, grid_rb, b_win, *,
@@ -187,10 +203,14 @@ def _phi_blocked_core(vals, pi, local_rows, grid_rb, b_win, *,
     else:
         step_rows = (torch.arange(g, device=vals.device)[:, None] * br
                      + lrow.reshape(g, bn)).reshape(-1)
-        partial = torch.zeros((g * br, r), dtype=pi.dtype, device=pi.device)
+        partial = torch.zeros((g * br, r), dtype=contrib.dtype,
+                              device=pi.device)
         partial = partial.index_add_(0, step_rows, contrib.reshape(-1, r))
         partial = partial.reshape(g, br, r)
-    phi = torch.zeros((n_row_blocks, br, r), dtype=pi.dtype, device=pi.device)
+    # the contributions' promoted dtype, as the JAX package's einsum and
+    # segment_sum keep it (f32 for bf16 rows with f32 values or B)
+    phi = torch.zeros((n_row_blocks, br, r), dtype=contrib.dtype,
+                      device=pi.device)
     phi.index_add_(0, rb, partial)  # cross-step combine
     return phi.reshape(n_row_blocks * br, r)
 
@@ -313,7 +333,8 @@ def phi_from_rows(
         x, c, a = _dense_operands(dense, factors, b)
         return dense_ops.phi_dense(x, c, a, b, eps=eps)
     if strategy in ("scatter", "segment"):
-        return _phi_unblocked(rows, vals, pi, b, n_rows, eps, perturb)
+        return _phi_unblocked(rows, vals, pi, b, n_rows, eps, perturb,
+                              strategy)
     layout, vals_e, pi_e = _resolve_layout(rows, n_rows, layout, vals, pi,
                                            vals_e, pi_e)
     if strategy == "blocked":
@@ -373,8 +394,8 @@ def phi_mu_step(
         mu, viol = dense_ops.phi_mu_dense(x, c, a, b, eps=eps)
         return torch.where(viol > tol, mu, b), viol
     if strategy in ("scatter", "segment"):
-        return _mu_epilogue(b, _phi_unblocked(rows, vals, pi, b, n_rows, eps),
-                            tol)
+        return _mu_epilogue(b, _phi_unblocked(rows, vals, pi, b, n_rows, eps,
+                                              strategy=strategy), tol)
     layout, vals_e, pi_e = _resolve_layout(rows, n_rows, layout, vals, pi,
                                            vals_e, pi_e)
     if strategy == "blocked":
@@ -433,7 +454,7 @@ def krao_reduce_rows(
         x, c, a = _dense_operands(dense, factors)
         return dense_ops.mttkrp_dense(x, c, a)
     if strategy in ("scatter", "segment"):
-        return _krao_unblocked(rows, vals, kr, n_rows)
+        return _krao_unblocked(rows, vals, kr, n_rows, strategy)
     layout, vals_e, kr_e = _resolve_layout(rows, n_rows, layout, vals, kr,
                                            vals_e, kr_e)
     if strategy == "blocked":

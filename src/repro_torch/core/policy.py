@@ -13,9 +13,10 @@ candidates to the ones worth measuring.
 
 ``heuristic_policy`` gives the same outputs as the JAX package's for
 ``platform="cpu"`` and ``"tpu"``; ``platform="cuda"`` sizes the blocking to
-the Φ kernel's shared memory on the H100.  The solver on the card still
+the Φ kernel's shared memory on the H100.  The solver on the card
 blocks at :func:`default_policy` (256 x 256) unless given a
-:class:`PhiPolicy`.
+:class:`PhiPolicy` or ``policy="auto"`` (the autotuner,
+:mod:`repro_torch.perf.autotune`).
 """
 from __future__ import annotations
 
@@ -87,7 +88,9 @@ def vmem_footprint_bytes(p: PhiPolicy, rank: int, itemsize: int = 4) -> int:
 # memory to a quarter of a block's.  Neither premise holds for the
 # persistent per-warp kernel: its CTAs walk contiguous slot ranges, and its
 # footprint (at most 56 KB, independent of block_rows) never reaches the
-# budget.  Retuning waits for a measured grid (ROADMAP A7).
+# budget.  The autotuner (policy="auto") measures in its place; its
+# CUDA-graph probes find uber's blockings within a few percent of one
+# another (PERF.md, section 6).
 _H100_SMS = 132
 _BLOCKS_PER_SM = 8
 _WAVES = 4

@@ -22,15 +22,38 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["BUILD_DIR", "CSRC", "DTYPE_CODE", "NVCC_FLAGS", "build_all",
-           "build_library", "check_launch", "find_nvcc", "load_library",
-           "stream_of"]
+__all__ = ["BUILD_DIR", "BuildError", "CSRC", "DTYPE_CODE", "LaunchError",
+           "NVCC_FLAGS", "STICKY_CUDA_ERRORS", "build_all", "build_library",
+           "check_launch", "find_nvcc", "load_library", "stream_of"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 # src/repro_torch/kernels/_build.py -> repository root
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+#: cudaError codes that leave the CUDA context unusable: an illegal
+#: address (700), a device-side assert (710), a hardware stack error
+#: (714), an illegal instruction (715), a misaligned address (716) and an
+#: unspecified launch failure (719).  Nothing in the same process can
+#: recover from them, so the degradation ladder must not try.
+STICKY_CUDA_ERRORS = frozenset({700, 710, 714, 715, 716, 719})
+
+
+class BuildError(RuntimeError):
+    """A kernel source could not be built: no ``nvcc``, or ``nvcc``
+    failed on it."""
+
+
+class LaunchError(RuntimeError):
+    """A C launcher returned a CUDA error; ``code`` is the cudaError and
+    ``sticky`` says whether it left the context unusable."""
+
+    def __init__(self, name: str, code: int):
+        self.code = int(code)
+        self.sticky = self.code in STICKY_CUDA_ERRORS
+        super().__init__(f"{name}: CUDA launch failed with cudaError "
+                         f"{self.code}" + (" (sticky)" if self.sticky else ""))
 
 
 def find_nvcc() -> str:
@@ -46,7 +69,7 @@ def find_nvcc() -> str:
     for c in cands:
         if os.path.isfile(c) and os.access(c, os.X_OK):
             return c
-    raise RuntimeError(
+    raise BuildError(
         "nvcc not found (looked in $CUDA_HOME/bin, PATH, /usr/local/cuda/bin);"
         " the CUDA kernels are built from source at first use"
     )
@@ -83,7 +106,7 @@ def _finish(name: str, out: Path, tmp, proc) -> Path:
     if proc.returncode != 0:
         if tmp.exists():
             tmp.unlink()
-        raise RuntimeError(f"nvcc failed on csrc/{name}.cu "
+        raise BuildError(f"nvcc failed on csrc/{name}.cu "
                            f"(exit {proc.returncode}):\n{log}")
     os.replace(tmp, out)  # atomic: a concurrent reader sees all or nothing
     return out
@@ -104,7 +127,7 @@ def build_all(names=None) -> dict:
     for n in names:  # wait for every nvcc before raising any failure
         try:
             built[n] = _finish(n, *started[n])
-        except RuntimeError as e:
+        except BuildError as e:
             errors.append(e)
     if errors:
         raise errors[0]
@@ -143,6 +166,7 @@ def stream_of(t: torch.Tensor) -> int:
 
 
 def check_launch(name: str, err: int) -> None:
-    """Raise if a C launcher returned a CUDA error code."""
+    """Raise :class:`LaunchError` if a C launcher returned a CUDA error
+    code."""
     if err != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
+        raise LaunchError(name, err)

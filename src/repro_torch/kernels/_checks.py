@@ -12,10 +12,17 @@ import torch
 
 from .dtypes import check_kernel_dtype
 
-__all__ = ["MAX_RANK", "SMEM_LIMIT", "check_card_limits", "check_layout_operands"]
+__all__ = ["CardLimitError", "MAX_RANK", "SMEM_LIMIT", "check_card_limits",
+           "check_layout_operands"]
 
 MAX_RANK = 1024  # the largest rank the CUDA kernels take
 SMEM_LIMIT = 232_448  # bytes of shared memory a block may use on Hopper
+
+
+class CardLimitError(ValueError):
+    """A launch the card could not run, refused before it starts: a rank
+    outside 1..MAX_RANK or more shared memory per block than Hopper has.
+    The JAX package's kernel tier fails the same cases at compile time."""
 
 
 def check_layout_operands(name: str, grid_rb, vals_e, local_rows, rows_e,
@@ -68,10 +75,10 @@ def check_card_limits(name: str, rank: int, *, block_nnz: int,
     """Raise where a launch on the card could not run: a rank outside
     1..MAX_RANK, or ``smem_bytes(rank)`` above Hopper's shared memory."""
     if not 1 <= rank <= MAX_RANK:
-        raise ValueError(f"{name}: rank {rank} outside 1..{MAX_RANK}")
+        raise CardLimitError(f"{name}: rank {rank} outside 1..{MAX_RANK}")
     smem = smem_bytes(rank)
     if smem > SMEM_LIMIT:
-        raise ValueError(
+        raise CardLimitError(
             f"{name}: block_nnz={block_nnz}, block_rows={block_rows} at "
             f"rank {rank} need {smem} bytes of shared memory per block "
             f"(limit {SMEM_LIMIT})"

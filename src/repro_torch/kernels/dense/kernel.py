@@ -134,15 +134,24 @@ def launch_shape(k: int, i: int, j: int, rank: int,
 _WORK: dict = {}  # (device, stream, partials, tickets) -> (part, tickets)
 
 
+def _stream_key(device) -> tuple:
+    """(device with its index, current stream) for ``device``: ``"cuda"``
+    and ``"cuda:0"`` name the same workspaces."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return dev, 0
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev, torch.cuda.current_stream(dev).cuda_stream
+
+
 def workspace(shape: DenseShape, device) -> tuple:
     """(partials, tickets) for a call on ``device``'s current stream, kept
     per stream and size: the partials' contents do not matter, and the
     tickets, zeroed when the buffer is made, are left zero by every
     launch (the last CTA of each level of the tree resets its ticket), so
     the calls on one stream, which run in turn, share them."""
-    dev = torch.device(device)
-    stream = (torch.cuda.current_stream(dev).cuda_stream
-              if dev.type == "cuda" else 0)
+    dev, stream = _stream_key(device)
     key = (dev, stream, shape.part_numel, shape.n_tickets)
     if key not in _WORK:
         _WORK[key] = (
@@ -205,3 +214,15 @@ def launch_phi_mu(x, c, a, b, mu, viol, part, tickets, shape: DenseShape, *,
             tickets.data_ptr(), *_args(x, c, shape), float(eps),
             stream_of(x))
     check_launch("dense_phi_mu", err)
+
+
+def drop_workspace(device) -> int:
+    """Forget every workspace of ``device``'s current stream; returns how
+    many were dropped.  A launch that started and did not complete may
+    leave its tickets nonzero, so after a failed dense call the stream's
+    next call must get fresh, zeroed ones."""
+    dev, stream = _stream_key(device)
+    stale = [k for k in _WORK if k[:2] == (dev, stream)]
+    for k in stale:
+        del _WORK[k]
+    return len(stale)

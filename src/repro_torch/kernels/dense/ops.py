@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from .._checks import MAX_RANK, SMEM_LIMIT
+from .._checks import MAX_RANK, SMEM_LIMIT, CardLimitError
 from ..dtypes import ACC_DTYPE, check_kernel_dtype
 from . import kernel, ref
 
@@ -72,10 +72,10 @@ def _prep(name, x, c, a, b, block_k) -> tuple:
     if x.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {x.device}")
     if r > MAX_RANK:
-        raise ValueError(f"{name}: rank {r} outside 1..{MAX_RANK}")
+        raise CardLimitError(f"{name}: rank {r} outside 1..{MAX_RANK}")
     shape = kernel.launch_shape(k, i, j, r, dt, name)
     if shape.smem > SMEM_LIMIT:
-        raise ValueError(f"{name}: rank {r} needs {shape.smem} bytes of "
+        raise CardLimitError(f"{name}: rank {r} needs {shape.smem} bytes of "
                          f"shared memory per block (limit {SMEM_LIMIT})")
     return dt, shape
 

@@ -14,6 +14,13 @@ place of ``block_until_ready``, so the host clock covers the device work.
 internally: one call covers ``burst`` algorithm iterations, so
 per-iteration numbers include the revisit/cache effects a one-shot call
 misses while amortizing the launch overhead a one-shot call over-counts.
+
+:func:`step_burst_seconds` times ``burst`` chained calls ``b <- step(b)``
+(the autotuner's probe of the solver's inner loop).  On the card the
+burst is captured once in a CUDA graph (:func:`graph_burst`) and the
+replays are timed with CUDA events, so the host's time per wrapper call
+(0.03-0.15 ms) stays out of the measurement; on the CPU the plain loop is
+timed with ``perf_counter``.
 """
 from __future__ import annotations
 
@@ -23,7 +30,8 @@ from typing import Callable
 
 import torch
 
-__all__ = ["bandwidth_gbs", "bench_burst_seconds", "bench_seconds", "cuda_ms"]
+__all__ = ["bandwidth_gbs", "bench_burst_seconds", "bench_seconds", "cuda_ms",
+           "graph_burst", "step_burst_seconds"]
 
 
 def _require_cuda(where: str) -> None:
@@ -109,6 +117,65 @@ def bench_burst_seconds(
         kwargs["burst"] = burst
     sec = bench_seconds(fn, *args, warmup=warmup, iters=iters, **kwargs)
     return sec / burst
+
+
+def _chain(step: Callable, b, burst: int) -> tuple:
+    """``burst`` calls ``b <- step(b)``; returns the last ``(b, viol)``."""
+    viol = None
+    for _ in range(burst):
+        b, viol = step(b)
+    return b, viol
+
+
+def graph_burst(step: Callable, b: torch.Tensor, burst: int,
+                warmup: int = 1) -> tuple:
+    """Capture ``burst`` chained calls ``b <- step(b)`` in one CUDA graph.
+
+    ``step(b) -> (b', viol)`` must be capturable (no host sync).  After
+    ``warmup`` eager bursts (which load the kernels' libraries and cache
+    the layouts' device copies) the burst is captured.  Returns
+    ``(replay, (b_out, viol))``: each ``replay()`` reruns the burst from
+    ``b``, leaving its result in the static ``b_out`` and ``viol``.
+    """
+    if burst < 1:
+        raise ValueError(f"burst must be >= 1, got {burst}")
+    _require_cuda("graph_burst")
+    for _ in range(warmup):
+        _chain(step, b, burst)
+    torch.cuda.synchronize(b.device)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = _chain(step, b, burst)
+    return graph.replay, out
+
+
+def step_burst_seconds(step: Callable, b: torch.Tensor, burst: int,
+                       warmup: int = 1, iters: int = 2) -> float:
+    """Median seconds per step of ``burst`` chained calls ``b <- step(b)``.
+
+    On a CUDA ``b`` the burst runs as one CUDA graph (:func:`graph_burst`)
+    replayed ``iters`` times between CUDA events: device time, with no
+    host time per call in it.  On the CPU the plain loop is timed with
+    the host clock (:func:`bench_burst_seconds`).
+    """
+    if burst < 1:
+        raise ValueError(f"burst must be >= 1, got {burst}")
+    if b.device.type != "cuda":
+        return bench_burst_seconds(lambda: _chain(step, b, burst),
+                                   burst=burst, warmup=warmup, iters=iters,
+                                   pass_burst=False)
+    replay, _ = graph_burst(step, b, burst, warmup=warmup)
+    times = []
+    for _ in range(max(iters, 1)):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        replay()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop) / 1e3)
+    times.sort()
+    return times[len(times) // 2] / burst
 
 
 def bandwidth_gbs(bytes_moved: float, seconds: float) -> float:

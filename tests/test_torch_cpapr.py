@@ -10,8 +10,12 @@ be equal, for the port's ``cuda`` (its plain version on the CPU),
 
 Also: import hygiene (``repro_torch`` loads neither ``jax`` nor
 ``repro``), the device default (no CUDA and no ``device="cpu"`` raises),
-the unported options raising, input validation and the guard.
+the multi-device options raising before the degradation ladder, the
+checkpoint, resume and ``policy="auto"`` options running, input
+validation and the guard; and C1, mixed bf16 factors with f32 values,
+end to end against the reference.
 """
+import dataclasses
 import functools
 import os
 import pathlib
@@ -150,10 +154,44 @@ def test_cuda_strategy_raises_on_f64():
         P_cpapr.cpapr_mu(pt, RANK, init=pkt64, config=cfg, device="cpu")
 
 
+@pytest.mark.parametrize("strategy", ("scatter", "segment", "blocked"))
+@pytest.mark.parametrize("kind", FIXTURES)
+def test_mixed_bf16_factors_solve_like_reference(kind, strategy):
+    """C1 end to end: the fixture's starting factors in bf16 with f32 λ
+    and values.  The reference runs 4 sweeps of 30 inner iterations and
+    returns f32 factors; so must the port, within TOL_BF16."""
+    import jax.numpy as jnp
+
+    from repro.core.sparse_tensor import KTensor as RKTensor
+
+    from test_conformance import TOL_BF16
+
+    t, kt = make_fixture(kind)
+    rkt = RKTensor(lam=kt.lam, factors=tuple(f.astype(jnp.bfloat16)
+                                             for f in kt.factors))
+    pol = dict(block_nnz=BN, block_rows=BR)
+    want = R_cpapr.cpapr_mu(t, RANK, init=rkt, config=R_cpapr.CPAPRConfig(
+        rank=RANK, max_outer=MAX_OUTER, strategy=strategy,
+        policy=RPolicy(**pol)))
+    pt, pkt = port_problem(kind)
+    pkt = type(pkt)(lam=pkt.lam, factors=tuple(f.to(torch.bfloat16)
+                                               for f in pkt.factors))
+    got = P_cpapr.cpapr_mu(pt, RANK, init=pkt, device="cpu",
+                           config=P_cpapr.CPAPRConfig(
+                               rank=RANK, max_outer=MAX_OUTER,
+                               strategy=strategy, policy=PPolicy(**pol)))
+    assert got.inner_iters == want.inner_iters == [30] * MAX_OUTER
+    assert got.recoveries is None
+    for gf, wf in zip(got.ktensor.factors, want.ktensor.factors):
+        assert gf.dtype == torch.float32 and str(wf.dtype) == "float32"
+        np.testing.assert_allclose(gf.numpy(), np.asarray(wf), **TOL_BF16)
+    np.testing.assert_allclose(got.loglik_history, want.loglik_history,
+                               **TOL_BF16)
+
+
 @pytest.mark.parametrize("field,value", [
     ("mesh", object()), ("n_shards", 2), ("grid_shape", (2, 2)),
-    ("rebalance_every", 1), ("checkpoint_every", 1),
-    ("checkpoint_path", "ckpt.bin"), ("policy", "auto"),
+    ("rebalance_every", 1),
 ])
 def test_unported_options_raise(field, value):
     pt, pkt = port_problem("uniform")
@@ -162,11 +200,59 @@ def test_unported_options_raise(field, value):
         P_cpapr.cpapr_mu(pt, RANK, init=pkt, config=cfg, device="cpu")
 
 
-def test_resume_from_raises():
+@pytest.mark.parametrize("field,value", [
+    ("n_shards", 2), ("rebalance_every", 1), ("strategy", "sharded"),
+    ("strategy", "grid"),
+])
+def test_multi_device_options_raise_before_the_ladder(tmp_path, field,
+                                                     value):
+    """An A8 option raises before any mode runs, even with the ladder
+    armed (a kernel fault that would be demoted is pending) and with
+    checkpoints on: nothing is demoted and no checkpoint is written."""
+    from repro_torch.core import resilience
+    from repro_torch.testing import faults
+
     pt, pkt = port_problem("uniform")
-    with pytest.raises(NotImplementedError, match="resume_from"):
-        P_cpapr.cpapr_mu(pt, RANK, init=pkt, resume_from="x.ckpt",
-                         device="cpu")
+    cfg = P_cpapr.CPAPRConfig(rank=RANK, max_outer=2, checkpoint_every=1,
+                              checkpoint_path=str(tmp_path / "never.ckpt"),
+                              max_demotions=4, **{field: value})
+    with faults.fail_strategy(strategy="segment") as budget:
+        with pytest.raises(resilience.NotPortedError, match="ROADMAP A8"):
+            P_cpapr.cpapr_mu(pt, RANK, init=pkt, config=cfg, device="cpu")
+    assert budget == [1]  # no mode ran
+    assert not (tmp_path / "never.ckpt").exists()
+    assert resilience.classify_failure(
+        resilience.NotPortedError("ROADMAP A8")) is None
+
+
+@pytest.mark.parametrize("case", ("checkpoint", "resume", "auto"))
+def test_checkpoint_resume_and_auto_run(tmp_path, case):
+    """The options that raised "not ported" before the fault-tolerant
+    runtime and the autotuner existed now run: a checkpointing solve
+    writes a checkpoint the JAX package's loader accepts, ``resume_from``
+    continues it, and ``policy="auto"`` tunes every mode."""
+    from repro_torch.perf.autotune import Autotuner
+
+    pt, pkt = port_problem("uniform")
+    ck = str(tmp_path / "ck.bin")
+    cfg = P_cpapr.CPAPRConfig(rank=RANK, max_outer=2, checkpoint_every=1,
+                              checkpoint_path=ck)
+    if case == "auto":
+        tuner = Autotuner(cache_path=str(tmp_path / "c.json"), measure=False)
+        res = P_cpapr.cpapr_mu(pt, RANK, init=pkt, device="cpu",
+                               config=P_cpapr.CPAPRConfig(
+                                   rank=RANK, max_outer=2, policy="auto",
+                                   autotuner=tuner))
+        assert len(res.policies) == 3 and tuner.n_searches == 3
+        return
+    res = P_cpapr.cpapr_mu(pt, RANK, init=pkt, config=cfg, device="cpu")
+    assert R_res.load_checkpoint(ck)["outer"] == res.n_outer == 2
+    if case == "resume":
+        more = dataclasses.replace(cfg, max_outer=3)
+        res2 = P_cpapr.cpapr_mu(pt, RANK, init=pkt, config=more,
+                                resume_from=ck, device="cpu")
+        assert res2.n_outer == 3 and len(res2.sweep_seconds) == 1
+        assert [e.kind for e in res2.recoveries] == ["resume"]
 
 
 @pytest.mark.parametrize("bad", ("index", "negative", "nan", "rank"))

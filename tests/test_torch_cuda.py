@@ -23,6 +23,7 @@ bitwise.
 import dataclasses
 import functools
 import re
+import sys
 
 import numpy as np
 import pytest
@@ -751,3 +752,167 @@ def test_detect_hardware_spec_on_the_card(card):
     else:
         with pytest.raises(ValueError, match=re.escape(name)):
             roofline.detect_hardware_spec()
+
+
+# --- the degradation ladder and the autotuner on the card -------------------
+
+
+@pytest.mark.cuda
+def test_card_limit_refusal_demotes_cuda_to_blocked(card):
+    """A real, unsimulated demotion: at rank 1025 the Φ kernel's wrapper
+    refuses the launch before it starts (``check_card_limits``), the
+    ladder demotes the mode ``cuda -> blocked`` with its record, and the
+    solve finishes on the card."""
+    from repro_torch.core.sparse_tensor import random_poisson_tensor as rpt
+
+    t, _ = rpt((12, 10, 8), nnz=200, rank=4, seed=5, device="cpu")
+    kt = random_ktensor(t.shape, 1025, seed=6, device="cpu")
+    ops.reset_launch_counts()
+    res = P_cpapr.cpapr_mu(t, 1025, init=kt, device=card,
+                           config=P_cpapr.CPAPRConfig(
+                               rank=1025, max_outer=2, strategy="cuda",
+                               max_demotions=4))
+    assert ops.launch_counts == {"phi_blocked": 0, "phi_mu_blocked": 0}
+    kinds = [(e.kind, e.mode, e.detail["action"]) for e in res.recoveries]
+    assert kinds == [("demote_kernel", n, "cuda->blocked") for n in range(3)]
+    assert "rank 1025 outside 1..1024" in res.recoveries[0].detail["error"]
+    assert res.n_outer == 2 and np.isfinite(res.loglik_history).all()
+
+
+@pytest.mark.cuda
+def test_card_limit_refusal_raises_without_the_ladder(card):
+    """The ladder is off by default: the refused launch reaches the
+    caller instead of a run of the plain version on the card."""
+    from repro_torch.core.sparse_tensor import random_poisson_tensor as rpt
+    from repro_torch.kernels._checks import CardLimitError
+
+    t, _ = rpt((12, 10, 8), nnz=200, rank=4, seed=5, device="cpu")
+    kt = random_ktensor(t.shape, 1025, seed=6, device="cpu")
+    ops.reset_launch_counts()
+    with pytest.raises(CardLimitError, match="rank 1025 outside 1..1024"):
+        P_cpapr.cpapr_mu(t, 1025, init=kt, device=card,
+                         config=P_cpapr.CPAPRConfig(rank=1025, max_outer=2,
+                                                    strategy="cuda"))
+    assert ops.launch_counts == {"phi_blocked": 0, "phi_mu_blocked": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strategy", ("cuda", "dense"))
+def test_bf16_checkpoint_resumes_on_the_card(card, tmp_path, monkeypatch,
+                                              strategy):
+    """bf16 values and factors through the kernels: the checkpoint keeps
+    the factors' bits without ``ml_dtypes``, and the solve resumes from
+    it on the card."""
+    from repro_torch.core import resilience
+
+    monkeypatch.setitem(sys.modules, "ml_dtypes", None)
+    t, kt = fixture("uniform")
+    t = dataclasses.replace(t, values=t.values.to(torch.bfloat16))
+    kt = type(kt)(lam=kt.lam.to(torch.bfloat16),
+                  factors=tuple(f.to(torch.bfloat16) for f in kt.factors))
+    ck = str(tmp_path / "ck.bin")
+    pol = PhiPolicy(strategy="cuda", block_nnz=BN, block_rows=BR) \
+        if strategy == "cuda" else None
+
+    def cfg(max_outer):
+        return P_cpapr.CPAPRConfig(rank=RANK, max_outer=max_outer, tol=0.0,
+                                   strategy=strategy, policy=pol,
+                                   checkpoint_every=1, checkpoint_path=ck)
+
+    first = P_cpapr.cpapr_mu(t, RANK, init=kt, device=card, config=cfg(3))
+    saved = resilience.load_checkpoint(ck)
+    assert saved["outer"] == 3
+    for a, f in zip(saved["factors"], first.ktensor.factors):
+        back = resilience.array_to_tensor(a, "cpu")
+        assert back.dtype == torch.bfloat16
+        assert torch.equal(back.view(torch.int16),
+                           f.cpu().view(torch.int16))
+    res = P_cpapr.cpapr_mu(t, RANK, init=kt, device=card, config=cfg(5),
+                           resume_from=ck)
+    assert [e.kind for e in res.recoveries] == ["resume"]
+    assert res.n_outer == 5 and len(res.sweep_seconds) == 2
+    assert res.loglik_history[:3] == first.loglik_history
+    assert all(f.dtype == torch.bfloat16 and bool(torch.isfinite(f).all())
+               for f in res.ktensor.factors)
+
+
+@pytest.mark.cuda
+def test_dense_demotion_drops_the_streams_dirty_tickets(card):
+    """A dense launch that started and did not complete leaves its
+    stream's tickets dirty.  Dirty them by hand, demote a dense mode
+    through the ladder, and the next dense call on that stream gets fresh
+    tickets and matches its plain version."""
+    from repro_torch.testing import faults
+
+    x, c, a, b = _dense_inputs("uniform", 0, torch.float32)
+    d = [v.to(card) for v in (x, c, a, b)]
+    dense_ops.phi_dense(*d)
+    torch.cuda.synchronize()
+    dirty = [tk for (dev, _s, *_), (_p, tk) in dense_kernel._WORK.items()
+             if dev.type == "cuda"]
+    assert dirty
+    for tk in dirty:
+        tk.fill_(5)
+    t, kt = fixture("uniform")
+    with faults.fail_strategy(strategy="dense", mode=0) as budget:
+        res = P_cpapr.cpapr_mu(t, RANK, init=kt, device=card,
+                               config=P_cpapr.CPAPRConfig(
+                                   rank=RANK, max_outer=1, strategy="dense",
+                                   max_demotions=4))
+    assert budget == [0]
+    assert [(e.kind, e.detail["action"]) for e in res.recoveries] == [
+        ("demote_kernel", "dense->segment")]
+    got = dense_ops.phi_dense(*d)
+    _close(got, dense_ops.phi_dense(x, c, a, b), TOL, "phi after the drop")
+    for (dev, _s, *_), (_p, tk) in dense_kernel._WORK.items():
+        assert not tk.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strategy", ("cuda", "blocked", "segment"))
+def test_graph_burst_probe_matches_eager_steps(card, strategy):
+    """The autotuner's probe: ``burst`` fused MU steps captured in one
+    CUDA graph and replayed give what the same steps give eagerly."""
+    from repro_torch.perf.autotune import Autotuner
+    from repro_torch.perf.timing import graph_burst, step_burst_seconds
+
+    t, kt = fixture("hub")
+    mv = sort_mode(t.to(card), 0)
+    factors = tuple(f.to(card) for f in kt.factors)
+    pi = pi_rows(mv.sorted_idx, factors, 0)
+    b = factors[0] * kt.lam.to(card)[None, :]
+    pol = PhiPolicy(strategy=strategy, block_nnz=BN, block_rows=BR)
+    step, _ = Autotuner(measure=False).probe_step(pol, mv.rows,
+                                                  mv.sorted_vals, pi,
+                                                  mv.n_rows)
+    bb = b
+    for _ in range(4):
+        bb, viol = step(bb)
+    replay, (gb, gviol) = graph_burst(step, b, 4)
+    replay()
+    torch.cuda.synchronize()
+    _close(gb, bb, dict(rtol=1e-4, atol=1e-6), f"graph burst {strategy}")
+    _close(gviol, viol, dict(rtol=1e-4, atol=1e-6), f"viol {strategy}")
+    assert step_burst_seconds(step, b, 4) > 0.0
+
+
+@pytest.mark.cuda
+def test_policy_auto_on_the_card_is_served_from_the_cache(card, tmp_path):
+    from repro_torch.perf.autotune import Autotuner
+
+    t, kt = fixture("uniform")
+    path = str(tmp_path / "autotune.json")
+    first = Autotuner(cache_path=path, iters=1, warmup=1, burst=2)
+    cfg = dict(rank=RANK, max_outer=2, policy="auto")
+    res1 = P_cpapr.cpapr_mu(t, RANK, init=kt, device=card,
+                            config=P_cpapr.CPAPRConfig(autotuner=first, **cfg))
+    assert first.n_searches == 3 and first.n_probes > 0
+    second = Autotuner(cache_path=path, iters=1, warmup=1, burst=2)
+    res2 = P_cpapr.cpapr_mu(t, RANK, init=kt, device=card,
+                            config=P_cpapr.CPAPRConfig(autotuner=second,
+                                                       **cfg))
+    assert second.n_hits == 3 and second.n_probes == 0
+    assert res1.policies == res2.policies
+    assert res1.recoveries is None and res2.recoveries is None
+    keys = list(second.cache.entries)
+    assert len(keys) == 3 and all(k.startswith("v2/cuda/") for k in keys)

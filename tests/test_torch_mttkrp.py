@@ -209,13 +209,33 @@ def test_cp_als_seeded_init_is_deterministic():
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("policy", "auto", "A7"), ("mesh", object(), "A8"), ("n_shards", 2, "A8"),
+    ("mesh", object(), "A8"), ("n_shards", 2, "A8"),
 ])
 def test_cp_als_unported_options_raise(field, value, item):
     pt, pkt = port_problem("uniform")
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         P_cpals.cp_als(pt, RANK, n_iters=1, init=pkt, device="cpu",
                        **{field: value})
+
+
+def test_cp_als_policy_auto_matches_reference(tmp_path):
+    """``policy="auto"`` (which raised "not ported" before the autotuner
+    existed) with non-measuring tuners in both packages: each serves the
+    heuristic's CPU pick, and the fits agree within TOL."""
+    from repro.perf.autotune import Autotuner as RTuner
+
+    from repro_torch.perf.autotune import Autotuner as PTuner
+
+    t, kt = make_fixture("uniform")
+    want = R_cpals.cp_als(t, RANK, n_iters=ALS_ITERS, init=kt, policy="auto",
+                          autotuner=RTuner(cache_path=str(tmp_path / "r.json"),
+                                           measure=False))[1]
+    pt, pkt = port_problem("uniform")
+    tuner = PTuner(cache_path=str(tmp_path / "p.json"), measure=False)
+    got = P_cpals.cp_als(pt, RANK, n_iters=ALS_ITERS, init=pkt, policy="auto",
+                         autotuner=tuner, device="cpu")[1]
+    assert tuner.n_searches == 3
+    np.testing.assert_allclose(got, want, **TOL)
 
 
 @pytest.mark.parametrize("strategy", ("sharded", "grid"))

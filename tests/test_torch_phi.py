@@ -150,6 +150,63 @@ def test_cuda_bf16_matches_reference_pallas(kind, op):
                 err_msg=f"bf16 {op} {kind} mode {mode}")
 
 
+def _mixed(d, jax_side):
+    """Π (and the Khatri-Rao rows) in bf16, values and B in f32: the C1
+    input mix (bf16 factors, f32 λ and tensor values)."""
+    if jax_side:
+        return d["pi"].astype(jnp.bfloat16)
+    return d["pi"].to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("op", ("phi", "mu", "krao"))
+@pytest.mark.parametrize("strategy", ("scatter", "segment", "blocked"))
+@pytest.mark.parametrize("kind", FIXTURES)
+def test_mixed_bf16_f32_matches_reference(kind, strategy, op):
+    """bf16 Π with f32 values and B: each plain strategy returns the
+    reference's result dtype (``scatter`` the rows' bf16, ``segment`` and
+    ``blocked`` the promoted f32) and values within TOL_BF16, on every
+    mode.  The kernel tiers refuse mixed dtypes in both packages."""
+    for mode in MODES:
+        ref, port = problem(kind, mode)
+        rmv, pmv = ref["mv"], port["mv"]
+        rpi, ppi = _mixed(ref, True), _mixed(port, False)
+        rl, pl = _layout_for(strategy, ref), _layout_for(strategy, port)
+        if op == "phi":
+            want = [R_phi.phi_from_rows(rmv.rows, rmv.sorted_vals, rpi,
+                                        ref["b"], rmv.n_rows,
+                                        strategy=strategy, layout=rl)]
+            got = [P_phi.phi_from_rows(pmv.rows, pmv.sorted_vals, ppi,
+                                       port["b"], pmv.n_rows,
+                                       strategy=strategy, layout=pl,
+                                       device="cpu")]
+        elif op == "mu":
+            want = R_phi.phi_mu_step(rmv.rows, rmv.sorted_vals, rpi, ref["b"],
+                                     rmv.n_rows, tol=MU_TOL,
+                                     strategy=strategy, layout=rl)
+            got = P_phi.phi_mu_step(pmv.rows, pmv.sorted_vals, ppi,
+                                    port["b"], pmv.n_rows, tol=MU_TOL,
+                                    strategy=strategy, layout=pl,
+                                    device="cpu")
+        else:
+            want = [R_phi.krao_reduce_rows(rmv.rows, rmv.sorted_vals, rpi,
+                                           rmv.n_rows, strategy=strategy,
+                                           layout=rl)]
+            got = [P_phi.krao_reduce_rows(pmv.rows, pmv.sorted_vals, ppi,
+                                          pmv.n_rows, strategy=strategy,
+                                          layout=pl, device="cpu")]
+        for g, w in zip(got, want):
+            assert str(g.dtype).replace("torch.", "") == str(w.dtype), \
+                (kind, strategy, op, mode)
+            np.testing.assert_allclose(
+                g.float().numpy(), np.asarray(w, np.float32), **TOL_BF16,
+                err_msg=f"mixed {op} {strategy} {kind} mode {mode}")
+    if strategy == "blocked":
+        with pytest.raises(ValueError, match="one element dtype"):
+            P_phi.phi_from_rows(pmv.rows, pmv.sorted_vals, ppi, port["b"],
+                                pmv.n_rows, strategy="cuda", layout=pl,
+                                device="cpu")
+
+
 @pytest.mark.parametrize("perturb", ("no_conflict", "perfect_reuse"))
 @pytest.mark.parametrize("strategy", ("scatter", "segment", "blocked"))
 def test_perturb_matches_reference(strategy, perturb):
