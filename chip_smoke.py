@@ -98,6 +98,29 @@ Phases (any failure exits nonzero before the last line):
     must make zero probes and hit once per mode and agree with phase 3;
     its seconds per sweep beside phase 3's; a poisoned entry, ladder on,
     must end in ``demote_policy`` and a finished solve.
+13. The decomposition service (run after phase 12), at real sizes:
+    (1) SERVICE_JOBS cold rank-2 jobs of the JAX package driver's kind
+    through ``submit_many``: one batched dispatch per bucket, each job
+    equal in sweep and inner counts to itself solved alone through its
+    bucket (factors within BUCKET_RTOL) and within UNPADDED_RTOL of the
+    unpadded ``segment`` solve; jobs per second both ways.  (2) The
+    phase 2 tensor as one tenant: a counted cold ``submit`` from the
+    phase's starting model (log-likelihood tracked), then ``append`` of
+    APPEND_FRAC of its nonzeros drawn from the planted model, warm
+    started: B2 once per mode update and B1 once per inner iteration in
+    both solves, every mode on ``cuda``, no demotion, log-likelihoods
+    finite and nondecreasing, the warm sweeps within their budget, and
+    the JAX package driver's two checks against a cold solve of the
+    merged tensor from the same starting model, and the warm solve's
+    final log-likelihood at least the cold one's after as many sweeps
+    and after all of its own; seconds of the submit, the host merge and
+    the warm solve.  (3) A tenant below the dense cut whose append carries it
+    above (the JAX package test's construction at the near-dense
+    shape): the cold solve runs no dense kernel, the warm one flags the
+    stats move and runs B5 once per mode update and B4 once per inner
+    iteration.  (4) A second tenant of the phase 2 problem is served by
+    the shared autotune store (hits, no search).  (5) The dense
+    workspaces stay within ``WORK_MAX`` per stream.
 10. One launch per fused dense step: the device kernels of one
     ``phi_mu_dense`` call on the near-dense tensor's mode 0, counted with
     torch.profiler (last, so that no timed phase runs under its set-up):
@@ -105,8 +128,10 @@ Phases (any failure exits nonzero before the last line):
 
 The counted main-path solves of phases 3, 5 and 6 fail on any demotion
 (``recoveries`` must be empty): a ladder that quietly ran a plain
-strategy would otherwise pass as the kernel.  Phases 7-9, 11 and 12
-print their own times.  The line before the last is the per-kernel JSON record; the last is
+strategy would otherwise pass as the kernel; so do phase 13's.  Phases
+7-9 and 11-13 print their own times.  The line before the last is the
+per-kernel JSON record (``launches`` from the counted runs of phases
+3-7, ``service_launches`` from phase 13's); the last is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -156,6 +181,25 @@ GRID_BLOCK_ROWS = (64, 128, 256, 512)
 HEURISTIC_REGRET_OPEN = 1.10  # phase 9: a regret above this is an open item
 PPA_ITERS = 5  # timed calls per perturbation (median), after 2 untimed
 KILL_AT = 3  # phase 11: the sweep at whose start the solves are killed
+# Phase 13, the decomposition service.  The bucket tier's traffic: cold
+# rank-2 jobs shaped around the JAX package driver's (25, 20, 15) with
+# 2000-3000 nonzeros drawn, solved at its bucket-tier test's config.
+SERVICE_JOBS = 64
+SERVICE_RANK = 2
+SERVICE_EXTENTS = ((18, 25), (14, 20), (10, 15))
+SERVICE_NNZ = (2000, 3000)
+SERVICE_CFG = dict(max_outer=12, tol=1e-3)
+# a job batched against the same job alone through its bucket on the card:
+# index_add_'s float atomics reorder each Φ row's sum
+BUCKET_RTOL, BUCKET_ATOL = 1e-4, 1e-6
+# batched against the unpadded segment solve: the JAX package's own
+# tolerance for this comparison (padding reorders the sums)
+UNPADDED_RTOL, UNPADDED_ATOL = 2e-3, 1e-5
+APPEND_FRAC = 0.1  # the large tenant's append, a share of its nonzeros
+# the dense-cut tenant: the JAX package test's (30, 8, 8) construction at
+# the near-dense shape: a base drawing 150/1920 of the cells from a
+# low-rank model, then 900/1920 of them uniformly at random
+DENSE_CUT_BASE, DENSE_CUT_APPEND = 150 / 1920, 900 / 1920
 CSRC = "src/repro_torch/kernels/csrc"
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "phi_blocked": ("phi.cu", "src/repro/kernels/phi/kernel.py:139"),
@@ -260,10 +304,13 @@ def graph_ms(fn, iters: int) -> float:
     events.  Allocations inside come from the graph's own pool."""
     import torch
 
+    from repro_torch.kernels.dense.kernel import hold_workspaces
+
     fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    # the graph writes the dense workspaces it captured: hold them
+    with hold_workspaces() as _held, torch.cuda.graph(graph):
         for _ in range(iters):
             fn()
     graph.replay()
@@ -1235,6 +1282,301 @@ def autotune_phase(t, init, mvs, res, grid_best, dev, seed: int) -> None:
           "the poisoned solve did not demote and finish")
 
 
+def counted_solve(what: str, res, n_modes: int, launches: dict,
+                  kernels: tuple, idle: tuple, total: dict) -> None:
+    """Hold one counted service solve: ``kernels`` (the per-mode-update
+    and the per-inner-iteration kernel) launched as the solve's counts say,
+    the ``idle`` kernels not at all, no demotion, every mode on the
+    kernels' strategy, finite factors.  Adds the counts into ``total``."""
+    import torch
+
+    per_update, per_inner = kernels
+    strategy = "dense" if per_update.startswith("dense") else "cuda"
+    print(f"{what}: {res.n_outer} sweeps, inner iterations "
+          f"{res.inner_iters}, launches {launches}, seconds {res.seconds:.3f}")
+    check(res.recoveries is None,
+          f"{what}: guard recoveries or demotions: {res.recoveries}")
+    got = [p.strategy for p in res.policies or []]
+    check(got == [strategy] * n_modes,
+          f"{what}: modes resolved to {got}, expected {strategy} on every "
+          f"mode (no segment or plain path)")
+    check(launches[per_update] == res.n_outer * n_modes,
+          f"{what}: {per_update} launched {launches[per_update]} times, "
+          f"expected {res.n_outer * n_modes} (one per mode update)")
+    check(launches[per_inner] == sum(res.inner_iters) > 0,
+          f"{what}: {per_inner} launched {launches[per_inner]} times, "
+          f"expected {sum(res.inner_iters)} (one per inner iteration)")
+    check(all(launches[k] == 0 for k in idle),
+          f"{what}: {idle} launched: {launches}")
+    check(all(bool(torch.isfinite(f).all() and (f >= 0).all())
+              for f in res.ktensor.factors), f"{what}: non-finite factor")
+    for k in kernels:
+        total[k] = total.get(k, 0) + launches[k]
+
+
+def _launch_counts() -> dict:
+    from repro_torch.kernels.dense import ops as dense_ops
+    from repro_torch.kernels.phi import ops as phi_ops
+
+    return {**phi_ops.launch_counts, **dense_ops.launch_counts}
+
+
+def _reset_counts() -> None:
+    from repro_torch.kernels.dense import ops as dense_ops
+    from repro_torch.kernels.phi import ops as phi_ops
+
+    phi_ops.reset_launch_counts()
+    dense_ops.reset_launch_counts()
+
+
+def bucket_tier_part(dev, seed: int) -> None:
+    """Phase 13.1: SERVICE_JOBS cold jobs through submit_many, one batched
+    dispatch per bucket; each job against itself alone through its bucket
+    and against the unpadded segment solve."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.cpapr import CPAPRConfig, cpapr_mu
+    from repro_torch.core.sparse_tensor import random_poisson_tensor
+    from repro_torch.serve.batch import batched_cpapr_mu
+    from repro_torch.serve.decomp import DecompJob, DecompService
+
+    rng = np.random.default_rng([seed, 13])
+    jobs = []
+    for j in range(SERVICE_JOBS):
+        shape = tuple(int(rng.integers(lo, hi + 1))
+                      for lo, hi in SERVICE_EXTENTS)
+        nnz = int(rng.integers(SERVICE_NNZ[0], SERVICE_NNZ[1] + 1))
+        tj, _ = random_poisson_tensor(shape, nnz=nnz, rank=SERVICE_RANK,
+                                      seed=1000 * seed + j, device=dev)
+        jobs.append(DecompJob(f"job{j}", tj, SERVICE_RANK, seed=seed + j))
+    svc = DecompService(autotune_path=_work_path("service_buckets.json"),
+                        device=dev, **SERVICE_CFG)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = svc.submit_many(jobs)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    buckets = {str((b.shape, b.nnz)): n for b, n in svc.registry.seen.items()}
+    print(f"13.1 bucket tier: {SERVICE_JOBS} jobs in "
+          f"{svc.n_batched_dispatches} batched dispatches over "
+          f"{len(buckets)} buckets {buckets}")
+    print(f"13.1 bucket tier: submit_many {dt:.3f} s, "
+          f"{SERVICE_JOBS / dt:.1f} jobs/s; sweeps per job "
+          f"{[r.result.n_outer for r in res]}")
+    check(svc.n_batched_dispatches == len(buckets),
+          f"{svc.n_batched_dispatches} dispatches for {len(buckets)} buckets")
+    cfg = CPAPRConfig(rank=SERVICE_RANK, track_loglik=False, **SERVICE_CFG)
+    worst_alone = worst_unpadded = 0.0  # max |diff| / |other|
+    alone_s = 0.0
+    for job, r in zip(jobs, res):
+        t0 = time.perf_counter()
+        (alone,), _ = batched_cpapr_mu([job.tensor], SERVICE_RANK,
+                                       seeds=[job.seed], config=cfg,
+                                       bucket=r.bucket, device=dev)
+        alone_s += time.perf_counter() - t0
+        got = r.result
+        check(alone.n_outer == got.n_outer
+              and alone.inner_iters == got.inner_iters,
+              f"{job.tenant}: batched {got.n_outer} sweeps "
+              f"{got.inner_iters}, alone {alone.n_outer} "
+              f"{alone.inner_iters}")
+        ref = cpapr_mu(job.tensor, SERVICE_RANK, seed=job.seed, device=dev,
+                       config=dataclasses.replace(cfg, strategy="segment"))
+        check(ref.converged == got.converged,
+              f"{job.tenant}: converged {got.converged}, unpadded segment "
+              f"{ref.converged}")
+        for a, b, c in zip((got.ktensor.lam, *got.ktensor.factors),
+                           (alone.ktensor.lam, *alone.ktensor.factors),
+                           (ref.ktensor.lam, *ref.ktensor.factors)):
+            d_alone = (a - b).abs()
+            d_ref = (a - c).abs()
+            check(bool((d_alone <= BUCKET_ATOL + BUCKET_RTOL * b.abs()).all()),
+                  f"{job.tenant}: batched and alone differ by "
+                  f"{float(d_alone.max()):.3e}")
+            check(bool((d_ref <= UNPADDED_ATOL
+                        + UNPADDED_RTOL * c.abs()).all()),
+                  f"{job.tenant}: batched and unpadded segment differ by "
+                  f"{float(d_ref.max()):.3e}")
+            worst_alone = max(worst_alone, float(
+                (d_alone / b.abs().clamp_min(BUCKET_ATOL)).max()))
+            worst_unpadded = max(worst_unpadded, float(
+                (d_ref / c.abs().clamp_min(UNPADDED_ATOL)).max()))
+    print(f"13.1 bucket tier: the same jobs one at a time through their "
+          f"buckets {alone_s:.3f} s, {SERVICE_JOBS / alone_s:.1f} jobs/s; "
+          f"batched vs alone max rel diff {worst_alone:.3e} (rtol "
+          f"{BUCKET_RTOL}, atol {BUCKET_ATOL}), vs unpadded segment "
+          f"{worst_unpadded:.3e} (rtol {UNPADDED_RTOL}, atol {UNPADDED_ATOL})")
+
+
+def large_tenant_part(svc, t, truth, init, name: str, dev, seed: int,
+                      total: dict) -> None:
+    """Phase 13.2: the full-width tensor as one tenant: a counted cold
+    submit, a counted warm append of APPEND_FRAC of its nonzeros drawn
+    from the planted model, the JAX package driver's two checks and the
+    log-likelihood checks against a cold solve of the merged tensor, then
+    13.4's shared-store check."""
+    import torch
+
+    from repro_torch.core.cpapr import CPAPRConfig, cpapr_mu
+    from repro_torch.core.sparse_tensor import random_poisson_tensor
+    from repro_torch.data.tensors import tensor_seed
+
+    dense = ("dense_phi", "dense_phi_mu", "dense_mttkrp")
+    _reset_counts()
+    t0 = time.perf_counter()
+    cold = svc.submit(name, t, RANK, init=init)
+    torch.cuda.synchronize()
+    submit_s = time.perf_counter() - t0
+    counted_solve("13.2 large tenant submit", cold.result, t.ndim,
+                  _launch_counts(), ("phi_blocked", "phi_mu_blocked"), dense,
+                  total)
+    extra, _ = random_poisson_tensor(
+        t.shape, nnz=int(APPEND_FRAC * t.nnz), rank=RANK,
+        seed=tensor_seed(name, seed) + 1, seed_ktensor=truth, device=dev)
+    _reset_counts()
+    t0 = time.perf_counter()
+    warm = svc.append(name, extra.indices, extra.values)
+    torch.cuda.synchronize()
+    append_s = time.perf_counter() - t0
+    res = warm.result
+    counted_solve("13.2 large tenant warm append", res, t.ndim,
+                  _launch_counts(), ("phi_blocked", "phi_mu_blocked"), dense,
+                  total)
+    merged = svc.tenant(name).tensor
+    for what, ll in (("submit", cold.result.loglik_history),
+                     ("warm append", res.loglik_history)):
+        check(len(ll) > 0 and all(math.isfinite(x) for x in ll)
+              and monotone(ll),
+              f"13.2 {what}: log-likelihood not finite and nondecreasing: "
+              f"{ll}")
+    check(res.n_outer <= warm.sweep_budget,
+          f"warm solve took {res.n_outer} sweeps, budget {warm.sweep_budget}")
+    cold_merged = cpapr_mu(merged, RANK, seed=seed, device=dev,
+                           config=CPAPRConfig(
+                               rank=RANK, max_outer=MAX_OUTER,
+                               max_inner=MAX_INNER, policy="auto",
+                               autotuner=svc.tuner, track_loglik=True))
+    print(f"13.2 large tenant: {t.nnz} nonzeros + {extra.nnz} appended "
+          f"({warm.frac_new:.4f} fresh, merged {merged.nnz}); submit "
+          f"{submit_s:.3f} s (solve {cold.result.seconds:.3f} s), append "
+          f"{append_s:.3f} s = merge and stats (host) "
+          f"{append_s - res.seconds:.3f} s + warm solve {res.seconds:.3f} s")
+    print(f"13.2 large tenant: warm {res.n_outer} sweeps (budget "
+          f"{warm.sweep_budget}, converged {res.converged}) vs cold of the "
+          f"merged tensor {cold_merged.n_outer} sweeps (converged "
+          f"{cold_merged.converged}), cold {cold_merged.seconds:.3f} s")
+    cold_ll = cold_merged.loglik_history
+    print(f"13.2 large tenant: loglik submit {cold.result.loglik_history}, "
+          f"warm {res.loglik_history}, cold of the merged tensor {cold_ll}")
+    check(res.converged or not cold_merged.converged,
+          "warm-started solve did not converge where the cold one did")
+    check(res.n_outer <= cold_merged.n_outer,
+          "warm-started solve took more sweeps than a cold solve")
+    # Neither solve converges within these budgets, so the two checks above
+    # hold by construction; the log-likelihood on the merged tensor is what
+    # shows the warm start's worth: at least the cold solve's after as many
+    # sweeps, and at least its final one after MAX_OUTER.
+    check(len(cold_ll) == cold_merged.n_outer and monotone(cold_ll)
+          and all(math.isfinite(x) for x in cold_ll),
+          f"13.2 cold of the merged tensor: log-likelihood {cold_ll}")
+    warm_ll = res.loglik_history[-1]
+    check(warm_ll >= cold_ll[min(res.n_outer, len(cold_ll)) - 1],
+          f"warm solve's log-likelihood {warm_ll} below the cold solve's "
+          f"{cold_ll} after {res.n_outer} sweeps")
+    check(warm_ll >= cold_ll[-1],
+          f"warm solve's log-likelihood {warm_ll} after {res.n_outer} sweeps "
+          f"below the cold solve's {cold_ll[-1]} after {len(cold_ll)}")
+
+    # 13.4: a second tenant of the same problem is served from the store
+    before = dict(svc.stats()["autotune"])
+    svc.submit(name + "-b", t, RANK, init=init, max_outer=1)
+    after = svc.stats()["autotune"]
+    print(f"13.4 shared store: before the second tenant {before}, after "
+          f"{after}")
+    check(after["hits"] - before["hits"] == t.ndim
+          and after["searches"] == before["searches"],
+          "the second tenant of the same shape was not served from the "
+          "shared store")
+
+
+def dense_cut_part(svc, dev, seed: int, total: dict) -> None:
+    """Phase 13.3: a tenant below the dense cut whose append carries it
+    above: the cold solve runs the Φ kernels only, the warm one flags the
+    stats move and runs the dense kernels on every mode, counted."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.sparse_tensor import random_poisson_tensor
+    from repro_torch.data.tensors import NEAR_DENSE_SHAPE
+
+    shape = NEAR_DENSE_SHAPE
+    cells = math.prod(shape)
+    base, _ = random_poisson_tensor(shape, nnz=int(DENSE_CUT_BASE * cells),
+                                    rank=RANK, seed=seed + 7, device=dev)
+    rng = np.random.default_rng([seed, 133])
+    k = int(DENSE_CUT_APPEND * cells)
+    idx = np.stack([rng.integers(0, s, size=k) for s in shape], axis=1)
+    vals = rng.poisson(2.0, size=k).astype(np.float32) + 1.0
+    sparse = ("phi_blocked", "phi_mu_blocked")
+    dense = ("dense_phi", "dense_phi_mu")
+    _reset_counts()
+    t0 = time.perf_counter()
+    cold = svc.submit("dense-cut", base, RANK, seed=seed)
+    torch.cuda.synchronize()
+    submit_s = time.perf_counter() - t0
+    counted_solve("13.3 dense-cut tenant submit", cold.result, len(shape),
+                  _launch_counts(), sparse, dense + ("dense_mttkrp",), total)
+    _reset_counts()
+    t0 = time.perf_counter()
+    warm = svc.append("dense-cut", idx, vals)
+    torch.cuda.synchronize()
+    append_s = time.perf_counter() - t0
+    check(warm.stats_changed, "the append across the dense cut was not "
+          "flagged as a stats move")
+    counted_solve("13.3 dense-cut tenant warm append", warm.result,
+                  len(shape), _launch_counts(), dense,
+                  sparse + ("dense_mttkrp",), total)
+    fills = [round(s.fill_frac, 4) for s in svc.tenant("dense-cut").mode_stats]
+    print(f"13.3 dense-cut tenant: {base.nnz} -> "
+          f"{svc.tenant('dense-cut').tensor.nnz} nonzeros of {cells} cells "
+          f"(fill {fills}); submit {submit_s:.3f} s (solve "
+          f"{cold.result.seconds:.3f} s), append {append_s:.3f} s (warm "
+          f"solve {warm.result.seconds:.3f} s)")
+
+
+def service_phase(t, truth, init, name: str, dev, seed: int) -> dict:
+    """Phase 13: the decomposition service at real sizes; returns the
+    kernel launches of its counted solves."""
+    from repro_torch.kernels.dense import kernel as dense_kernel
+    from repro_torch.serve.decomp import DecompService
+
+    t0 = time.perf_counter()
+    bucket_tier_part(dev, seed)
+    print(f"13.1 bucket tier: {time.perf_counter() - t0:.1f} s")
+    svc = DecompService(autotune_path=_work_path("service.json"), device=dev,
+                        max_outer=MAX_OUTER, max_inner=MAX_INNER,
+                        track_loglik=True)
+    total: dict = {}
+    t0 = time.perf_counter()
+    large_tenant_part(svc, t, truth, init, name, dev, seed, total)
+    print(f"13.2/13.4 large tenant: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    dense_cut_part(svc, dev, seed, total)
+    print(f"13.3 dense-cut tenant: {time.perf_counter() - t0:.1f} s")
+    per_stream: dict = {}
+    for key in dense_kernel._WORK:
+        if key[0].type == "cuda":
+            per_stream[key[:2]] = per_stream.get(key[:2], 0) + 1
+    print(f"13.5 dense workspaces per stream {list(per_stream.values())} "
+          f"(bound {dense_kernel.WORK_MAX}); service stats "
+          f"{svc.stats()['autotune']}, {svc.stats()['tenants']} tenants")
+    check(all(n <= dense_kernel.WORK_MAX for n in per_stream.values()),
+          f"dense workspaces past their bound: {per_stream}")
+    print(f"13 service launches (counted solves): {total}")
+    return total
+
+
 def monotone(ll: list) -> bool:
     return all(b >= a - MONOTONE_SLACK * abs(a) for a, b in zip(ll, ll[1:]))
 
@@ -1286,8 +1628,8 @@ def main(argv=None) -> int:
 
     dev = torch.device("cuda")
     t0 = time.perf_counter()
-    t, _ = make_tensor(args.tensor, scale=args.scale, rank=RANK,
-                       seed=args.seed, device=dev)
+    t, truth = make_tensor(args.tensor, scale=args.scale, rank=RANK,
+                           seed=args.seed, device=dev)
     print(f"{args.tensor}: shape {t.shape}, nnz {t.nnz} (scale {args.scale}, "
           f"seed {args.seed}), made in {time.perf_counter() - t0:.1f} s")
     init = random_ktensor(t.shape, RANK, seed=args.seed,
@@ -1399,6 +1741,12 @@ def main(argv=None) -> int:
     autotune_phase(t, init, mvs, res, grid_best, dev, args.seed)
     print(f"phase 12 (autotune): {time.perf_counter() - t0:.1f} s")
 
+    # --- phase 13: the decomposition service -------------------------------
+    t0 = time.perf_counter()
+    service_launches = service_phase(t, truth, init, args.tensor, dev,
+                                     args.seed)
+    print(f"phase 13 (service): {time.perf_counter() - t0:.1f} s")
+
     # --- phase 10: one launch per fused dense step ------------------------
     one_launch_phase(*dense_first)
 
@@ -1411,6 +1759,7 @@ def main(argv=None) -> int:
     record = {"kernels": [
         {"name": k, "route": "cuda", "source": f"{CSRC}/{KERNELS[k][0]}",
          "replaces": KERNELS[k][1], "launches": launches[k],
+         "service_launches": service_launches.get(k, 0),
          "max_abs_err": v["max_abs_err"], "max_rel_err": v["max_rel_err"],
          "ms": v["ms"], "plain_ms": v["plain_ms"], "bound_ms": v["bound_ms"],
          "bound_by": "bytes"

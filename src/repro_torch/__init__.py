@@ -12,7 +12,9 @@ hand-written CUDA kernels (:mod:`repro_torch.kernels.phi`), CP-ALS
 Both solvers run under the fault-tolerant runtime
 (:mod:`repro_torch.core.resilience`: the degradation ladder, and for
 CP-APR checkpoints and resume) and take ``policy="auto"``, the persistent
-autotuner (:mod:`repro_torch.perf.autotune`).
+autotuner (:mod:`repro_torch.perf.autotune`).  The multi-tenant
+decomposition service (:mod:`repro_torch.serve`) drives CP-APR for many
+tenants: batched cold jobs, appends with warm starts, one shared tuner.
 """
 from . import core
 from .core import CPAPRConfig, CPAPRResult, cp_als, cpapr_mu

@@ -163,15 +163,27 @@ class CPAPRResult:
 class SweepOutcome:
     """One outer sweep's worth of state, produced by :func:`sweep_step`.
 
-    ``bad`` lists the modes the numerical guard blamed for a non-finite
-    sweep (empty when the sweep is clean or unguarded).
+    ``worst``/``inner_total`` are tensors: 0-d for the driver's per-tensor
+    updates, ``(J,)`` for the service's batched bucket updates; callers
+    read them once at sweep end.  ``bad`` lists the modes the numerical
+    guard blamed for a non-finite sweep (empty when the sweep is clean or
+    unguarded).
     """
 
     factors: list
     lam: torch.Tensor
-    worst: "float | None"
-    inner_total: int
+    worst: "torch.Tensor | None"
+    inner_total: "torch.Tensor | int"
     bad: list
+
+
+def _as_tensor(x) -> torch.Tensor:
+    """A mode update's KKT value or inner count as a tensor: a host number
+    becomes a 0-d f64/int64 CPU tensor, exact for any f32 or f64 value."""
+    if isinstance(x, torch.Tensor):
+        return x
+    return torch.tensor(x, dtype=torch.int64 if isinstance(x, int)
+                        else torch.float64)
 
 
 def sweep_step(carry, batch, guard: bool = False) -> SweepOutcome:
@@ -179,20 +191,25 @@ def sweep_step(carry, batch, guard: bool = False) -> SweepOutcome:
 
     ``carry`` is ``(factors, lam)``; ``batch`` holds one callable per mode,
     ``(factors, lam) -> (A_n', lam', viol, n_inner, ok)`` with ``ok`` the
-    mode's on-device guard boolean (or None when unguarded).  A non-finite
-    KKT value aborts the sweep early and blames the earliest mode whose
-    guard flag tripped; a sweep that finishes collects every tripped mode
-    into ``bad``.  The input ``factors`` list is never mutated.
+    mode's on-device guard boolean (or None when unguarded).  ``viol`` and
+    ``n_inner`` are host numbers (:func:`cpapr_mu`'s updates) or tensors,
+    ``(J,)`` per job for the service's bucket updates
+    (:mod:`repro_torch.serve.batch`); ``worst`` is their elementwise max
+    and ``inner_total`` their sum over the modes.  A non-finite KKT value
+    aborts the sweep early and blames the earliest mode whose guard flag
+    tripped; a sweep that finishes collects every tripped mode into
+    ``bad``.  The input ``factors`` list is never mutated.
     """
     factors, lam = list(carry[0]), carry[1]
     n_modes = len(batch)
     worst = None
-    inner_total = 0
+    inner_total: "torch.Tensor | int" = 0
     ok_flags: list = [None] * n_modes
     bad: list = []
     for n, mode_fn in enumerate(batch):
         a_new, lam_new, viol, n_inner, ok = mode_fn(factors, lam)
-        if guard and not math.isfinite(float(viol)):
+        viol = _as_tensor(viol)
+        if guard and not math.isfinite(float(viol.max())):
             bad = [m for m in range(n)
                    if ok_flags[m] is not None and not bool(ok_flags[m])] \
                 or [n]
@@ -200,8 +217,8 @@ def sweep_step(carry, batch, guard: bool = False) -> SweepOutcome:
         factors[n] = a_new
         lam = lam_new
         ok_flags[n] = ok
-        worst = float(viol) if worst is None else max(worst, float(viol))
-        inner_total += int(n_inner)
+        worst = viol if worst is None else torch.maximum(worst, viol)
+        inner_total = inner_total + _as_tensor(n_inner)
     if guard and not bad:
         bad = [n for n in range(n_modes)
                if ok_flags[n] is not None and not bool(ok_flags[n])]
@@ -713,8 +730,8 @@ def cpapr_mu(
                               for n in range(n_modes)],
                              guard=cfg.guard)
             factors, lam, bad = out.factors, out.lam, out.bad
-            worst = out.worst if out.worst is not None else 0.0
-            inner_total = out.inner_total
+            worst = float(out.worst) if out.worst is not None else 0.0
+            inner_total = int(out.inner_total)
             if not bad:
                 if cfg.track_loglik:
                     ll = float(poisson_loglik(

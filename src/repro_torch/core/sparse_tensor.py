@@ -22,11 +22,14 @@ import torch
 from ..device import resolve_device
 
 __all__ = [
+    "AppendInfo",
     "KTensor",
     "ModeView",
     "SparseTensor",
+    "append_nonzeros",
     "dense_from_coo",
     "ktensor_full",
+    "merge_mode_view",
     "model_values_at",
     "random_ktensor",
     "random_poisson_tensor",
@@ -201,18 +204,22 @@ def random_poisson_tensor(
     rank: int = 4,
     seed: int = 0,
     device="cuda",
+    seed_ktensor: KTensor | None = None,
 ) -> tuple:
     """Sample a sparse Poisson count tensor from a low-rank model.
 
     Draws ``nnz`` candidate multi-indices from the factor-defined
     categorical distribution (the generative model CP-APR assumes),
-    assigns count values >= 1, and deduplicates.  Returns
-    ``(SparseTensor, ground_truth_KTensor)`` on ``device``.  Runs on host
-    numpy from ``seed`` (data generation, not a hot path).
+    assigns count values >= 1, and deduplicates.  The model is
+    ``seed_ktensor`` when given (a streaming append drawn from a tenant's
+    own model), else one drawn from ``seed``.  Returns
+    ``(SparseTensor, model)`` on ``device``.  Runs on host numpy from
+    ``seed`` (data generation, not a hot path).
     """
     dev = resolve_device(device)
     shape = tuple(int(s) for s in shape)
-    kt = random_ktensor(shape, rank, seed=seed, device="cpu")
+    kt = (seed_ktensor if seed_ktensor is not None
+          else random_ktensor(shape, rank, seed=seed, device="cpu"))
     rng = np.random.default_rng([int(seed), 1])
     lam = kt.lam.detach().cpu().double().numpy()
     comp = rng.choice(len(lam), size=nnz, p=lam / lam.sum())
@@ -237,6 +244,168 @@ def random_poisson_tensor(
         values=torch.as_tensor(vals, dtype=torch.float32, device=dev),
     )
     return st, kt.to(dev)
+
+
+def _host(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+@dataclasses.dataclass(frozen=True)
+class AppendInfo:
+    """Bookkeeping for one :func:`append_nonzeros` merge.
+
+    ``n_fresh`` entries landed on previously-empty coordinates (they sit
+    at the tail of the merged COO arrays, in the coordinate order of the
+    deduplicated batch); ``n_merged`` collided with existing coordinates
+    and had their counts summed in place.  ``frac_new`` is the fresh
+    share of the merged nonzero count: the freshness signal the service's
+    warm-start sweep budget consumes.
+    """
+
+    n_appended: int
+    n_fresh: int
+    n_merged: int
+    nnz_before: int
+    nnz_after: int
+
+    @property
+    def frac_new(self) -> float:
+        return self.n_fresh / max(self.nnz_after, 1)
+
+
+def append_nonzeros(t: SparseTensor, new_indices,
+                    new_values) -> "tuple[SparseTensor, AppendInfo]":
+    """Merge a batch of new nonzeros into ``t`` (streaming append).
+
+    The batch is deduplicated against itself through :func:`_unique_coo`
+    (duplicate coordinates sum), then matched against the existing
+    coordinates by linearized index: collisions add their counts to the
+    existing entries in place, new coordinates append at the tail.
+    Positions ``[0, t.nnz)`` of the merged arrays are ``t``'s nonzeros in
+    their original order: the invariant that lets :func:`merge_mode_view`
+    extend the sorted views without re-sorting.  Runs on host numpy
+    (ingest, not a hot path); the merged tensor lies on ``t``'s device.
+    """
+    new_idx = _host(new_indices)
+    new_vals = _host(new_values).astype(np.float32)
+    if new_idx.ndim != 2 or new_idx.shape[1] != t.ndim:
+        raise ValueError(
+            f"append_nonzeros: new_indices must be (k, {t.ndim}) for a "
+            f"{t.ndim}-mode tensor; got shape {new_idx.shape}"
+        )
+    if new_vals.shape != (new_idx.shape[0],):
+        raise ValueError(
+            f"append_nonzeros: new_values must be ({new_idx.shape[0]},) to "
+            f"match new_indices; got shape {new_vals.shape}"
+        )
+    if not np.all(np.isfinite(new_vals)) or np.any(new_vals < 0):
+        raise ValueError(
+            "append_nonzeros: values must be finite non-negative counts"
+        )
+    for n, i_n in enumerate(t.shape):
+        if new_idx.shape[0] and (
+            new_idx[:, n].min() < 0 or new_idx[:, n].max() >= i_n
+        ):
+            raise ValueError(
+                f"append_nonzeros: mode-{n} coordinates out of range for "
+                f"shape {t.shape}"
+            )
+    n_appended = int(new_idx.shape[0])
+    new_idx, new_vals = _unique_coo(new_idx.astype(np.int64), new_vals,
+                                    t.shape)
+
+    old_idx = _host(t.indices).astype(np.int64)
+    old_vals = _host(t.values).astype(np.float32)  # a copy: updated in place
+    lin_old = _linear_index(old_idx, t.shape)
+    order_old = np.argsort(lin_old, kind="stable")
+    lin_sorted = lin_old[order_old]
+    lin_new = _linear_index(new_idx, t.shape)
+    pos = np.searchsorted(lin_sorted, lin_new)
+    pos_c = np.minimum(pos, max(len(lin_sorted) - 1, 0))
+    matched = (
+        (lin_new <= lin_sorted[-1]) & (lin_sorted[pos_c] == lin_new)
+        if len(lin_sorted)
+        else np.zeros(lin_new.shape, dtype=bool)
+    )
+    np.add.at(old_vals, order_old[pos_c[matched]], new_vals[matched])
+
+    fresh_idx = new_idx[~matched]
+    fresh_vals = new_vals[~matched]
+    dev = t.device
+    merged = SparseTensor(
+        shape=t.shape,
+        indices=torch.as_tensor(np.concatenate([old_idx, fresh_idx]),
+                                dtype=torch.int64, device=dev),
+        values=torch.as_tensor(np.concatenate([old_vals, fresh_vals]),
+                               dtype=torch.float32, device=dev),
+    )
+    info = AppendInfo(
+        n_appended=n_appended,
+        n_fresh=int(fresh_idx.shape[0]),
+        n_merged=int(matched.sum()),
+        nnz_before=t.nnz,
+        nnz_after=merged.nnz,
+    )
+    return merged, info
+
+
+def merge_mode_view(mv: ModeView, merged: SparseTensor,
+                    nnz_before: int) -> ModeView:
+    """Extend a mode view over an appended tensor by merging sorted runs.
+
+    ``merged`` must come from :func:`append_nonzeros` on the tensor ``mv``
+    was built from (``nnz_before`` = that tensor's nnz): positions
+    ``[0, nnz_before)`` are the old nonzeros in their original order
+    (values possibly bumped by collisions) and the tail is the fresh
+    batch.  The old sorted run is reused as is; only the stable sort of
+    the tail, an O(nnz) merge (``searchsorted`` + ``insert``) and a value
+    re-gather are paid, on the host.  The result equals
+    ``sort_mode(merged, mv.mode)`` on every field, stable tie order
+    included, and lies on ``mv``'s device.
+    """
+    n = mv.mode
+    i_n = mv.n_rows
+    idx_np = _host(merged.indices)
+    if idx_np.shape[0] < nnz_before:
+        raise ValueError(
+            f"merge_mode_view: merged tensor has {idx_np.shape[0]} nonzeros "
+            f"< nnz_before={nnz_before}"
+        )
+    tail_idx = idx_np[nnz_before:]
+    tail_rows = tail_idx[:, n]
+    order_tail = np.argsort(tail_rows, kind="stable")
+    rows_tail = tail_rows[order_tail]
+    perm_tail = nnz_before + order_tail
+
+    rows_old = _host(mv.rows)
+    # stable merge: new entries land after old entries of an equal row
+    # (they sit at higher COO positions), as sort_mode's stable sort puts them
+    ins = np.searchsorted(rows_old, rows_tail, side="right")
+    perm = np.insert(_host(mv.perm), ins, perm_tail)
+    rows = np.insert(rows_old, ins, rows_tail)
+    sorted_idx = np.insert(_host(mv.sorted_idx), ins, tail_idx[order_tail],
+                           axis=0)
+    # collisions changed old values in place: re-gather, don't re-sort
+    sorted_vals = merged.values[torch.as_tensor(perm,
+                                                device=merged.device)]
+    counts_tail = np.bincount(rows_tail, minlength=i_n)
+    row_starts = _host(mv.row_starts) + np.concatenate(
+        [[0], np.cumsum(counts_tail)])
+    dev = mv.rows.device
+
+    def _on(x) -> torch.Tensor:
+        return torch.as_tensor(x, dtype=torch.int64, device=dev)
+
+    return ModeView(
+        mode=n,
+        perm=_on(perm),
+        rows=_on(rows),
+        sorted_idx=_on(sorted_idx),
+        sorted_vals=sorted_vals.to(dev),
+        row_starts=_on(row_starts),
+    )
 
 
 def dense_from_coo(t: SparseTensor) -> torch.Tensor:

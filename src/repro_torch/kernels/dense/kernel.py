@@ -11,12 +11,15 @@ a CTA takes ``ti`` rows of ``x`` and a contiguous range of its K slices
 (``n_ks`` ranges), walking the J columns ``jc`` at a time.  Each CTA
 writes its (ti, R) partial into a work buffer, and the partials of each
 row tile are summed in a fixed two-level tree, the last CTA of each level
-doing the sum (``workspace`` keeps the buffer and the tickets).
+doing the sum (``workspace`` keeps the buffer and the tickets, at most
+``WORK_MAX`` per stream).
 :func:`smem_bytes` mirrors ``dense.cu``'s ``dense_shape``; an on-card
 test holds the two equal.
 """
 from __future__ import annotations
 
+import collections
+import contextlib
 import ctypes
 import dataclasses
 import functools
@@ -26,9 +29,9 @@ import torch
 from .. import _build
 from .._build import DTYPE_CODE, F as _F, I as _I, P as _P, check_launch, stream_of
 
-__all__ = ["DenseShape", "OPS", "launch_mttkrp", "launch_phi", "launch_phi_mu",
-           "launch_shape", "library_smem_bytes", "load_library", "smem_bytes",
-           "workspace"]
+__all__ = ["DenseShape", "OPS", "WORK_MAX", "hold_workspaces", "launch_mttkrp",
+           "launch_phi", "launch_phi_mu", "launch_shape", "library_smem_bytes",
+           "load_library", "smem_bytes", "workspace"]
 
 _SIGNATURES = {
     "dense_mttkrp_launch": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -131,7 +134,17 @@ def launch_shape(k: int, i: int, j: int, rank: int,
                       smem=smem_bytes(rank, ti, jc, dtype, op))
 
 
-_WORK: dict = {}  # (device, stream, partials, tickets) -> (part, tickets)
+# The workspaces, least recently used first:
+# (device, stream, partials, tickets) -> (part, tickets).  At most WORK_MAX
+# are kept per (device, stream); past that the least recently used one is
+# forgotten.  A solve of an N-mode tensor uses at most one per mode and
+# operation (3N), so 16 holds a 4-mode solve's set, while a service that
+# solves many near-dense tenants of different shapes keeps no more than
+# 16 on the card per stream.  Forgetting frees nothing a captured CUDA
+# graph replays: a capture holds its workspaces (hold_workspaces).
+WORK_MAX = 16
+_WORK: collections.OrderedDict = collections.OrderedDict()
+_HOLDS: list = []  # the lists of the open hold_workspaces blocks
 
 
 def _stream_key(device) -> tuple:
@@ -153,11 +166,33 @@ def workspace(shape: DenseShape, device) -> tuple:
     the calls on one stream, which run in turn, share them."""
     dev, stream = _stream_key(device)
     key = (dev, stream, shape.part_numel, shape.n_tickets)
-    if key not in _WORK:
-        _WORK[key] = (
-            torch.empty(shape.part_numel, dtype=torch.float32, device=dev),
-            torch.zeros(shape.n_tickets, dtype=torch.int32, device=dev))
-    return _WORK[key]
+    ws = _WORK.get(key)
+    if ws is not None:
+        _WORK.move_to_end(key)  # now the most recently used
+    else:  # only a new workspace can push the stream past its bound
+        ws = (torch.empty(shape.part_numel, dtype=torch.float32, device=dev),
+              torch.zeros(shape.n_tickets, dtype=torch.int32, device=dev))
+        _WORK[key] = ws
+        mine = [k for k in _WORK if k[:2] == (dev, stream)]
+        for k in mine[:-WORK_MAX]:
+            del _WORK[k]
+    for held in _HOLDS:
+        held.append(ws)
+    return ws
+
+
+@contextlib.contextmanager
+def hold_workspaces():
+    """Collect into the yielded list every workspace handed out inside the
+    block.  A CUDA graph captured inside keeps that list for as long as it
+    may replay, so the bound on :func:`workspace`'s cache can forget those
+    buffers but never free memory the graph still writes."""
+    held: list = []
+    _HOLDS.append(held)
+    try:
+        yield held
+    finally:
+        _HOLDS.remove(held)
 
 
 def load_library() -> ctypes.CDLL:

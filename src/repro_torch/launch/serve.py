@@ -1,0 +1,124 @@
+"""Serving drivers: the decomposition service's ``decomp`` subcommand.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve decomp
+  PYTHONPATH=src python -m repro_torch.launch.serve decomp --jobs 3 \\
+      --append-frac 0.2 --device cpu
+
+Submits ``--jobs`` small cold jobs through the padded-bucket batched
+path, appends a batch drawn from tenant 0's own generative model and
+warm-starts it, and prints the warm-against-cold sweep receipt and the
+shared autotune store's counters.  The cold yardstick is the JAX
+package driver's: ``cpapr_mu`` of the merged tensor at its default
+strategy (``segment``) from a fresh seeded start.  It exits nonzero if
+the warm solve fails to converge where the cold one converges, or takes
+more sweeps than the cold one.
+
+The JAX package's LM serving driver (``--arch ...``) is ROADMAP A11 and
+raises :class:`~repro_torch.core.resilience.NotPortedError`.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import tempfile
+import time
+
+from ..core.cpapr import CPAPRConfig, cpapr_mu
+from ..core.resilience import NotPortedError
+from ..core.sparse_tensor import random_poisson_tensor
+from ..device import resolve_device
+from ..serve.decomp import DecompJob, DecompService
+
+__all__ = ["main", "main_decomp"]
+
+
+def main_decomp(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="repro_torch.launch.serve decomp")
+    ap.add_argument("--jobs", type=int, default=3,
+                    help="cold jobs to submit (bucketed + batched)")
+    ap.add_argument("--shape", type=int, nargs="+", default=[25, 20, 15])
+    ap.add_argument("--nnz", type=int, default=3000)
+    ap.add_argument("--rank", type=int, default=2)
+    ap.add_argument("--append-frac", type=float, default=0.2,
+                    help="appended nonzeros as a fraction of the tensor")
+    ap.add_argument("--max-outer", type=int, default=40)
+    ap.add_argument("--tol", type=float, default=1e-2)
+    ap.add_argument("--autotune-cache", default=None,
+                    help="shared store path (default: a temporary file)")
+    ap.add_argument("--seed", type=int, default=1)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+
+    dev = resolve_device(args.device)
+    if dev.type == "cuda":
+        import torch
+
+        where = torch.cuda.get_device_name(dev)
+    else:
+        where = "host"
+    print(f"[decomp] device={dev} ({where})")
+    with tempfile.TemporaryDirectory(prefix="repro-torch-serve-") as tmp:
+        cache = args.autotune_cache or os.path.join(tmp, "autotune.json")
+        return _drive(args, dev, cache)
+
+
+def _drive(args, dev, cache: str) -> int:
+    svc = DecompService(autotune_path=cache, max_outer=args.max_outer,
+                        tol=args.tol, device=dev)
+    shape = tuple(args.shape)
+    jobs, kts = [], {}
+    for j in range(args.jobs):
+        t, kt = random_poisson_tensor(shape, nnz=args.nnz, rank=args.rank,
+                                      seed=args.seed + j, device=dev)
+        jobs.append(DecompJob(tenant=f"tenant{j}", tensor=t, rank=args.rank))
+        kts[f"tenant{j}"] = kt
+    t0 = time.perf_counter()
+    results = svc.submit_many(jobs)
+    dt = time.perf_counter() - t0
+    for r in results:
+        print(f"[decomp] {r.tenant}: cold {r.result.n_outer} sweeps "
+              f"(converged={r.result.converged}, batched={r.batched})")
+    print(f"[decomp] {len(jobs)} jobs in {svc.n_batched_dispatches} "
+          f"batched dispatch(es), {dt:.2f}s")
+
+    # one streaming append, drawn from tenant0's own generative model
+    tenant = jobs[0].tenant
+    st = svc.tenant(tenant)
+    extra, _ = random_poisson_tensor(
+        shape, nnz=max(1, int(args.append_frac * st.tensor.nnz)),
+        rank=args.rank, seed=args.seed + 1000, device=dev,
+        seed_ktensor=kts[tenant])
+    warm = svc.append(tenant, extra.indices, extra.values)
+    cold = cpapr_mu(
+        st.tensor, st.rank, seed=args.seed + 2000, device=dev,
+        config=CPAPRConfig(rank=st.rank, max_outer=args.max_outer,
+                           tol=args.tol, track_loglik=False))
+    print(f"[decomp] append frac_new={warm.frac_new:.3f} -> warm "
+          f"{warm.result.n_outer} sweeps (budget {warm.sweep_budget}, "
+          f"converged={warm.result.converged}) vs cold {cold.n_outer} "
+          f"sweeps (converged={cold.converged})")
+    if not warm.result.converged and cold.converged:
+        raise SystemExit("[decomp] FAIL: warm-started solve did not reach "
+                         "tolerance inside its freshness budget")
+    if warm.result.n_outer > cold.n_outer:
+        raise SystemExit("[decomp] FAIL: warm-start took more sweeps than "
+                         "a cold solve")
+    stats = svc.stats()
+    print(f"[decomp] autotune: {stats['autotune']} "
+          f"entries={stats['autotune_cache_entries']} (store: {cache})")
+    print("[decomp] OK")
+    return 0
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv and argv[0] == "decomp":
+        return main_decomp(argv[1:])
+    raise NotPortedError("repro_torch.launch.serve: LM serving is not "
+                         "ported yet: ROADMAP A11 (LM stack); use the "
+                         "'decomp' subcommand")
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -30,6 +30,8 @@ from typing import Callable
 
 import torch
 
+from ..kernels.dense.kernel import hold_workspaces
+
 __all__ = ["bandwidth_gbs", "bench_burst_seconds", "bench_seconds", "cuda_ms",
            "graph_burst", "step_burst_seconds"]
 
@@ -144,8 +146,9 @@ def graph_burst(step: Callable, b: torch.Tensor, burst: int,
         _chain(step, b, burst)
     torch.cuda.synchronize(b.device)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with hold_workspaces() as held, torch.cuda.graph(graph):
         out = _chain(step, b, burst)
+    graph.held_workspaces = held  # alive as long as graph.replay is
     return graph.replay, out
 
 

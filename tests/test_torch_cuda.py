@@ -916,3 +916,111 @@ def test_policy_auto_on_the_card_is_served_from_the_cache(card, tmp_path):
     assert res1.recoveries is None and res2.recoveries is None
     keys = list(second.cache.entries)
     assert len(keys) == 3 and all(k.startswith("v2/cuda/") for k in keys)
+
+
+# ---------------------------------------------------------------------------
+# The decomposition service on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_batched_tier_cohort_independent_on_the_card(card):
+    """A job solved in a 3-job bucket agrees with the job solved alone
+    through the same bucket: equal sweep and inner counts, factors within
+    rtol 1e-4 (``index_add_``'s float atomics may change the last bits)."""
+    from repro_torch.serve.batch import batched_cpapr_mu
+
+    rank = 3
+    ts = [random_poisson_tensor((17, 11, 9), nnz=500, rank=rank, seed=20 + j,
+                                device="cpu")[0] for j in range(3)]
+    cfg = P_cpapr.CPAPRConfig(rank=rank, max_outer=12, tol=1e-3,
+                              track_loglik=False)
+    res3, bucket = batched_cpapr_mu(ts, rank, seeds=[100, 101, 102],
+                                    config=cfg, device=card)
+    for j in range(3):
+        (res1,), _ = batched_cpapr_mu([ts[j]], rank, seeds=[100 + j],
+                                      config=cfg, bucket=bucket, device=card)
+        assert res1.n_outer == res3[j].n_outer
+        assert res1.inner_iters == res3[j].inner_iters
+        tol = dict(rtol=1e-4, atol=1e-6)
+        _close(res1.ktensor.lam, res3[j].ktensor.lam, tol, f"lam job {j}")
+        for a, b in zip(res1.ktensor.factors, res3[j].ktensor.factors):
+            assert a.device.type == "cuda"
+            _close(a, b, tol, f"factor job {j}")
+
+
+@pytest.mark.cuda
+def test_service_warm_append_runs_the_phi_kernels_counted(card, tmp_path):
+    """A tenant's cold submit and warm append resolve every mode to the Φ
+    kernels on the card: ``phi_blocked`` once per mode update and
+    ``phi_mu_blocked`` once per inner iteration, in both solves."""
+    from repro_torch.serve.decomp import DecompService
+
+    t, kt = fixture("uniform")
+    svc = DecompService(autotune_path=str(tmp_path / "at.json"),
+                        max_outer=3, device=card)
+    extra, _ = random_poisson_tensor(t.shape, nnz=t.nnz // 10, rank=RANK,
+                                     seed=9, device="cpu", seed_ktensor=kt)
+    for step in ("submit", "append"):
+        ops.reset_launch_counts()
+        got = (svc.submit("a", t, RANK, init=kt) if step == "submit"
+               else svc.append("a", extra.indices, extra.values))
+        torch.cuda.synchronize()
+        res = got.result
+        assert [p.strategy for p in res.policies] == ["cuda"] * 3, step
+        assert res.recoveries is None, step
+        assert ops.launch_counts["phi_blocked"] == res.n_outer * 3, step
+        assert ops.launch_counts["phi_mu_blocked"] == sum(res.inner_iters)
+        assert all(bool(torch.isfinite(f).all()) for f in res.ktensor.factors)
+    assert got.warm and got.sweep_budget == 2 and 0 < got.frac_new < 0.2
+
+
+@pytest.mark.cuda
+def test_dense_workspaces_stay_bounded_on_the_card(card):
+    """Many dense shapes on one stream keep WORK_MAX workspaces there,
+    every call still matches its plain version, and a CUDA graph replays
+    right after the workspaces it captured were dropped from the cache
+    (the graph holds them)."""
+    from repro_torch.perf.timing import graph_burst
+
+    def operands(k, i):
+        g = torch.Generator().manual_seed(k * 1000 + i)
+        x = torch.rand((k, i, 16), generator=g)
+        x[x < 0.5] = 0.0
+        c, a = torch.rand((16, 4), generator=g), torch.rand((k, 4),
+                                                            generator=g)
+        return x, c, a, torch.rand((i, 4), generator=g)
+
+    x, c, a, b = operands(3, 8)
+    d = [v.to(card) for v in (x, c, a)]
+    replay, (g_mu, _) = graph_burst(
+        lambda bb: dense_ops.phi_mu_dense(*d, bb), b.to(card), 2)
+    held = replay.__self__.held_workspaces
+    assert held
+    sizes = [(2 + n, 8 + 8 * n) for n in range(3 * dense_kernel.WORK_MAX)]
+    keys = {(sh.part_numel, sh.n_tickets) for sh in
+            (dense_kernel.launch_shape(k, i, 16, 4, op="dense_phi")
+             for k, i in sizes)}
+    assert len(keys) > dense_kernel.WORK_MAX  # the flood overflows the bound
+    # flood the stream the graph was captured on, so its workspaces go
+    capture = torch.cuda.graph.default_capture_stream
+    with torch.cuda.stream(capture):
+        for n, (k, i) in enumerate(sizes):
+            xs = operands(k, i)
+            got = dense_ops.phi_dense(*(v.to(card) for v in xs))
+            _close(got, dense_ops.phi_dense(*xs), TOL, f"phi shape {n}")
+    torch.cuda.synchronize()
+    per_stream: dict = {}
+    for key in dense_kernel._WORK:
+        if key[0].type == "cuda":
+            per_stream[key[1]] = per_stream.get(key[1], 0) + 1
+    assert per_stream[capture.cuda_stream] == dense_kernel.WORK_MAX
+    assert max(per_stream.values()) <= dense_kernel.WORK_MAX
+    kept = [ws[0] for ws in dense_kernel._WORK.values()]
+    assert not any(p is ws[0] for ws in held for p in kept)
+    replay()
+    torch.cuda.synchronize()
+    want = b
+    for _ in range(2):
+        want, _ = dense_ops.phi_mu_dense(x, c, a, want)
+    _close(g_mu, want, TOL, "graph replay after its workspaces were dropped")

@@ -410,3 +410,27 @@ def test_workspace_is_kept_per_stream_and_size():
                                   "dense_phi")
     assert other.part_numel != sh.part_numel
     assert P_kernel.workspace(other, "cpu")[0] is not part
+
+
+def test_workspace_cache_is_bounded_and_least_recently_used():
+    """A stream keeps at most WORK_MAX workspaces: a new size past the
+    bound forgets the least recently used one, a reused one is kept, and
+    a hold_workspaces block collects every workspace handed out in it."""
+    P_kernel._WORK.clear()
+    shapes = [P_kernel.launch_shape(2 + n, 8 + 8 * n, 16, 4, torch.float32,
+                                    "dense_phi")
+              for n in range(P_kernel.WORK_MAX + 3)]
+    first = P_kernel.workspace(shapes[0], "cpu")
+    with P_kernel.hold_workspaces() as held:
+        for sh in shapes[1:P_kernel.WORK_MAX]:
+            P_kernel.workspace(sh, "cpu")
+        assert P_kernel.workspace(shapes[0], "cpu") is first  # a hit
+    assert len(held) == P_kernel.WORK_MAX and held[-1] is first
+    for sh in shapes[P_kernel.WORK_MAX:]:
+        P_kernel.workspace(sh, "cpu")
+    assert len(P_kernel._WORK) == P_kernel.WORK_MAX
+    # shapes[0], touched last before the flood, outlived shapes[1..3]
+    assert P_kernel.workspace(shapes[0], "cpu") is first
+    kept = {k[2:] for k in P_kernel._WORK}
+    assert all((sh.part_numel, sh.n_tickets) not in kept
+               for sh in shapes[1:4])
