@@ -121,6 +121,34 @@ Phases (any failure exits nonzero before the last line):
     iteration.  (4) A second tenant of the phase 2 problem is served by
     the shared autotune store (hits, no search).  (5) The dense
     workspaces stay within ``WORK_MAX`` per stream.
+14. The row-sharded tier (run after phase 13), on the phase 2 tensor at
+    256 x 256 with the local ``cuda`` kernels (the modes with fewer row
+    blocks than shards fall back, with a warning): (1) on each sharded
+    mode at S = 2 and 4, ``phi_sharded``/``krao_sharded`` (both combines,
+    replicated and shard-local Π) launch B2 and B3 exactly S times per
+    call and agree with ``local_strategy="blocked"`` within KERNEL_RTOL;
+    every shard's kernel window is exactly zero on its padding rows; one
+    sharded fused MU step per S as a CUDA-graph burst beside the
+    unsharded ``cuda`` step, and each mode's ``pad_fraction``.  (2) A
+    counted ``cpapr_mu(strategy="sharded", n_shards=N_SHARDS)``
+    (``combine="auto"``, ``shard_pi``): a mode hook reads the launch
+    counts before each mode update, so each sharded update must launch
+    B2 N_SHARDS x (1 + inner) times and each fallback update B2 once and
+    B1 per inner iteration, summing to the reported inner counts; log-
+    likelihoods within LOGLIK_RTOL of phase 3's ``cuda`` and ``segment``
+    solves, no demotion, seconds per sweep beside phase 3's.  (3) A
+    counted sharded ``cp_als``: fits within FIT_ATOL of ``segment``, B3
+    N_SHARDS per sharded mode and 1 per fallback mode per iteration.
+    (4) A one-rank NCCL process group (``file://`` rendezvous under
+    ``build/chip_smoke/``): ``cpapr_mu(mesh=make_phi_mesh(1))`` with both
+    combines and ``dist_cpapr_mu`` on a (1, 1) ``("data", "model")``
+    mesh, each within LOGLIK_RTOL of the emulated one-shard solve.  (5)
+    Ladder on: ``fail_oom(min_shards=2)`` halves 4 -> 2 shards, a
+    fingerprint fault demotes ``reduce_scatter -> psum``, a sharded solve
+    killed and resumed, each within LOGLIK_RTOL of the clean one; on a
+    tensor with skewed row blocks ``rebalance_every=1`` records exactly
+    the re-splits the nnz weights call for, and its killed and resumed
+    solve keeps them.
 10. One launch per fused dense step: the device kernels of one
     ``phi_mu_dense`` call on the near-dense tensor's mode 0, counted with
     torch.profiler (last, so that no timed phase runs under its set-up):
@@ -128,10 +156,11 @@ Phases (any failure exits nonzero before the last line):
 
 The counted main-path solves of phases 3, 5 and 6 fail on any demotion
 (``recoveries`` must be empty): a ladder that quietly ran a plain
-strategy would otherwise pass as the kernel; so do phase 13's.  Phases
-7-9 and 11-13 print their own times.  The line before the last is the
-per-kernel JSON record (``launches`` from the counted runs of phases
-3-7, ``service_launches`` from phase 13's); the last is
+strategy would otherwise pass as the kernel; so do phases 13's and
+14's.  Phases 7-9 and 11-14 print their own times.  The line before the
+last is the per-kernel JSON record (``launches`` from the counted runs
+of phases 3-7, ``service_launches`` from phase 13's, ``sharded_launches``
+from phase 14's); the last is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -180,7 +209,13 @@ GRID_BLOCK_NNZ = (64, 128, 256, 512, 1024)  # phase 9's grid
 GRID_BLOCK_ROWS = (64, 128, 256, 512)
 HEURISTIC_REGRET_OPEN = 1.10  # phase 9: a regret above this is an open item
 PPA_ITERS = 5  # timed calls per perturbation (median), after 2 untimed
-KILL_AT = 3  # phase 11: the sweep at whose start the solves are killed
+KILL_AT = 3  # phases 11, 14: the sweep at whose start a solve is killed
+SHARD_COUNTS = (2, 4)  # phase 14.1's shard counts
+N_SHARDS = 4  # the shard count of phase 14's solves
+# phase 14.5's skewed tensor for rebalancing (the CPU tests' construction,
+# scaled): SKEW_SPARSE mode-0 row blocks of 8 rows with 2 nonzeros (one
+# grid step of 64 each), then 4 with SKEW_DENSE; the other modes' extents
+SKEW_SPARSE, SKEW_DENSE, SKEW_OTHER = 2000, 32_000, (300, 250)
 # Phase 13, the decomposition service.  The bucket tier's traffic: cold
 # rank-2 jobs shaped around the JAX package driver's (25, 20, 15) with
 # 2000-3000 nonzeros drawn, solved at its bucket-tier test's config.
@@ -559,7 +594,7 @@ def mttkrp_phase(t, init, mvs, layouts, timing_iters: int) -> dict:
     return rows
 
 
-def timed_cp_als(t, init, strategy: str, dev, counts=None) -> tuple:
+def timed_cp_als(t, init, strategy: str, dev, counts=None, **kw) -> tuple:
     """(fits, steady seconds per iteration, launch counts) of ``cp_als``
     from ``init``.
 
@@ -569,7 +604,8 @@ def timed_cp_als(t, init, strategy: str, dev, counts=None) -> tuple:
     zeroed just before it and read just after (None without).  Then a
     1-iteration solve is subtracted from a 1 + TIMED_ITERS one, so
     set-up (mode sorts, layouts, densified modes) is left out and its
-    run-to-run spread is divided by TIMED_ITERS."""
+    run-to-run spread is divided by TIMED_ITERS.  ``kw`` goes to every
+    ``cp_als`` call."""
     import torch
 
     from repro_torch.core.cpals import cp_als
@@ -577,7 +613,7 @@ def timed_cp_als(t, init, strategy: str, dev, counts=None) -> tuple:
     def run(iters, recoveries=None):
         t0 = time.perf_counter()
         fits = cp_als(t, RANK, n_iters=iters, init=init, strategy=strategy,
-                      recoveries=recoveries, device=dev)[1]
+                      recoveries=recoveries, device=dev, **kw)[1]
         torch.cuda.synchronize()
         return fits, time.perf_counter() - t0
 
@@ -1577,6 +1613,477 @@ def service_phase(t, truth, init, name: str, dev, seed: int) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the row-sharded multi-device tier
+# ---------------------------------------------------------------------------
+
+
+def _shard_modes(layouts) -> list:
+    """The modes whose 256 x 256 layout has a row block for every shard
+    of the largest count (uber: modes 2 and 3); the others fall back."""
+    return [n for n, lay in enumerate(layouts)
+            if lay.n_row_blocks >= max(SHARD_COUNTS)]
+
+
+def sharded_kernel_phase(t, init, mvs, layouts, timing_iters: int) -> None:
+    """14.1: B2 and B3 once per shard on per-shard windows (both combines,
+    replicated and shard-local Π) against the same calls on the plain
+    blocked schedule; exact launch counts; exact-zero padding rows; one
+    sharded fused MU step per shard count as a CUDA-graph burst beside the
+    unsharded ``cuda`` step."""
+    import torch
+
+    from repro_torch.core import distributed as D
+    from repro_torch.core.layout import (
+        build_shard_pi_gather,
+        owner_partition,
+        pad_rows,
+        shard_blocked_layout,
+    )
+    from repro_torch.core.phi import expand_to_layout, expand_to_shards, phi_mu_step
+    from repro_torch.core.pi import pi_rows
+    from repro_torch.kernels.mttkrp import ops as mttkrp_ops
+    from repro_torch.kernels.phi import ops as phi_ops
+
+    dev = t.device
+    for n in _shard_modes(layouts):
+        mv, lay = mvs[n], layouts[n]
+        pi = pi_rows(mv.sorted_idx, init.factors, n)
+        b = init.factors[n] * init.lam[None, :]
+        vals_e, pi_e = expand_to_layout(lay, mv.sorted_vals, pi)
+        steps = {"unsharded cuda": graph_ms(
+            lambda: phi_mu_step(mv.rows, mv.sorted_vals, pi, b, mv.n_rows,
+                                strategy="cuda", layout=lay, vals_e=vals_e,
+                                pi_e=pi_e, device=dev), timing_iters)}
+        for s_count in SHARD_COUNTS:
+            sl = shard_blocked_layout(lay, s_count)
+            print(f"mode {n} at S={s_count}: row blocks per shard "
+                  f"{sl.rb_count.tolist()} (padded to {sl.n_rb_shard}), nnz "
+                  f"per shard {sl.shard_nnz.tolist()}, grid steps per shard "
+                  f"{sl.n_grid_shard}, pad_fraction {sl.pad_fraction:.4f} "
+                  f"(unsharded {lay.pad_fraction:.4f})")
+            vals_es, pi_es = expand_to_shards(sl, mv.sorted_vals, pi)
+            pig = build_shard_pi_gather(sl, mv.sorted_idx, n)
+            worst = [0.0, 0.0]
+            for combine in D.PHI_COMBINES:
+                for local_pi in (False, True):
+                    kw = dict(combine=combine)
+                    if local_pi:
+                        kw.update(pi_gather=pig, factors=init.factors)
+                    phi_ops.reset_launch_counts()
+                    mttkrp_ops.reset_launch_counts()
+                    phi_k = D.phi_sharded(sl, vals_es, pi_es, b,
+                                          local_strategy="cuda", **kw)
+                    kr_k = D.krao_sharded(sl, vals_es, pi_es,
+                                          local_strategy="cuda", **kw)
+                    torch.cuda.synchronize()
+                    counted = (dict(phi_ops.launch_counts),
+                               dict(mttkrp_ops.launch_counts))
+                    check(counted[0] == {"phi_blocked": s_count,
+                                         "phi_mu_blocked": 0}
+                          and counted[1]["mttkrp_blocked"] == s_count,
+                          f"mode {n} S={s_count} {combine} local_pi="
+                          f"{local_pi}: launches {counted}, expected "
+                          f"{s_count} of B2 and of B3")
+                    phi_p = D.phi_sharded(sl, vals_es, pi_es, b,
+                                          local_strategy="blocked", **kw)
+                    kr_p = D.krao_sharded(sl, vals_es, pi_es,
+                                          local_strategy="blocked", **kw)
+                    for i, e in enumerate((errors(phi_k, phi_p),
+                                           errors(kr_k, kr_p))):
+                        worst[i] = max(worst[i], e[0])
+                        check(e[2], f"mode {n} S={s_count} {combine} "
+                                    f"local_pi={local_pi}: the per-shard "
+                                    f"{('B2', 'B3')[i]} result disagrees "
+                                    f"with the blocked schedule")
+            st = sl.on(dev)
+            b_buf = pad_rows(b, sl.buf_rows)
+            br, wr = sl.block_rows, sl.win_rows
+            padded = 0
+            for s in range(s_count):
+                r0 = int(sl.rb_start[s]) * br
+                real = int(sl.rb_count[s]) * br
+                args = (vals_es[s], pi_es[s], st.local_rows[s], st.grid_rb[s])
+                wins = (D._shard_window(sl, 1e-10, "cuda", *args,
+                                        b_buf[r0:r0 + wr]),
+                        D._shard_window(sl, 0.0, "cuda", *args, None))
+                for w in wins:
+                    check(bool((w[real:] == 0).all()),
+                          f"mode {n} S={s_count} shard {s}: a padding row "
+                          f"of the kernel's window is not exactly zero")
+                padded += wr - real
+            opart = owner_partition(sl)
+            b_own = D.owner_stack(opart, b)
+            steps[f"S={s_count} reduce_scatter"] = graph_ms(
+                lambda: D.phi_mu_sharded_owner(sl, opart, vals_es, pi_es,
+                                               b_own, local_strategy="cuda"),
+                timing_iters)
+            steps[f"S={s_count} psum"] = graph_ms(
+                lambda: D.phi_mu_sharded(sl, vals_es, pi_es, b,
+                                         local_strategy="cuda"),
+                timing_iters)
+            print(f"mode {n} S={s_count}: B2/B3 per shard vs blocked max abs "
+                  f"err {worst[0]:.3e}/{worst[1]:.3e} (rtol {KERNEL_RTOL}, "
+                  f"atol {KERNEL_ATOL}) ok over both combines with "
+                  f"replicated and shard-local Π; launches {s_count} of "
+                  f"each per call; {padded} padding rows over the shards, "
+                  f"all exactly zero")
+        print(f"mode {n} fused MU step, device ms per step in a CUDA graph "
+              f"(graph_ms): " + ", ".join(f"{k} {v:.4f} ms"
+                                          for k, v in steps.items()))
+
+
+def _per_update_launches(events, final) -> list:
+    """(mode, strategy, B1, B2) launched by each mode update, from the
+    counts the mode hook snapshotted before each one and the final ones."""
+    out = []
+    for i, (mode, strategy, counts) in enumerate(events):
+        nxt = events[i + 1][2] if i + 1 < len(events) else final
+        out.append((mode, strategy,
+                    nxt["phi_mu_blocked"] - counts["phi_mu_blocked"],
+                    nxt["phi_blocked"] - counts["phi_blocked"]))
+    return out
+
+
+def sharded_solve_phase(t, init, layouts, res, ref, dev):
+    """14.2: the counted sharded CP-APR solve; returns it and its launch
+    counts."""
+    import warnings
+
+    import torch
+
+    from repro_torch.core import resilience
+    from repro_torch.core.cpapr import cpapr_mu
+    from repro_torch.kernels.phi import ops
+
+    cfg = _sharded_cfg()
+    events: list = []
+
+    def snapshot(ctx):
+        events.append((ctx["mode"], ctx["strategy"], dict(ops.launch_counts)))
+
+    resilience.register_mode_hook(snapshot)
+    try:
+        ops.reset_launch_counts()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            sh = cpapr_mu(t, RANK, init=init, device=dev, config=cfg)
+        torch.cuda.synchronize()
+        final = dict(ops.launch_counts)
+    finally:
+        resilience.unregister_mode_hook(snapshot)
+    fell_back = [str(w.message) for w in caught
+                 if "falling back" in str(w.message)]
+    shard_modes = _shard_modes(layouts)
+    print(f"sharded solve (S={N_SHARDS}, cuda local kernels, combine auto, "
+          f"shard_pi): {sh.n_outer} sweeps, inner iterations "
+          f"{sh.inner_iters}, launches {final}; modes {shard_modes} "
+          f"sharded, {len(fell_back)} fallback warnings: {fell_back}")
+    print(f"  kkt {sh.kkt_history}")
+    print(f"  loglik {sh.loglik_history}")
+    print(f"  seconds per sweep {sh.sweep_seconds} (phase 3's unsharded "
+          f"cuda {res.sweep_seconds})")
+    check(sh.recoveries is None, f"sharded solve recoveries or demotions: "
+                                 f"{sh.recoveries}")
+    check(len(fell_back) == t.ndim - len(shard_modes),
+          f"expected a fallback warning for each of the "
+          f"{t.ndim - len(shard_modes)} unsharded modes: {fell_back}")
+    # each sharded mode update: B2 once per shard for the scooch and once
+    # per shard per inner iteration; each fallback mode: B2 once, B1 once
+    # per inner iteration
+    per = _per_update_launches(events, final)
+    inner = []
+    for mode, strategy, b1, b2 in per:
+        if mode in shard_modes:
+            check(strategy == "sharded" and b1 == 0 and b2 % N_SHARDS == 0
+                  and b2 >= 2 * N_SHARDS,
+                  f"sharded mode {mode} launched B1 {b1} and B2 {b2} times "
+                  f"in one update: not {N_SHARDS} x (1 + inner)")
+            inner.append(b2 // N_SHARDS - 1)
+        else:
+            check(strategy == "cuda" and b2 == 1 and b1 >= 1,
+                  f"fallback mode {mode} launched B1 {b1} and B2 {b2} times "
+                  f"in one update: not B2 once and B1 per inner iteration")
+            inner.append(b1)
+    sweeps = [sum(inner[k * t.ndim:(k + 1) * t.ndim])
+              for k in range(sh.n_outer)]
+    check(len(per) == sh.n_outer * t.ndim and sweeps == sh.inner_iters,
+          f"launches imply inner counts {sweeps}, the solve reports "
+          f"{sh.inner_iters}")
+    ll = sh.loglik_history
+    check(len(ll) == len(res.loglik_history) and all(math.isfinite(x)
+                                                     for x in ll)
+          and monotone(ll), f"sharded log-likelihood not finite and "
+                            f"nondecreasing: {ll}")
+    for other, label in ((res, "cuda"), (ref, "segment")):
+        ll_err = max(abs(a - b) / abs(b)
+                     for a, b in zip(ll, other.loglik_history))
+        kkt_err = max(abs(a - b) / max(abs(b), 1e-30)
+                      for a, b in zip(sh.kkt_history, other.kkt_history))
+        print(f"sharded vs unsharded {label}: loglik max rel diff "
+              f"{ll_err:.3e} (rtol {LOGLIK_RTOL}), kkt max rel diff "
+              f"{kkt_err:.3e} (rtol {KKT_RTOL})")
+        check(ll_err <= LOGLIK_RTOL and kkt_err <= KKT_RTOL,
+              f"the sharded solve disagrees with the {label} solve")
+    return sh, {"phi_blocked": final["phi_blocked"],
+                "phi_mu_blocked": final["phi_mu_blocked"]}
+
+
+def _sharded_cfg(**kw):
+    """The phase's sharded CP-APR config: default_policy's 256 x 256
+    blocking on the local cuda kernels, N_SHARDS emulated shards."""
+    from repro_torch.core.cpapr import CPAPRConfig
+    from repro_torch.core.policy import PhiPolicy
+
+    base = dict(rank=RANK, max_outer=MAX_OUTER, max_inner=MAX_INNER,
+                strategy="sharded", n_shards=N_SHARDS, combine="auto",
+                shard_pi=True,
+                policy=PhiPolicy(strategy="cuda", block_nnz=256,
+                                 block_rows=256))
+    base.update(kw)
+    return CPAPRConfig(**base)
+
+
+def sharded_als_phase(t, init, layouts, dev) -> int:
+    """14.3: the counted sharded CP-ALS; returns its B3 launches."""
+    import warnings
+
+    from repro_torch.core.policy import PhiPolicy
+    from repro_torch.kernels.mttkrp import ops
+
+    kw = dict(n_shards=N_SHARDS,
+              policy=PhiPolicy(strategy="cuda", block_nnz=256,
+                               block_rows=256))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the fallback modes warn
+        fits, spi, counted = timed_cp_als(t, init, "sharded", dev,
+                                          counts=ops, **kw)
+        ref_fits, ref_spi, _ = timed_cp_als(t, init, "segment", dev)
+    launches = counted["mttkrp_blocked"]
+    shard_modes = _shard_modes(layouts)
+    want = ALS_ITERS * sum(N_SHARDS if n in shard_modes else 1
+                           for n in range(t.ndim))
+    print(f"cp_als sharded (S={N_SHARDS}, cuda local): fits {fits}, "
+          f"{spi:.6f} s per iteration, mttkrp_blocked launches {launches} "
+          f"(expected {want}: {N_SHARDS} per sharded mode {shard_modes} and "
+          f"1 per fallback mode per iteration)")
+    print(f"cp_als segment: fits {ref_fits}, {ref_spi:.6f} s per iteration")
+    check(launches == want, f"mttkrp_blocked launched {launches} times, "
+                            f"expected {want}")
+    check(all(math.isfinite(f) for f in fits), f"non-finite fit: {fits}")
+    fit_err = max(abs(a - b) for a, b in zip(fits, ref_fits))
+    print(f"cp_als sharded vs segment: fit max abs diff {fit_err:.3e} "
+          f"(atol {FIT_ATOL})")
+    check(fit_err <= FIT_ATOL, "sharded CP-ALS fits disagree")
+    return launches
+
+
+def _ll_rel(a, b) -> float:
+    return abs(a.loglik_history[-1] - b.loglik_history[-1]) / abs(
+        b.loglik_history[-1])
+
+
+def nccl_phase(t, init, dev) -> None:
+    """14.4: the collective code path on a one-rank NCCL process group."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.core.cpapr import cpapr_mu, poisson_loglik
+    from repro_torch.core.distributed import (
+        PHI_COMBINES,
+        DistCPAPRConfig,
+        dist_cpapr_mu,
+        make_phi_mesh,
+    )
+
+    rdv = _work_path("nccl_rendezvous")
+    dist.init_process_group("nccl", init_method=f"file://{rdv}", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_phi_mesh(1)
+        for combine in PHI_COMBINES:
+            emu = cpapr_mu(t, RANK, init=init, device=dev,
+                           config=_sharded_cfg(n_shards=1, combine=combine))
+            got = cpapr_mu(t, RANK, init=init, device=dev,
+                           config=_sharded_cfg(n_shards=None, mesh=mesh,
+                                               combine=combine))
+            err = _ll_rel(got, emu)
+            print(f"one-rank NCCL mesh, {combine}: inner iterations "
+                  f"{got.inner_iters} (emulated {emu.inner_iters}), final "
+                  f"loglik {got.loglik_history[-1]} (emulated "
+                  f"{emu.loglik_history[-1]}, rel diff {err:.3e}, rtol "
+                  f"{LOGLIK_RTOL}), seconds per sweep {got.sweep_seconds}")
+            check(got.recoveries is None and err <= LOGLIK_RTOL,
+                  f"the NCCL-mesh {combine} solve disagrees with the "
+                  f"emulated one-shard solve")
+        dmesh = init_device_mesh("cuda", (1, 1),
+                                 mesh_dim_names=("data", "model"))
+        t0 = time.perf_counter()
+        kt_d, hist = dist_cpapr_mu(
+            t, RANK, dmesh, init=init, device=dev,
+            config=DistCPAPRConfig(rank=RANK, max_outer=MAX_OUTER,
+                                   max_inner=MAX_INNER))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        ll_d = float(poisson_loglik(t, kt_d))
+        err = abs(ll_d - emu.loglik_history[-1]) / abs(emu.loglik_history[-1])
+        kkt_err = max(abs(a - b) / max(abs(b), 1e-30)
+                      for a, b in zip(hist, emu.kkt_history))
+        print(f"dist_cpapr_mu on a (1, 1) data x model NCCL mesh: "
+              f"{len(hist)} sweeps in {secs:.2f} s, kkt {hist}, final loglik "
+              f"{ll_d} (emulated one-shard {emu.loglik_history[-1]}, rel "
+              f"diff {err:.3e}, rtol {LOGLIK_RTOL}; kkt max rel diff "
+              f"{kkt_err:.3e}, rtol {KKT_RTOL})")
+        check(len(hist) == len(emu.kkt_history) and err <= LOGLIK_RTOL
+              and kkt_err <= KKT_RTOL,
+              "dist_cpapr_mu disagrees with the emulated one-shard solve")
+    finally:
+        dist.destroy_process_group()
+
+
+def sharded_ladder_phase(t, init, layouts, sh, dev, seed: int) -> None:
+    """14.5: the multi-device rungs with the ladder on, a killed and
+    resumed sharded uber solve, and rebalancing."""
+    import warnings
+
+    from repro_torch.core.cpapr import cpapr_mu
+    from repro_torch.testing import faults
+
+    # 14.2 checked the fallback warnings of the unsharded modes
+    warnings.filterwarnings("ignore", message="sharded CP-APR mode")
+    m_oom, m_fp = _shard_modes(layouts)[:2]
+    runs = {
+        "oom": (dict(max_demotions=4),
+                lambda: faults.fail_oom(mode=m_oom, min_shards=2, times=1),
+                [("demote_oom", m_oom, f"shards {N_SHARDS}->"
+                                       f"{N_SHARDS // 2}")]),
+        "fingerprint": (dict(max_demotions=4, combine="reduce_scatter"),
+                        lambda: faults.fail_fingerprint(mode=m_fp),
+                        [("demote_fingerprint", m_fp,
+                          "combine reduce_scatter->psum")]),
+    }
+    for label, (kw, fault, want) in runs.items():
+        with fault() as budget:
+            r = cpapr_mu(t, RANK, init=init, device=dev,
+                         config=_sharded_cfg(**kw))
+        rec = [(e.kind, e.mode, e.detail.get("action"))
+               for e in r.recoveries or []]
+        err = _ll_rel(r, sh)
+        print(f"injected {label} fault on a sharded mode: recoveries {rec}, "
+              f"inner iterations {r.inner_iters}, final loglik rel diff from "
+              f"the clean sharded solve {err:.3e} (rtol {LOGLIK_RTOL})")
+        check(budget == [0] and rec == want,
+              f"the {label} fault was not demoted as {want}: {rec}")
+        check(err <= LOGLIK_RTOL, f"the {label}-demoted solve disagrees")
+    ck = _work_path("uber_sharded.ckpt")
+    resumed = _killed_then_resumed(
+        t, _sharded_cfg(checkpoint_every=1, checkpoint_path=ck), dev,
+        init=init)
+    err = _ll_rel(resumed, sh)
+    print(f"sharded uber solve killed at sweep {KILL_AT} and resumed: inner "
+          f"iterations {resumed.inner_iters} (uninterrupted "
+          f"{sh.inner_iters}), final loglik rel diff {err:.3e} (rtol "
+          f"{LOGLIK_RTOL})")
+    check(resumed.inner_iters == sh.inner_iters and err <= LOGLIK_RTOL,
+          "the resumed sharded solve disagrees with the uninterrupted one")
+    skewed_rebalance_part(dev, seed)
+
+
+def skewed_rebalance_part(dev, seed: int) -> None:
+    """14.5, rebalancing: uber's row blocks carry even nonzero counts, so
+    its step-balanced split is already nnz-balanced and nothing moves.
+    A tensor whose mode-0 row blocks are skewed (SKEW_SPARSE row blocks
+    with 2 nonzeros, 4 with SKEW_DENSE: the step-balanced split gives one
+    shard the sparse blocks and almost no nonzeros) is rebalanced with
+    ``rebalance_every=1`` on 2 shards (local cuda kernels, 64 x 8
+    blocking): the events must be the modes whose nnz-weighted split
+    differs from the step split, the result within LOGLIK_RTOL of the
+    static split, and the same solve killed and resumed (its checkpoint
+    holds the rebalanced cuts) within LOGLIK_RTOL with equal inner counts
+    and rebalances."""
+    import numpy as np
+
+    from repro_torch.core.convert import sparse_tensor_from_numpy
+    from repro_torch.core.cpapr import cpapr_mu
+    from repro_torch.core.layout import (
+        build_blocked_layout,
+        rebalance_shards,
+        shard_blocked_layout,
+    )
+    from repro_torch.core.policy import PhiPolicy
+    from repro_torch.core.sparse_tensor import random_ktensor, sort_mode
+
+    rng = np.random.default_rng(seed)
+    rows = np.concatenate([
+        np.repeat(np.arange(SKEW_SPARSE) * 8, 2),
+        np.repeat((SKEW_SPARSE + np.arange(4)) * 8, SKEW_DENSE)])
+    shape = ((SKEW_SPARSE + 4) * 8,) + SKEW_OTHER
+    idx = np.stack([rows] + [rng.integers(0, d, rows.size)
+                             for d in SKEW_OTHER], 1)
+    vals = rng.poisson(2.0, rows.size).astype(np.float32) + 1.0
+    st = sparse_tensor_from_numpy(shape, idx, vals, device=dev)
+    sinit = random_ktensor(shape, RANK, seed=seed, device=dev).normalize()
+    pol = PhiPolicy(strategy="cuda", block_nnz=64, block_rows=8)
+    kw = dict(n_shards=2, policy=pol)
+    moved = []
+    for n in range(st.ndim):
+        sl = shard_blocked_layout(build_blocked_layout(
+            sort_mode(st, n).rows.cpu().numpy(), shape[n], 64, 8), 2)
+        if not np.array_equal(rebalance_shards(sl).rb_start, sl.rb_start):
+            moved.append(n)
+    static = cpapr_mu(st, RANK, init=sinit, device=dev,
+                      config=_sharded_cfg(**kw))
+    reb = cpapr_mu(st, RANK, init=sinit, device=dev,
+                   config=_sharded_cfg(rebalance_every=1, **kw))
+    events = reb.rebalances or []
+    err = _ll_rel(reb, static)
+    print(f"skewed tensor {shape}, nnz {st.nnz}: rebalance_every=1 events "
+          f"{[(e['outer'], e['mode'], e['rb_start_old'], e['rb_start_new'], e['imbalance_old'], e['imbalance_new']) for e in events]}; "
+          f"modes whose nnz split differs from the step split {moved}; "
+          f"final loglik rel diff from the static split {err:.3e} (rtol "
+          f"{LOGLIK_RTOL}); seconds per sweep {reb.sweep_seconds} (static "
+          f"{static.sweep_seconds})")
+    check(moved and sorted({e["mode"] for e in events}) == moved
+          and all(e["imbalance_new"] < e["imbalance_old"] for e in events)
+          and reb.recoveries is None and err <= LOGLIK_RTOL,
+          "the rebalanced solve did not record its re-splits or disagrees")
+    ck = _work_path("skewed_sharded.ckpt")
+    resumed = _killed_then_resumed(
+        st, _sharded_cfg(rebalance_every=1, checkpoint_every=1,
+                         checkpoint_path=ck, **kw), dev, init=sinit)
+    err = _ll_rel(resumed, reb)
+    print(f"rebalanced skewed solve killed at sweep {KILL_AT} and resumed: "
+          f"inner iterations {resumed.inner_iters} (uninterrupted "
+          f"{reb.inner_iters}), rebalances equal "
+          f"{resumed.rebalances == reb.rebalances}, final loglik rel diff "
+          f"{err:.3e} (rtol {LOGLIK_RTOL})")
+    check(resumed.inner_iters == reb.inner_iters and err <= LOGLIK_RTOL
+          and resumed.rebalances == reb.rebalances,
+          "the resumed rebalanced solve disagrees with the uninterrupted one")
+
+
+def sharded_phase(t, init, mvs, layouts, res, ref, dev, seed: int,
+                  timing_iters: int) -> dict:
+    """Phase 14; returns the launch counts of its counted solves."""
+    t0 = time.perf_counter()
+    sharded_kernel_phase(t, init, mvs, layouts, timing_iters)
+    print(f"14.1 kernels per shard: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    sh, launches = sharded_solve_phase(t, init, layouts, res, ref, dev)
+    print(f"14.2 sharded CP-APR: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launches["mttkrp_blocked"] = sharded_als_phase(t, init, layouts, dev)
+    print(f"14.3 sharded CP-ALS: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    nccl_phase(t, init, dev)
+    print(f"14.4 one-rank NCCL mesh: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    sharded_ladder_phase(t, init, layouts, sh, dev, seed)
+    print(f"14.5 ladder, rebalance, resume: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def monotone(ll: list) -> bool:
     return all(b >= a - MONOTONE_SLACK * abs(a) for a, b in zip(ll, ll[1:]))
 
@@ -1747,6 +2254,12 @@ def main(argv=None) -> int:
                                      args.seed)
     print(f"phase 13 (service): {time.perf_counter() - t0:.1f} s")
 
+    # --- phase 14: the row-sharded multi-device tier ------------------------
+    t0 = time.perf_counter()
+    sharded_launches = sharded_phase(t, init, mvs, layouts, res, ref, dev,
+                                     args.seed, TIMING_ITERS)
+    print(f"phase 14 (sharded tier): {time.perf_counter() - t0:.1f} s")
+
     # --- phase 10: one launch per fused dense step ------------------------
     one_launch_phase(*dense_first)
 
@@ -1760,6 +2273,7 @@ def main(argv=None) -> int:
         {"name": k, "route": "cuda", "source": f"{CSRC}/{KERNELS[k][0]}",
          "replaces": KERNELS[k][1], "launches": launches[k],
          "service_launches": service_launches.get(k, 0),
+         "sharded_launches": sharded_launches.get(k, 0),
          "max_abs_err": v["max_abs_err"], "max_rel_err": v["max_rel_err"],
          "ms": v["ms"], "plain_ms": v["plain_ms"], "bound_ms": v["bound_ms"],
          "bound_by": "bytes"

@@ -15,9 +15,11 @@ gather and its layout expansion run once per mode update, as in
 classified runtime failure of a mode (a kernel that fails to build, is
 refused by the card's limits or fails to launch; an unknown served
 strategy) drops that mode straight to ``segment`` and retries it,
-recorded in that list; without one every failure propagates.  This slice of
-the port runs on one device: ``mesh`` and ``n_shards`` raise
-``NotImplementedError`` (ROADMAP A8) before anything runs.
+recorded in that list; without one every failure propagates.
+``strategy="sharded"`` runs each mode's MTTKRP over row-block shards with
+one combine per mode update (:mod:`repro_torch.core.distributed`; the
+MTTKRP kernel B3 once per shard for a ``cuda`` policy), over a
+``torch.distributed`` mesh (``mesh=``) or emulated (``n_shards``).
 """
 from __future__ import annotations
 
@@ -27,7 +29,13 @@ import torch
 
 from ..device import resolve_device
 from . import resilience
-from .cpapr import hoisted_mode_inputs, resolve_mode_policies
+from .cpapr import (
+    effective_mode_combine,
+    hoisted_mode_inputs,
+    mode_pi_gather,
+    resolve_mode_policies,
+)
+from .layout import ShardedBlockedLayout
 from .phi import canonical_strategy, krao_reduce_rows
 from .pi import pi_rows
 from .sparse_tensor import KTensor, ModeView, SparseTensor, random_ktensor, sort_mode
@@ -75,10 +83,15 @@ def mttkrp_mode(
 
 
 def _make_als_mode_update(mv: ModeView, rank: int, strategy: str, layout,
-                          device: torch.device):
+                          device: torch.device, local_strategy: str = "blocked",
+                          mesh=None, pig=None, combine: str = "psum"):
     """Per-mode ALS update ``factors -> A_n'``: one Khatri-Rao gather and
     layout expansion (or, for ``dense``, one set of dense operands), the
-    MTTKRP, then the ridge-regularized Gram solve."""
+    MTTKRP, then the ridge-regularized Gram solve.  A sharded mode reduces
+    every shard (``local_strategy``) and meets in one ``combine``; with
+    ``pig`` the shards build their own Khatri-Rao rows."""
+    shard_kw = dict(mesh=mesh, local_strategy=local_strategy, pi_gather=pig,
+                    combine=combine) if strategy == "sharded" else {}
     n = mv.mode
 
     def gram_solve(factors, m_n):
@@ -96,10 +109,12 @@ def _make_als_mode_update(mv: ModeView, rank: int, strategy: str, layout,
                                    dense=layout, factors=factors)
         else:
             kr, vals_e, kr_e = hoisted_mode_inputs(mv, factors, strategy,
-                                                   layout)
+                                                   layout, pig)
             m_n = krao_reduce_rows(mv.rows, mv.sorted_vals, kr, mv.n_rows,
                                    strategy=strategy, layout=layout,
-                                   vals_e=vals_e, kr_e=kr_e, device=device)
+                                   vals_e=vals_e, kr_e=kr_e, device=device,
+                                   factors=factors if pig is not None
+                                   else None, **shard_kw)
         return gram_solve(factors, m_n)
 
     return update
@@ -116,7 +131,9 @@ def cp_als(
     autotuner=None,
     mesh=None,
     n_shards: int | None = None,
+    shard_pi: bool = True,
     mode_views: Sequence[ModeView] | None = None,
+    combine: str = "auto",
     validate: bool = True,
     recoveries: "list | None" = None,
     device="cuda",
@@ -131,7 +148,12 @@ def cp_als(
     ``strategy``/``policy`` route the MTTKRP through the same resolver as
     CP-APR's Φ (an explicit :class:`PhiPolicy` sets the blocking,
     ``policy="auto"`` engages the autotuner, ``autotuner`` as in
-    ``CPAPRConfig``).
+    ``CPAPRConfig``).  ``strategy="sharded"`` runs row-block shards over
+    ``mesh`` (a ``torch.distributed`` DeviceMesh) or ``n_shards`` emulated
+    ones, ``shard_pi`` (default) builds each shard's Khatri-Rao rows from
+    the factor rows it touches, and ``combine`` picks the combine
+    (``"auto"``: the reduce-scatter on sharded modes, as in ``cpapr_mu``;
+    bitwise equal).
 
     Passing a list as ``recoveries`` turns on the one-rung degradation
     ladder: a classified runtime failure drops the failing mode to
@@ -141,13 +163,7 @@ def cp_als(
     that fails on the card is never replaced unseen by its plain version.
     """
     dev = resolve_device(device)
-    for name, is_set in (("mesh", mesh is not None),
-                         ("n_shards", n_shards is not None)):
-        if is_set:
-            raise resilience.NotPortedError(
-                f"cp_als: {name} is not ported yet: ROADMAP A8 "
-                f"(multi-device)")
-    canonical_strategy(strategy)  # sharded/grid raise here
+    canonical_strategy(strategy)  # grid raises here
     t = t.to(dev)
     if validate:
         resilience.validate_decomposition_inputs(t, rank, where="cp_als")
@@ -161,12 +177,21 @@ def cp_als(
         sort_mode(t, n) for n in range(t.ndim)
     ]
     ones = torch.ones((rank,), dtype=factors[0].dtype, device=dev)
-    strategies, layouts, _ = resolve_mode_policies(
+    strategies, layouts, _, locals_ = resolve_mode_policies(
         mvs, rank=rank, strategy=strategy, policy=policy, shape=t.shape,
-        factors=factors, lam=ones, autotuner=autotuner)
-    updates = [_make_als_mode_update(mvs[n], rank, strategies[n], layouts[n],
-                                     dev)
-               for n in range(t.ndim)]
+        factors=factors, lam=ones, autotuner=autotuner, mesh=mesh,
+        n_shards=n_shards, combine=combine, device=dev)
+    pigs = [mode_pi_gather(mvs[n], layouts[n], shard_pi)
+            for n in range(t.ndim)]
+    updates = [
+        _make_als_mode_update(
+            mvs[n], rank, strategies[n], layouts[n], dev, locals_[n],
+            mesh if strategies[n] == "sharded" else None, pigs[n],
+            combine=effective_mode_combine(
+                combine, strategies[n], layouts[n], rank,
+                itemsize=factors[n].element_size()))
+        for n in range(t.ndim)
+    ]
 
     def _demote_mode(n: int, it: int, exc: BaseException) -> None:
         """One-rung degradation ladder: a classified runtime failure
@@ -182,7 +207,8 @@ def cp_als(
             from ..kernels.dense.kernel import drop_workspace
 
             drop_workspace(dev)
-        strategies[n], layouts[n] = "segment", None
+        strategies[n], layouts[n], locals_[n] = "segment", None, "blocked"
+        pigs[n] = None
         updates[n] = _make_als_mode_update(mvs[n], rank, "segment", None, dev)
         recoveries.append(resilience.RecoveryEvent(
             f"demote_{kind}", outer=it + 1, mode=n, detail=detail))
@@ -193,10 +219,14 @@ def cp_als(
         for n in range(t.ndim):
             try:
                 if resilience.have_hooks():
+                    sl = layouts[n]
+                    sharded = isinstance(sl, ShardedBlockedLayout)
                     resilience.fire_mode_hooks({
                         "outer": it + 1, "mode": n,
-                        "strategy": strategies[n], "local": strategies[n],
-                        "combine": "auto", "n_shards": 1})
+                        "strategy": strategies[n],
+                        "local": locals_[n] if sharded else strategies[n],
+                        "combine": combine,
+                        "n_shards": int(sl.n_shards) if sharded else 1})
                 factors[n] = updates[n](factors)
             except Exception as e:
                 _demote_mode(n, it, e)

@@ -38,10 +38,20 @@ the solver state in the JAX package's checkpoint format and
 ``resume_from`` continues from it (a checkpoint resumes across the two
 packages in both directions).
 
-This slice of the port runs on one device: ``mesh``, ``n_shards``,
-``grid_shape``, ``rebalance_every`` and the ``sharded``/``grid``
-strategies raise ``NotImplementedError`` (ROADMAP A8) before anything
-runs, so the ladder never sees them.
+``strategy="sharded"`` splits each mode's blocked schedule into
+contiguous row-block shards (:mod:`repro_torch.core.distributed`): one
+shard per rank of a ``torch.distributed`` mesh (``CPAPRConfig.mesh``),
+else ``n_shards`` shards emulated on one device.  Each inner iteration
+reduces every shard (the Φ kernel B2 per shard for a ``cuda`` policy)
+and meets in one combine: the all-reduce (``combine="psum"``) or the
+owner-partitioned reduce-scatter, whose inner loop carries each owner's
+rows and gathers the factor once per mode update.  A mode with fewer
+row blocks than shards warns and runs unsharded.  ``shard_pi`` builds
+each shard's Π rows from the factor rows it touches and
+``rebalance_every`` re-splits the shards by nonzero count between
+sweeps.  The N-D grid (``grid_shape``, ``strategy="grid"``) belongs to a
+later slice and raises :class:`NotPortedError` (ROADMAP A8b) before
+anything runs, so the ladder never sees it.
 """
 from __future__ import annotations
 
@@ -51,17 +61,33 @@ import time
 from functools import partial
 from typing import Sequence
 
+import numpy as np
 import torch
 
 from ..device import resolve_device
 from . import resilience
 from .convert import policy_from_dict
 from .dense import DenseModeData, build_dense_mode
-from .layout import BlockedLayout, ModeStats, build_blocked_layout, mode_run_stats
+from .layout import (
+    BlockedLayout,
+    ModeStats,
+    ShardedBlockedLayout,
+    ShardedPiGather,
+    build_blocked_layout,
+    build_shard_pi_gather,
+    mode_run_stats,
+    owner_partition,
+    rebalance_shards,
+    shard_blocked_layout,
+    shard_stream_cuts,
+)
 from .phi import (
     _dense_operands,
+    _sharded_block_rows,
     canonical_strategy,
     expand_to_layout,
+    expand_to_shards,
+    expand_vals_to_shards,
     phi_from_rows,
     phi_mu_step,
 )
@@ -76,10 +102,13 @@ __all__ = [
     "ModeCutout",
     "SweepOutcome",
     "cpapr_mu",
+    "effective_mode_combine",
     "extract_mode_cutout",
     "hoisted_mode_inputs",
     "kkt_violation",
+    "mode_pi_gather",
     "poisson_loglik",
+    "resolve_combine",
     "resolve_mode_policies",
     "sweep_step",
 ]
@@ -106,11 +135,38 @@ class CPAPRConfig:
     # default one (persistent user-level cache) is created when absent.
     autotuner: "object | None" = None
     track_loglik: bool = True
-    # multi-device fields of the JAX package: not ported yet, must stay unset
+    # strategy="sharded": row blocks split over this torch.distributed
+    # DeviceMesh (a 1-D ("data",) mesh, make_phi_mesh) with one combine
+    # per inner iteration; None emulates the shards on one device.
     mesh: "object | None" = None
+    # Shard count for the emulated sharded path (ignored when mesh is set;
+    # defaults to torch.cuda.device_count() on the card, 1 on the CPU).
     n_shards: "int | None" = None
+    # strategy="grid": the N-D device grid, a later slice (ROADMAP A8b);
+    # must stay unset.
     grid_shape: "tuple | None" = None
+    # strategy="sharded": compute Pi rows shard-locally from the factor
+    # rows each shard touches (ShardedPiGather) instead of materializing
+    # the replicated (nnz, R) Pi array — per-device factor bytes drop from
+    # O(I * R) to O(touched_rows * R).  The Pi product is recomputed per
+    # inner iteration inside the shard (O(nnz/S * R) per device), which
+    # beats the one-time replicated O(nnz * R) compute once S >= max_inner
+    # and removes the expanded-Pi footprint entirely.
+    shard_pi: bool = True
+    # Rebalance sharded row-block boundaries by measured nnz skew every
+    # this many outer sweeps (0 = static sharding).  The base blocked
+    # schedule (and the tuned block sizes) stay pinned; only the
+    # block->shard assignment moves, so every shard remains a valid
+    # blocked schedule.  Changed modes rebuild their update.
     rebalance_every: int = 0
+    # strategy="sharded" combine flavour: "psum" (all-reduce of the full
+    # (buf_rows, R) window), "reduce_scatter" (owner-partitioned
+    # epilogue: each device keeps only its owned O(I_n*R/S) slice through
+    # the inner MU loop and the updated factor rows are gathered once per
+    # mode update), or "auto" (default: reduce_scatter whenever the mode
+    # is actually sharded, unless its split pads the owner slots past the
+    # all-reduce's wire).
+    combine: str = "auto"
     # Reject NaN/negative values, out-of-range indices, and rank <= 0 at
     # the solve boundary (one host pass over the nonzeros).
     validate: bool = True
@@ -123,15 +179,17 @@ class CPAPRConfig:
     guard_retries: int = 3
     # Degradation ladder: runtime failures classified by
     # repro_torch.core.resilience.classify_failure demote the failing mode
-    # (cuda -> blocked -> segment, dense -> segment), each retried after
-    # bounded exponential backoff (demote_backoff * 2^attempt, capped), at
-    # most max_demotions rungs per mode invocation.  Off by default (the
-    # JAX package takes 4 rungs after 0.05 s): a kernel that fails to
-    # build or launch is then an error, never a run of its plain version
-    # on the card.  Every failure the ladder demotes on one device is
-    # deterministic and the retry runs another strategy, so waiting
-    # changes nothing here.
-    demote_backoff: float = 0.0
+    # (cuda -> blocked -> segment, dense -> segment; on a sharded mode the
+    # local cuda -> blocked, then sharded -> segment, the combine
+    # reduce_scatter -> psum on a stale shard assignment, and shard
+    # halving + rebalance on OOM), at most max_demotions rungs per mode
+    # invocation.  Off by default (the JAX package takes 4): a kernel that
+    # fails to build or launch is then an error, never a run of its plain
+    # version on the card.  An OOM rung retries after bounded exponential
+    # backoff (demote_backoff * 2^attempt, capped), as in the JAX package:
+    # memory another tenant holds may be freed meanwhile.  The other rungs
+    # retry another strategy at once, since their failures recur.
+    demote_backoff: float = 0.05
     max_demotions: int = 0
     # Sweep-level checkpointing: every checkpoint_every outer sweeps the
     # solver state (factors, lam, outer index, histories, per-mode
@@ -154,6 +212,9 @@ class CPAPRResult:
     # per outer iter run in this process: host seconds of the sweep
     sweep_seconds: list
     policies: list | None = None  # per-mode PhiPolicy, blocked/cuda/dense
+    # per rebalance event: {"outer", "mode", "rb_start_old", "rb_start_new",
+    # "imbalance_old", "imbalance_new"} (nnz max/mean over shards)
+    rebalances: list | None = None
     # RecoveryEvents (numerical-guard restores, degradation-ladder
     # demotions, checkpoint quarantine/resume), in order
     recoveries: list | None = None
@@ -226,11 +287,28 @@ def sweep_step(carry, batch, guard: bool = False) -> SweepOutcome:
                         inner_total=inner_total, bad=bad)
 
 
-def hoisted_mode_inputs(mv: ModeView, factors, strategy: str, layout) -> tuple:
+def mode_pi_gather(mv: ModeView, layout,
+                   shard_pi: bool = True) -> "ShardedPiGather | None":
+    """The shard-local Π gather maps for one mode, or None when the mode
+    is not sharded (or ``shard_pi`` is off).  Shared by CP-APR and CP-ALS
+    so both solver families build identical maps."""
+    if shard_pi and isinstance(layout, ShardedBlockedLayout):
+        return build_shard_pi_gather(layout, mv.sorted_idx, mv.mode)
+    return None
+
+
+def hoisted_mode_inputs(mv: ModeView, factors, strategy: str, layout,
+                        pig: "ShardedPiGather | None" = None) -> tuple:
     """Per-mode-update hoisted inputs ``(pi, vals_e, pi_e)``: one Π gather
-    and, for the blocked schedules, one layout expansion per mode update."""
+    and, for the blocked schedules, one layout expansion per mode update.
+    With ``pig`` (shard-local Π) only the values are expanded: each shard
+    gathers its own factor rows per call, and no (nnz, R) Π is built."""
+    if pig is not None:
+        return None, expand_vals_to_shards(layout, mv.sorted_vals), None
     pi = pi_rows(mv.sorted_idx, factors, mv.mode)
-    if strategy in ("blocked", "cuda") and layout is not None:
+    if strategy == "sharded" and layout is not None:
+        vals_e, pi_e = expand_to_shards(layout, mv.sorted_vals, pi)
+    elif strategy in ("blocked", "cuda") and layout is not None:
         vals_e, pi_e = expand_to_layout(layout, mv.sorted_vals, pi)
     else:
         vals_e = pi_e = None
@@ -294,6 +372,94 @@ def poisson_loglik(t: SparseTensor, kt: KTensor, eps: float = 1e-10) -> torch.Te
             - torch.sum(kt.lam))
 
 
+def resolve_combine(combine: str, strategy: str) -> str:
+    """Resolve a (possibly ``"auto"``) combine flavour for one mode.
+
+    ``"auto"`` means reduce-scatter whenever the mode runs sharded;
+    non-sharded modes always resolve to ``"psum"`` (nothing to combine).
+    The grid family has exactly one combine, the reduce-scatter, so
+    ``"grid"`` resolves to ``"reduce_scatter"`` and rejects ``"psum"``.
+    """
+    from .distributed import PHI_COMBINES  # deferred: avoids cycle
+
+    if strategy == "grid":
+        if combine not in ("auto", "reduce_scatter"):
+            raise ValueError(
+                f"combine {combine!r} is not supported for strategy='grid'"
+                " (the grid combine is always the column reduce-scatter)"
+            )
+        return "reduce_scatter"
+    if strategy != "sharded":
+        return "psum"
+    if combine == "auto":
+        return "reduce_scatter"
+    if combine not in PHI_COMBINES:
+        raise ValueError(
+            f"unknown combine {combine!r}; expected 'auto' or one of "
+            f"{PHI_COMBINES}"
+        )
+    return combine
+
+
+def effective_mode_combine(combine: str, strategy: str, layout, rank: int,
+                           *, itemsize: int = 4) -> str:
+    """Per-mode combine after the wire-aware ``"auto"`` demotion.
+
+    ``"auto"`` prefers the reduce-scatter epilogue but consults
+    :func:`repro_torch.core.distributed.preferred_combine` on the mode's
+    sharded layout: a heavily block-skewed split pads the owner slots past
+    the all-reduce's wire, and ``"auto"`` then keeps the all-reduce.  An
+    explicit ``"reduce_scatter"`` is never demoted.  ``itemsize`` is the
+    factor element width in bytes.
+    """
+    eff = resolve_combine(combine, strategy)
+    if (combine == "auto" and eff == "reduce_scatter"
+            and isinstance(layout, ShardedBlockedLayout)):
+        from .distributed import preferred_combine  # deferred: avoids cycle
+
+        eff = preferred_combine(layout, rank, itemsize=itemsize)
+    return eff
+
+
+def _effective_shard_count(mesh, n_shards, device: torch.device) -> int:
+    if mesh is not None:
+        from .distributed import mesh_device_count  # deferred: avoids cycle
+
+        return mesh_device_count(mesh)
+    if n_shards is not None:
+        return int(n_shards)
+    if device.type == "cuda":
+        return max(1, torch.cuda.device_count())
+    return 1
+
+
+def _local_of(pol: PhiPolicy) -> str:
+    """The shard-local (or fallback) flavour a policy runs: its own
+    blocked/cuda strategy (``"pallas"`` read as ``cuda``), else the plain
+    blocked schedule."""
+    s = "cuda" if pol.strategy == "pallas" else pol.strategy
+    return s if s in ("blocked", "cuda") else "blocked"
+
+
+def _shard_mode_layout(mv: ModeView, pol: PhiPolicy, n_shards: int) -> tuple:
+    """(strategy, layout) for one sharded mode: warn and fall back to the
+    unsharded path (keeping the policy's blocked/cuda flavour) when the
+    blocking leaves fewer row blocks than shards."""
+    base = _blocked_layout(mv, pol)
+    if n_shards > base.n_row_blocks:
+        import warnings
+
+        local = _local_of(pol)
+        warnings.warn(
+            f"sharded CP-APR mode {mv.mode}: {n_shards} shards requested but "
+            f"the layout has only {base.n_row_blocks} row blocks; falling "
+            f"back to the single-device {local} path for this mode",
+            stacklevel=4,
+        )
+        return local, base
+    return "sharded", shard_blocked_layout(base, n_shards)
+
+
 def _dense_mode_data(mv: ModeView, shape) -> DenseModeData:
     """Densify one mode into its :class:`DenseModeData` (the dense tier's
     counterpart of a blocked layout), on the mode view's device."""
@@ -322,28 +488,48 @@ def resolve_mode_policies(
     factors: "Sequence[torch.Tensor] | None" = None,
     lam: "torch.Tensor | None" = None,
     autotuner: "object | None" = None,
+    mesh: "object | None" = None,
+    n_shards: "int | None" = None,
+    combine: str = "auto",
+    device="cpu",
 ) -> tuple:
-    """Per-mode ``(strategies, layouts, policies)`` lists.
+    """Per-mode ``(strategies, layouts, policies, locals)`` lists.
 
     The strategy resolver of both solvers (:func:`cpapr_mu` and
     :func:`repro_torch.core.cpals.cp_als`).  ``blocked``/``cuda`` modes
     get a :class:`BlockedLayout` with the explicit policy's block sizes,
     else :func:`default_policy`'s.  ``dense`` modes get their
     :class:`DenseModeData` in the layouts slot; they need the tensor's
-    ``shape``.
+    ``shape``.  ``sharded`` modes get a :class:`ShardedBlockedLayout` of
+    ``mesh``'s size (else ``n_shards``, else every card of the process on
+    the card and 1 on the CPU) from the policy's blocking (default 256 x
+    :func:`repro_torch.core.phi._sharded_block_rows`), or warn and run
+    unsharded with fewer row blocks than shards; ``locals`` holds each
+    mode's shard-local flavour (``blocked`` or ``cuda``).
 
     ``policy="auto"`` asks the autotuner (``autotuner``, else a default
     :class:`repro_torch.perf.autotune.Autotuner`) per mode, from the
     mode's Π rows under ``factors`` and its ``B = A_n * lam``; a mode the
     tuner sends to the dense tier runs it while the others keep their
-    sparse winners.  As in the JAX package, a served policy's strategy is
-    adopted unchecked: an unknown one fails inside the mode's first
-    update, where the degradation ladder's ``policy`` rung catches it
-    when the caller has turned the ladder on.
+    sparse winners.  A sharded mode is tuned per shard
+    (``Autotuner.policy_for_sharded_mode``, keyed on ``/shards=`` and the
+    requested combine).  As in the JAX package, a served policy's
+    strategy is adopted unchecked: an unknown one fails inside the mode's
+    first update, where the degradation ladder's ``policy`` rung catches
+    it when the caller has turned the ladder on.
     """
     n_modes = len(mvs)
     layouts: list = [None] * n_modes
     policies: list = [None] * n_modes
+    locals_: list = ["blocked"] * n_modes
+    if policy != "auto":
+        strategy = canonical_strategy(strategy)
+    sharded = strategy == "sharded"
+    eff_combine = resolve_combine(combine, strategy)
+    eff_shards = (_effective_shard_count(mesh, n_shards,
+                                         torch.device(device))
+                  if sharded else 1)
+    strategies = [strategy] * n_modes
     if policy == "auto":
         from ..perf.autotune import Autotuner  # deferred: avoids a cycle
 
@@ -351,23 +537,53 @@ def resolve_mode_policies(
             raise ValueError("policy='auto' needs the tensor's shape, the "
                              "factors and lam")
         tuner = autotuner if autotuner is not None else Autotuner()
-        strategies = [strategy] * n_modes
         for n, mv in enumerate(mvs):
-            stats = mode_run_stats(mv.rows.detach().cpu().numpy(), mv.n_rows,
-                                   row_width=_mode_row_width(shape, n))
-            pol = tuner.policy_for_mode(
-                mv.rows, mv.sorted_vals, pi_rows(mv.sorted_idx, factors, n),
-                factors[n] * lam[None, :], n_rows=mv.n_rows, rank=rank,
-                stats=stats, n_modes=n_modes)
+            pi_n = pi_rows(mv.sorted_idx, factors, n)
+            b_n = factors[n] * lam[None, :]
+            if sharded:
+                # per-shard stats are computed on the shard slices inside
+                # policy_for_sharded_mode
+                pol, _ = tuner.policy_for_sharded_mode(
+                    mv.rows, mv.sorted_vals, pi_n, b_n, n_rows=mv.n_rows,
+                    rank=rank, n_shards=eff_shards, combine=eff_combine,
+                    n_modes=n_modes)
+            else:
+                stats = mode_run_stats(mv.rows.detach().cpu().numpy(),
+                                       mv.n_rows,
+                                       row_width=_mode_row_width(shape, n))
+                pol = tuner.policy_for_mode(
+                    mv.rows, mv.sorted_vals, pi_n, b_n, n_rows=mv.n_rows,
+                    rank=rank, stats=stats, n_modes=n_modes)
             policies[n] = pol
             strategies[n] = pol.strategy
             if pol.strategy == "dense":
+                # the dense tier always runs unsharded: its densified mode
+                # fits one device by construction
                 layouts[n] = _dense_mode_data(mv, shape)
-            elif pol.strategy in ("blocked", "cuda"):
-                layouts[n] = _blocked_layout(mv, pol)
-        return strategies, layouts, policies
-    strategy = canonical_strategy(strategy)
-    strategies = [strategy] * n_modes
+            elif pol.strategy in ("blocked", "cuda", "pallas"):
+                locals_[n] = _local_of(pol)
+                if sharded:
+                    strategies[n], layouts[n] = _shard_mode_layout(
+                        mv, pol, eff_shards)
+                else:
+                    layouts[n] = _blocked_layout(mv, pol)
+        return strategies, layouts, policies, locals_
+    if sharded:
+        for n, mv in enumerate(mvs):
+            if isinstance(policy, PhiPolicy):
+                pol = policy
+            else:
+                pol = PhiPolicy(
+                    strategy="blocked", block_nnz=256,
+                    block_rows=_sharded_block_rows(mv.n_rows, eff_shards))
+            policies[n] = pol
+            if canonical_strategy(pol.strategy) in ("blocked", "cuda"):
+                locals_[n] = _local_of(pol)
+                strategies[n], layouts[n] = _shard_mode_layout(
+                    mv, pol, eff_shards)
+            else:  # an unblocked user policy has nothing to shard
+                strategies[n] = canonical_strategy(pol.strategy)
+        return strategies, layouts, policies, locals_
     if strategy == "dense":
         if shape is None:
             raise ValueError("strategy='dense' needs the tensor's shape")
@@ -381,24 +597,32 @@ def resolve_mode_policies(
         for n, mv in enumerate(mvs):
             policies[n] = pol
             layouts[n] = _blocked_layout(mv, pol)
-    return strategies, layouts, policies
+    return strategies, layouts, policies, locals_
 
 
-def _restore_mode_layouts(mvs, strategies, policies, shape) -> list:
-    """Rebuild per-mode layouts exactly as checkpointed (tuned block
-    sizes from the saved policies, densified dense-tier modes), so the
-    resumed schedule is the killed run's."""
+def _restore_mode_layouts(mvs, strategies, policies, shape,
+                          mode_shards=None, rb_bounds=None) -> list:
+    """Rebuild per-mode layouts exactly as checkpointed: tuned block sizes
+    from the saved policies, densified dense-tier modes, and sharded modes
+    on their saved (possibly rebalanced) row-block cuts, so the resumed
+    schedule is the killed run's."""
     layouts: list = [None] * len(mvs)
+    rb_bounds = rb_bounds or {}
     for n, mv in enumerate(mvs):
         if strategies[n] == "dense":
             layouts[n] = _dense_mode_data(mv, shape)
+        elif strategies[n] == "sharded":
+            layouts[n] = shard_blocked_layout(
+                _blocked_layout(mv, policies[n]), int(mode_shards[n]),
+                bounds=rb_bounds.get(n))
         elif strategies[n] in ("blocked", "cuda") and policies[n] is not None:
             layouts[n] = _blocked_layout(mv, policies[n])
     return layouts
 
 
 def _hoisted_steps(mv: ModeView, cfg: CPAPRConfig, strategy: str, layout,
-                   device: torch.device, factors) -> tuple:
+                   device: torch.device, factors, local_strategy: str,
+                   pig: "ShardedPiGather | None") -> tuple:
     """The mode update's ``(phi, step)`` callables of B, over inputs
     hoisted once per mode update and shared by the scooch Φ and every
     fused inner iteration: the Π gather and its layout expansion, or for
@@ -419,7 +643,10 @@ def _hoisted_steps(mv: ModeView, cfg: CPAPRConfig, strategy: str, layout,
         return phi, step
     kw = dict(n_rows=mv.n_rows, eps=cfg.eps, strategy=strategy, layout=layout,
               device=device)
-    pi, vals_e, pi_e = hoisted_mode_inputs(mv, factors, strategy, layout)
+    if strategy == "sharded":
+        kw.update(mesh=cfg.mesh, local_strategy=local_strategy,
+                  pi_gather=pig, factors=factors if pig is not None else None)
+    pi, vals_e, pi_e = hoisted_mode_inputs(mv, factors, strategy, layout, pig)
 
     def phi(b):
         return phi_from_rows(mv.rows, mv.sorted_vals, pi, b, vals_e=vals_e,
@@ -432,16 +659,84 @@ def _hoisted_steps(mv: ModeView, cfg: CPAPRConfig, strategy: str, layout,
     return phi, step
 
 
-def _make_mode_update(mv: ModeView, cfg: CPAPRConfig, strategy: str,
-                      layout: "BlockedLayout | DenseModeData | None",
-                      device: torch.device):
-    """Per-mode solve: ``update(factors, lam) -> (A_n', lam', viol,
-    n_inner)`` with ``viol`` a host float and ``n_inner`` an int."""
+def _make_owner_mode_update(mv: ModeView, cfg: CPAPRConfig,
+                            layout: ShardedBlockedLayout, local_strategy: str,
+                            pig: "ShardedPiGather | None"):
+    """Owner-partitioned per-mode solve (the reduce-scatter epilogue).
+
+    The scooch and the fused inner MU loop run on the owner-stacked
+    (S, own_rows, R) carry (under a mesh, this rank's (1, own_rows, R)
+    slot): each inner iteration's only combine is a reduce-scatter whose
+    per-device output is the owned O(I_n * R / S) slice.  The factor is
+    reassembled (gathered, under a mesh) and renormalized once, after the
+    inner loop.
+    """
+    from .distributed import (  # deferred: avoids import cycle
+        owner_stack,
+        owner_unstack,
+        phi_mu_sharded_owner,
+        phi_sharded_owner,
+    )
+
     n = mv.mode
+    mesh = cfg.mesh
+    opart = owner_partition(layout)
 
     def update(factors, lam):
         a_n = factors[n]
-        phi, step = _hoisted_steps(mv, cfg, strategy, layout, device, factors)
+        _, vals_e, pi_e = hoisted_mode_inputs(mv, factors, "sharded", layout,
+                                              pig)
+        kw = dict(eps=cfg.eps, mesh=mesh, local_strategy=local_strategy,
+                  pi_gather=pig, factors=factors if pig is not None else None)
+        a_own = owner_stack(opart, a_n, mesh)
+        lam_b = lam[None, None, :]
+
+        # --- scooch: lift inadmissible zeros (Alg. 1 line 3), owner-local
+        phi0_own = phi_sharded_owner(layout, opart, vals_e, pi_e,
+                                     a_own * lam_b, **kw)
+        s = torch.where((a_own < cfg.kappa_tol) & (phi0_own > 1.0),
+                        torch.full_like(a_own, cfg.kappa),
+                        torch.zeros_like(a_own))
+        b_own = (a_own + s) * lam_b
+
+        # --- fused inner MU loop (Alg. 1 lines 5-8), owner-stacked carry
+        i, viol = 0, math.inf
+        while i < cfg.max_inner and viol > cfg.tol:
+            b_own, viol_t = phi_mu_sharded_owner(layout, opart, vals_e, pi_e,
+                                                 b_own, tol=cfg.tol, **kw)
+            viol = float(viol_t)  # host sync: decides the next iteration
+            i += 1
+
+        # --- renormalize (Alg. 1 lines 9-10) on the reassembled factor
+        b = owner_unstack(opart, b_own, mesh)
+        lam_new = torch.sum(b, dim=0)
+        a_new = b / torch.clamp_min(lam_new, cfg.eps)
+        return a_new, lam_new, viol, i
+
+    return update
+
+
+def _make_mode_update(mv: ModeView, cfg: CPAPRConfig, strategy: str,
+                      layout: "BlockedLayout | ShardedBlockedLayout | DenseModeData | None",
+                      device: torch.device, local_strategy: str = "blocked",
+                      pig: "ShardedPiGather | None" = None):
+    """Per-mode solve: ``update(factors, lam) -> (A_n', lam', viol,
+    n_inner)`` with ``viol`` a host float and ``n_inner`` an int.  A
+    sharded mode whose effective combine is the reduce-scatter runs
+    :func:`_make_owner_mode_update`'s owner-stacked loop; with ``pig``
+    (``shard_pi``) no (nnz, R) Π is built: each shard gathers the factor
+    rows its nonzeros touch and rebuilds its Π rows per inner iteration."""
+    n = mv.mode
+    if (strategy == "sharded" and isinstance(layout, ShardedBlockedLayout)
+            and effective_mode_combine(
+                cfg.combine, strategy, layout, cfg.rank,
+                itemsize=mv.sorted_vals.element_size()) == "reduce_scatter"):
+        return _make_owner_mode_update(mv, cfg, layout, local_strategy, pig)
+
+    def update(factors, lam):
+        a_n = factors[n]
+        phi, step = _hoisted_steps(mv, cfg, strategy, layout, device, factors,
+                                   local_strategy, pig)
 
         # --- scooch: lift inadmissible zeros (Alg. 1 line 3) --------------
         phi0 = phi(a_n * lam[None, :])
@@ -466,19 +761,12 @@ def _make_mode_update(mv: ModeView, cfg: CPAPRConfig, strategy: str,
 
 
 def _check_supported(cfg: CPAPRConfig) -> None:
-    """Raise :class:`NotPortedError` for every multi-device option, before
-    anything runs: the ladder must never "demote" one into a run."""
-    unported = {
-        "mesh": cfg.mesh is not None,
-        "n_shards": cfg.n_shards is not None,
-        "grid_shape": cfg.grid_shape is not None,
-        "rebalance_every": cfg.rebalance_every != 0,
-    }
-    for name, is_set in unported.items():
-        if is_set:
-            raise NotPortedError(f"cpapr_mu: {name} is not ported yet: "
-                                 f"ROADMAP A8 (multi-device)")
-    canonical_strategy(cfg.strategy)  # sharded/grid raise here
+    """Raise :class:`NotPortedError` for the grid options, before anything
+    runs: the ladder must never "demote" one into a run."""
+    if cfg.grid_shape is not None:
+        raise NotPortedError("cpapr_mu: grid_shape is not ported yet: "
+                             "ROADMAP A8b (grid)")
+    canonical_strategy(cfg.strategy)  # grid raises here
 
 
 def _reference_name(strategy: str) -> str:
@@ -489,9 +777,7 @@ def _ckpt_fingerprint(t: SparseTensor, cfg: CPAPRConfig) -> str:
     """Problem/config fingerprint a checkpoint must match to be resumed.
 
     Exactly the JAX package's fields and values, so a checkpoint resumes
-    across the packages: the port has no ``combine``, ``shard_pi`` or
-    ``grid_shape`` field and hashes the JAX package's defaults, and
-    ``cuda`` hashes as its JAX name ``pallas``.
+    across the packages (``cuda`` hashes as its JAX name ``pallas``).
     """
     return resilience.config_fingerprint({
         "shape": [int(s) for s in t.shape],
@@ -503,16 +789,17 @@ def _ckpt_fingerprint(t: SparseTensor, cfg: CPAPRConfig) -> str:
         "kappa": float(cfg.kappa),
         "kappa_tol": float(cfg.kappa_tol),
         "strategy": _reference_name(cfg.strategy),
-        "combine": "auto",
-        "shard_pi": True,
-        "grid_shape": None,
+        "combine": cfg.combine,
+        "shard_pi": bool(cfg.shard_pi),
+        "grid_shape": [int(x) for x in cfg.grid_shape]
+        if cfg.grid_shape is not None else None,
     })
 
 
 def _load_resume_state(path: str, fp: str, recoveries: list) -> "dict | None":
     """The verified state of checkpoint ``path``, or None after
     quarantining a corrupt or mismatched file (recorded in
-    ``recoveries``).  A sound checkpoint of sharded or grid modes raises
+    ``recoveries``).  A sound checkpoint of grid modes raises
     :class:`NotPortedError` and stays where it is."""
     try:
         state = resilience.load_checkpoint(path)
@@ -527,11 +814,15 @@ def _load_resume_state(path: str, fp: str, recoveries: list) -> "dict | None":
             "checkpoint_corrupt", outer=0,
             detail={"error": str(e), "quarantined": qpath}))
         return None
-    if any(int(s) > 1 for s in state.get("mode_shards", [])):
-        raise NotPortedError(f"{path}: the checkpoint's modes are sharded, "
-                             f"which is not ported yet: ROADMAP A8")
+    if any(g is not None for g in state.get("mode_grids") or []):
+        raise NotPortedError(f"{path}: the checkpoint's modes run on a "
+                             f"device grid, which is not ported yet: "
+                             f"ROADMAP A8b (grid)")
     state["strategies"] = [canonical_strategy(s)
                            for s in state["strategies"]]
+    state["locals"] = [canonical_strategy(s)
+                       for s in state.get("locals")
+                       or ["blocked"] * len(state["strategies"])]
     return state
 
 
@@ -584,13 +875,15 @@ def cpapr_mu(
     kkt_hist: list = []
     ll_hist: list = []
     inner_hist: list = []
+    rebalances: list = []
     if resume_state is None:
-        strategies, layouts, policies = resolve_mode_policies(
+        strategies, layouts, policies, locals_ = resolve_mode_policies(
             mvs, rank=rank, strategy=cfg.strategy, policy=cfg.policy,
             shape=t.shape, factors=factors, lam=lam,
-            autotuner=cfg.autotuner)
-        # per-mode effective config: the kappa ladder mutates these
-        # without touching the caller's cfg
+            autotuner=cfg.autotuner, mesh=cfg.mesh, n_shards=cfg.n_shards,
+            combine=cfg.combine, device=dev)
+        # per-mode effective config: the kappa ladder and the combine
+        # demotion mutate these without touching the caller's cfg
         mode_cfgs = [cfg] * n_modes
     else:
         start_outer = int(resume_state["outer"])
@@ -598,32 +891,48 @@ def cpapr_mu(
                    for f in resume_state["factors"]]
         lam = resilience.array_to_tensor(resume_state["lam"], dev)
         strategies = list(resume_state["strategies"])
+        locals_ = list(resume_state["locals"])
         policies = [policy_from_dict(p) if p else None
                     for p in resume_state["policies"]]
-        layouts = _restore_mode_layouts(mvs, strategies, policies, t.shape)
-        # the per-mode kappa ladder, so the resumed trajectory matches the
-        # killed run even mid-recovery
-        mode_cfgs = [dataclasses.replace(cfg, kappa=float(k))
-                     for k in resume_state["kappas"]]
+        rb_bounds = {int(k): v
+                     for k, v in resume_state.get("rb_bounds", {}).items()}
+        layouts = _restore_mode_layouts(
+            mvs, strategies, policies, t.shape,
+            list(resume_state["mode_shards"]), rb_bounds)
+        # the per-mode kappa ladder and combine demotions, so the resumed
+        # trajectory matches the killed run even mid-recovery
+        mode_cfgs = [dataclasses.replace(cfg, kappa=float(k), combine=c)
+                     for k, c in zip(resume_state["kappas"],
+                                     resume_state["combines"])]
         kkt_hist = list(resume_state["kkt_history"])
         ll_hist = list(resume_state["loglik_history"])
         inner_hist = list(resume_state["inner_iters"])
+        rebalances = list(resume_state.get("rebalances") or [])
         recoveries.extend(RecoveryEvent(**r)
                           for r in resume_state.get("recoveries", []))
         recoveries.append(RecoveryEvent(
             "resume", outer=start_outer, detail={"path": resume_from}))
 
+    pigs = [mode_pi_gather(mvs[n], layouts[n], cfg.shard_pi)
+            for n in range(n_modes)]
     updates = [_make_mode_update(mvs[n], mode_cfgs[n], strategies[n],
-                                 layouts[n], dev)
+                                 layouts[n], dev, locals_[n], pigs[n])
                for n in range(n_modes)]
 
     def _rebuild(n: int) -> None:
+        """Re-derive mode ``n``'s gather maps and update from its current
+        layout, strategy and per-mode config."""
+        pigs[n] = mode_pi_gather(mvs[n], layouts[n], cfg.shard_pi)
         updates[n] = _make_mode_update(mvs[n], mode_cfgs[n], strategies[n],
-                                       layouts[n], dev)
+                                       layouts[n], dev, locals_[n], pigs[n])
 
     def _ctx(outer: int, n: int) -> dict:
+        sl = layouts[n]
+        sharded = isinstance(sl, ShardedBlockedLayout)
         return {"outer": outer, "mode": n, "strategy": strategies[n],
-                "local": strategies[n], "combine": "auto", "n_shards": 1}
+                "local": locals_[n] if sharded else strategies[n],
+                "combine": mode_cfgs[n].combine,
+                "n_shards": int(sl.n_shards) if sharded else 1}
 
     def _invoke(outer: int, n: int, factors, lam):
         """One raw mode-update attempt: fault hooks, the update, the
@@ -638,11 +947,49 @@ def cpapr_mu(
         ok = resilience.guard_ok(a_new, lam_new) if cfg.guard else None
         return a_new, lam_new, viol, n_inner, ok
 
+    def _demote_sharded(n: int, kind: str) -> "str | None":
+        """The multi-device rungs of a sharded mode: the action label, or
+        None when no rung applies."""
+        sl = layouts[n]
+        if kind in ("kernel", "policy"):
+            if locals_[n] == "cuda":
+                locals_[n] = "blocked"
+                return "local cuda->blocked"
+            # the shard-local blocked schedule failed too: leave the
+            # sharded family for the streaming segment path
+            strategies[n], layouts[n], locals_[n] = "segment", None, "blocked"
+            return "sharded->segment"
+        if kind == "fingerprint":
+            if mode_cfgs[n].combine == "psum":
+                return None
+            old = mode_cfgs[n].combine
+            mode_cfgs[n] = dataclasses.replace(mode_cfgs[n], combine="psum")
+            return f"combine {old}->psum"
+        if kind == "oom":
+            new_s = sl.n_shards // 2
+            # on a process-group mesh every rank holds one shard, and no
+            # smaller mesh can be formed inside the group: the ladder goes
+            # straight to the single-device local path there
+            if new_s <= 1 or mode_cfgs[n].mesh is not None:
+                strategies[n], layouts[n] = locals_[n], sl.base
+                return f"sharded@{sl.n_shards}->single-device {locals_[n]}"
+            layouts[n] = rebalance_shards(shard_blocked_layout(sl.base,
+                                                               new_s))
+            return f"shards {sl.n_shards}->{new_s}"
+        return None
+
     def _demote(n: int, kind: str, exc: BaseException) -> "dict | None":
         """Take one degradation-ladder rung for mode ``n``; returns the
         recovery detail, or None when no rung applies (the error then
-        propagates).  The OOM, fingerprint and grid rungs are multi-device
-        (ROADMAP A8)."""
+        propagates).  The grid rungs wait for ROADMAP A8b."""
+        detail = {"error": f"{type(exc).__name__}: {exc}"[:200]}
+        if strategies[n] == "sharded" \
+                and isinstance(layouts[n], ShardedBlockedLayout):
+            action = _demote_sharded(n, kind)
+            if action is None:
+                return None
+            detail["action"] = action
+            return detail
         if kind not in ("kernel", "policy"):
             return None
         old = strategies[n]
@@ -663,8 +1010,54 @@ def cpapr_mu(
         strategies[n] = new
         if new not in ("blocked", "cuda"):
             layouts[n] = None
-        return {"error": f"{type(exc).__name__}: {exc}"[:200],
-                "action": f"{old}->{new}"}
+        detail["action"] = f"{old}->{new}"
+        return detail
+
+    def _nnz_imbalance(sl: ShardedBlockedLayout) -> float:
+        mean = float(sl.shard_nnz.mean())
+        return float(sl.shard_nnz.max()) / max(mean, 1.0)
+
+    def _rebalance_modes(outer: int, events: list) -> None:
+        """nnz-weighted boundary re-split of every sharded mode.
+
+        Only the block->shard assignment moves; the base schedule (and the
+        tuned block sizes) stay pinned.  Modes whose boundaries changed
+        rebuild their Π gather maps and update.  With a *non-measuring*
+        autotuner the new shard sub-problems are re-keyed under
+        assignment-aware keys (``/assign=``), so future cold starts of this
+        assignment hit; a measuring tuner is skipped, since timed probes
+        inside the solve would stall it.
+        """
+        tuner = cfg.autotuner if cfg.policy == "auto" else None
+        rekey = tuner is not None and not getattr(tuner, "measure", True)
+        for n in range(n_modes):
+            sl = layouts[n]
+            if not isinstance(sl, ShardedBlockedLayout):
+                continue
+            new_sl = rebalance_shards(sl)
+            if np.array_equal(new_sl.rb_start, sl.rb_start):
+                continue
+            if rekey:
+                # a non-measuring tuner never probes, so pi=None: no
+                # (nnz, R) array is built
+                mv = mvs[n]
+                cuts = shard_stream_cuts(new_sl,
+                                         mv.rows.detach().cpu().numpy())
+                tuner.policy_for_sharded_mode(
+                    mv.rows, mv.sorted_vals, None, factors[n] * lam[None, :],
+                    n_rows=mv.n_rows, rank=cfg.rank,
+                    n_shards=new_sl.n_shards, cuts=cuts,
+                    combine=resolve_combine(cfg.combine, strategies[n]))
+            events.append({
+                "outer": outer,
+                "mode": n,
+                "rb_start_old": [int(x) for x in sl.rb_start],
+                "rb_start_new": [int(x) for x in new_sl.rb_start],
+                "imbalance_old": round(_nnz_imbalance(sl), 4),
+                "imbalance_new": round(_nnz_imbalance(new_sl), 4),
+            })
+            layouts[n] = new_sl
+            _rebuild(n)
 
     def _run_mode(outer: int, n: int, factors, lam):
         """Mode update under the degradation ladder: classified runtime
@@ -682,18 +1075,36 @@ def cpapr_mu(
                 recoveries.append(RecoveryEvent(
                     f"demote_{kind}", outer=outer, mode=n, attempt=attempt,
                     detail=detail))
-                resilience.backoff_sleep(attempt, cfg.demote_backoff)
+                resilience.backoff_sleep(
+                    attempt, cfg.demote_backoff if kind == "oom" else 0.0)
                 _rebuild(n)
         raise AssertionError("unreachable")  # pragma: no cover
 
     def _write_checkpoint(n_outer: int) -> None:
+        if cfg.mesh is not None and torch.distributed.get_rank() != 0:
+            return  # every rank holds the same state: rank 0 writes it
+        rb_bounds: dict = {}
+        shards: list = []
+        locals_out: list = []
+        for n in range(n_modes):
+            sl = layouts[n]
+            if isinstance(sl, ShardedBlockedLayout):
+                rb_bounds[str(n)] = ([int(x) for x in sl.rb_start]
+                                     + [int(sl.base.n_row_blocks)])
+                shards.append(int(sl.n_shards))
+                locals_out.append(_reference_name(locals_[n]))
+            else:
+                shards.append(1)
+                s = strategies[n]
+                locals_out.append(_reference_name(s)
+                                  if s in ("blocked", "cuda") else "blocked")
         resilience.save_checkpoint(cfg.checkpoint_path, {
             "fingerprint": fp,
             "outer": int(n_outer),
             "kkt_history": kkt_hist,
             "loglik_history": ll_hist,
             "inner_iters": inner_hist,
-            "rebalances": [],
+            "rebalances": rebalances,
             "recoveries": [dataclasses.asdict(r) for r in recoveries],
             "policies": [
                 None if p is None else dict(
@@ -701,13 +1112,12 @@ def cpapr_mu(
                     strategy=_reference_name(p.strategy))
                 for p in policies],
             "strategies": [_reference_name(s) for s in strategies],
-            "locals": [_reference_name(s) if s in ("blocked", "cuda")
-                       else "blocked" for s in strategies],
-            "combines": ["auto"] * n_modes,
+            "locals": locals_out,
+            "combines": [mc.combine for mc in mode_cfgs],
             "kappas": [float(mc.kappa) for mc in mode_cfgs],
-            "mode_shards": [1] * n_modes,
+            "mode_shards": shards,
             "mode_grids": [None] * n_modes,
-            "rb_bounds": {},
+            "rb_bounds": rb_bounds,
             "lam": lam,
             "factors": factors,
         })
@@ -781,6 +1191,9 @@ def cpapr_mu(
         if worst <= cfg.tol:
             converged = True
             break
+        if (cfg.rebalance_every > 0 and n_outer % cfg.rebalance_every == 0
+                and n_outer < cfg.max_outer):
+            _rebalance_modes(n_outer, rebalances)
         if (cfg.checkpoint_every > 0 and cfg.checkpoint_path
                 and n_outer % cfg.checkpoint_every == 0):
             _write_checkpoint(n_outer)
@@ -798,5 +1211,6 @@ def cpapr_mu(
         seconds=seconds,
         sweep_seconds=sweep_secs,
         policies=policies if any(p is not None for p in policies) else None,
+        rebalances=rebalances or None,
         recoveries=recoveries or None,
     )

@@ -17,10 +17,21 @@ tail of its row block).  The CUDA kernels rely on both facts.
 are equal, element for element, to the JAX package's
 ``repro.core.layout``; the device copies the kernels read are made once
 per layout and device (:meth:`BlockedLayout.on`).
+
+The row-sharded (1-D) multi-device tier partitions a blocked layout into
+contiguous row-block shards (:class:`ShardedBlockedLayout`,
+:func:`shard_blocked_layout`, :func:`rebalance_shards`), assigns each
+shard ownership of its window of the combine buffer
+(:class:`OwnerPartition`) and maps each shard's nonzeros to the factor
+rows they touch (:class:`ShardedPiGather`); all host numpy, array-equal
+to the JAX package's.
 """
 from __future__ import annotations
 
 import dataclasses
+import weakref
+import zlib
+from typing import Sequence
 
 import numpy as np
 import torch
@@ -29,11 +40,20 @@ __all__ = [
     "BlockedLayout",
     "LayoutTensors",
     "ModeStats",
+    "OwnerPartition",
+    "ShardedBlockedLayout",
+    "ShardedPiGather",
     "build_blocked_layout",
+    "build_shard_pi_gather",
     "fill_stats",
     "mode_run_stats",
+    "owner_partition",
     "pad_rows",
+    "rebalance_shards",
     "round_up",
+    "shard_blocked_layout",
+    "shard_row_ranges",
+    "shard_stream_cuts",
 ]
 
 
@@ -145,7 +165,8 @@ def mode_run_stats(
 
 @dataclasses.dataclass(frozen=True)
 class LayoutTensors:
-    """Device copies of a layout's index arrays (what the kernels read)."""
+    """Device copies of a layout's index arrays (what the kernels read);
+    a sharded layout's carry a leading shard axis."""
 
     gather: torch.Tensor  # (n_grid*block_nnz,) int64
     valid: torch.Tensor  # (n_grid*block_nnz,) bool
@@ -193,21 +214,27 @@ class BlockedLayout:
 
     def on(self, device) -> LayoutTensors:
         """The layout's index arrays as tensors on ``device`` (cached)."""
-        device = torch.device(device)
-        key = str(device)
-        lt = self._device_copies.get(key)
-        if lt is None:
-            lt = LayoutTensors(
-                gather=torch.as_tensor(self.gather, dtype=torch.int64,
+        return _layout_tensors(self, device)
+
+
+def _layout_tensors(layout, device) -> LayoutTensors:
+    """``layout``'s gather/valid/local_rows/grid_rb arrays (flat, or
+    stacked per shard) as tensors on ``device``, made once per device."""
+    device = torch.device(device)
+    key = str(device)
+    lt = layout._device_copies.get(key)
+    if lt is None:
+        lt = LayoutTensors(
+            gather=torch.as_tensor(layout.gather, dtype=torch.int64,
+                                   device=device),
+            valid=torch.as_tensor(layout.valid, device=device),
+            local_rows=torch.as_tensor(layout.local_rows, dtype=torch.int32,
                                        device=device),
-                valid=torch.as_tensor(self.valid, device=device),
-                local_rows=torch.as_tensor(self.local_rows,
-                                           dtype=torch.int32, device=device),
-                grid_rb=torch.as_tensor(self.grid_rb, dtype=torch.int32,
-                                        device=device),
-            )
-            self._device_copies[key] = lt
-        return lt
+            grid_rb=torch.as_tensor(layout.grid_rb, dtype=torch.int32,
+                                    device=device),
+        )
+        layout._device_copies[key] = lt
+    return lt
 
 
 def build_blocked_layout(
@@ -269,4 +296,542 @@ def build_blocked_layout(
         local_rows=local_rows,
         grid_rb=grid_rb,
         pad_fraction=float(pad_fraction),
+    )
+
+
+# ---------------------------------------------------------------------------
+# Row-sharded blocked schedule (the 1-D multi-device tier)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ShardedBlockedLayout:
+    """Blocked schedule partitioned into contiguous row-block shards.
+
+    ``grid_rb`` of the base layout is non-decreasing, so a contiguous row
+    block range owns a contiguous slice of the grid-step stream: each
+    shard is itself a valid (smaller) blocked schedule over its local row
+    window.  Every per-shard array is padded to one uniform shape, so the
+    same kernel launch shape serves every shard, and one combine (an
+    all-reduce or a reduce-scatter over the shards) sums the per-shard
+    partial windows.
+
+    Attributes:
+      base:         the unsharded global :class:`BlockedLayout`.
+      n_shards:     number of shards (the mesh's data-axis size).
+      n_grid_shard: uniform grid steps per shard (max over shards, padded).
+      n_rb_shard:   uniform row blocks per shard (max over shards, padded).
+      buf_rows:     rows of the combine buffer: >= n_rows_pad, sized so the
+                    highest shard window fits without index clamping.
+      rb_start:     (S,) int32 first global row block of each shard.
+      rb_count:     (S,) int32 real (unpadded) row blocks per shard.
+      shard_nnz:    (S,) int64 real nonzeros per shard (balance metric).
+      gather:       (S, n_grid_shard*block_nnz) int64 into the sorted stream.
+      valid:        (S, n_grid_shard*block_nnz) bool; False for padding.
+      local_rows:   (S, n_grid_shard*block_nnz) int32 row within row block.
+      grid_rb:      (S, n_grid_shard) int32 *shard-local* row block per grid
+                    step (non-decreasing, in [0, n_rb_shard)).
+      pad_fraction: overall padding overhead across all shards.
+    """
+
+    base: BlockedLayout
+    n_shards: int
+    n_grid_shard: int
+    n_rb_shard: int
+    buf_rows: int
+    rb_start: np.ndarray
+    rb_count: np.ndarray
+    shard_nnz: np.ndarray
+    gather: np.ndarray
+    valid: np.ndarray
+    local_rows: np.ndarray
+    grid_rb: np.ndarray
+    pad_fraction: float
+    _device_copies: dict = dataclasses.field(default_factory=dict,
+                                             repr=False)
+
+    @property
+    def block_nnz(self) -> int:
+        return self.base.block_nnz
+
+    @property
+    def block_rows(self) -> int:
+        return self.base.block_rows
+
+    @property
+    def n_rows(self) -> int:
+        return self.base.n_rows
+
+    @property
+    def n_rows_pad(self) -> int:
+        return self.base.n_rows_pad
+
+    @property
+    def win_rows(self) -> int:
+        """Rows of one shard's padded output window."""
+        return self.n_rb_shard * self.block_rows
+
+    def combine_bytes(self, rank: int, itemsize: int = 4) -> int:
+        """Bytes of one per-device combine buffer (the all-reduce operand)."""
+        return self.buf_rows * rank * itemsize
+
+    def on(self, device) -> LayoutTensors:
+        """The stacked (S, ...) index arrays as tensors on ``device``
+        (cached)."""
+        return _layout_tensors(self, device)
+
+
+def _split_row_blocks(weight_per_rb: np.ndarray, n_shards: int) -> list:
+    """Contiguous row-block boundaries balancing ``weight_per_rb`` per shard
+    (grid steps for the static split, nonzeros or measured seconds per
+    nonzero for the rebalanced one)."""
+    n_rb = int(weight_per_rb.shape[0])
+    cum = np.cumsum(weight_per_rb.astype(np.float64))
+    total = float(cum[-1])
+    bounds = [0]
+    for s in range(1, n_shards):
+        j = int(np.searchsorted(cum, total * s / n_shards))
+        j = max(j, bounds[-1] + 1)  # every shard owns >= 1 row block
+        j = min(j, n_rb - (n_shards - s))  # leave room for later shards
+        bounds.append(j)
+    bounds.append(n_rb)
+    return bounds
+
+
+def shard_blocked_layout(
+    layout: BlockedLayout, n_shards: int, bounds: "Sequence[int] | None" = None
+) -> ShardedBlockedLayout:
+    """Partition a blocked layout into ``n_shards`` contiguous row-block shards.
+
+    ``bounds`` (optional) is an explicit row-block boundary list of length
+    ``n_shards + 1`` (``bounds[s]:bounds[s+1]`` is shard ``s``'s range); by
+    default the split balances *grid steps* per shard.  Raises
+    ``ValueError`` when ``n_shards`` exceeds the number of row blocks
+    (each shard must own at least one).
+    """
+    n_shards = int(n_shards)
+    if n_shards < 1:
+        raise ValueError(f"n_shards must be >= 1, got {n_shards}")
+    n_rb = layout.n_row_blocks
+    if n_shards > n_rb:
+        raise ValueError(
+            f"n_shards={n_shards} exceeds n_row_blocks={n_rb}; "
+            "use a smaller block_rows or fewer shards"
+        )
+    bn = layout.block_nnz
+    steps_per_rb = np.bincount(layout.grid_rb, minlength=n_rb)
+    if bounds is None:
+        bounds = _split_row_blocks(steps_per_rb, n_shards)
+    else:
+        bounds = [int(x) for x in bounds]
+        if (
+            len(bounds) != n_shards + 1
+            or bounds[0] != 0
+            or bounds[-1] != n_rb
+            or any(b <= a for a, b in zip(bounds, bounds[1:]))
+        ):
+            raise ValueError(
+                f"bounds must be strictly increasing from 0 to {n_rb} with "
+                f"{n_shards + 1} entries, got {bounds}"
+            )
+
+    rb_start = np.asarray(bounds[:-1], np.int32)
+    rb_count = np.diff(np.asarray(bounds, np.int64)).astype(np.int32)
+    step_starts = np.concatenate([[0], np.cumsum(steps_per_rb)])
+    shard_steps = [
+        int(step_starts[bounds[s + 1]] - step_starts[bounds[s]])
+        for s in range(n_shards)
+    ]
+    n_rb_shard = int(rb_count.max())
+    # every padded (never-owned) local row block still gets one all-dummy
+    # grid step, so kernel output windows are always initialized
+    n_grid_shard = max(
+        shard_steps[s] + (n_rb_shard - int(rb_count[s])) for s in range(n_shards)
+    )
+
+    slot = n_grid_shard * bn
+    gather = np.zeros((n_shards, slot), np.int64)
+    valid = np.zeros((n_shards, slot), bool)
+    local_rows = np.zeros((n_shards, slot), np.int32)
+    grid_rb = np.zeros((n_shards, n_grid_shard), np.int32)
+    shard_nnz = np.zeros(n_shards, np.int64)
+
+    for s in range(n_shards):
+        g0 = int(step_starts[bounds[s]])
+        g1 = int(step_starts[bounds[s + 1]])
+        nsteps = g1 - g0
+        sl = slice(g0 * bn, g1 * bn)
+        gather[s, : nsteps * bn] = layout.gather[sl]
+        valid[s, : nsteps * bn] = layout.valid[sl]
+        local_rows[s, : nsteps * bn] = layout.local_rows[sl]
+        rb_local = layout.grid_rb[g0:g1] - bounds[s]
+        # dummy visits to padded row blocks, then trailing pad at the last
+        # local block: keeps grid_rb non-decreasing
+        tail = np.arange(int(rb_count[s]), n_rb_shard, dtype=np.int32)
+        pad_steps = n_grid_shard - nsteps - tail.size
+        grid_rb[s] = np.concatenate(
+            [rb_local, tail, np.full(pad_steps, n_rb_shard - 1, np.int32)]
+        )
+        shard_nnz[s] = int(np.count_nonzero(valid[s]))
+
+    br = layout.block_rows
+    buf_rows = max(
+        layout.n_rows_pad,
+        int((rb_start + n_rb_shard).max()) * br,
+    )
+    nnz = int(shard_nnz.sum())
+    total_slots = n_shards * slot
+    pad_fraction = 0.0 if nnz == 0 else 1.0 - nnz / max(total_slots, 1)
+
+    return ShardedBlockedLayout(
+        base=layout,
+        n_shards=n_shards,
+        n_grid_shard=n_grid_shard,
+        n_rb_shard=n_rb_shard,
+        buf_rows=buf_rows,
+        rb_start=rb_start,
+        rb_count=rb_count,
+        shard_nnz=shard_nnz,
+        gather=gather,
+        valid=valid,
+        local_rows=local_rows,
+        grid_rb=grid_rb,
+        pad_fraction=float(pad_fraction),
+    )
+
+
+def _nnz_per_row_block(layout: BlockedLayout) -> np.ndarray:
+    """(n_row_blocks,) real nonzeros owned by each row block."""
+    valid_per_step = layout.valid.reshape(layout.n_grid, layout.block_nnz).sum(
+        axis=1
+    )
+    return np.bincount(
+        layout.grid_rb,
+        weights=valid_per_step.astype(np.float64),
+        minlength=layout.n_row_blocks,
+    )
+
+
+def rebalance_shards(
+    slayout: ShardedBlockedLayout,
+    shard_seconds: "Sequence[float] | None" = None,
+) -> ShardedBlockedLayout:
+    """Re-split a sharded layout's row-block boundaries by measured cost.
+
+    The static split balances *grid steps*, which over-weights padding: a
+    hub-dominated shard can own far more real nonzeros than its step count
+    suggests.  ``shard_seconds=None`` weights each row block by its real
+    nonzero count; given per-shard seconds, each row block is weighted by
+    ``nnz * seconds_per_nnz(current owner)``, so a slow shard sheds row
+    blocks.  The base layout is untouched, so every new shard is still a
+    contiguous run of the base schedule.  Returns a new layout with the
+    same shard count (equal to the input when already balanced).
+    """
+    base = slayout.base
+    n_shards = slayout.n_shards
+    weights = _nnz_per_row_block(base)
+    if shard_seconds is not None:
+        shard_seconds = np.asarray(shard_seconds, np.float64)
+        if shard_seconds.shape != (n_shards,):
+            raise ValueError(
+                f"shard_seconds must have shape ({n_shards},), "
+                f"got {shard_seconds.shape}"
+            )
+        if np.any(shard_seconds < 0):
+            raise ValueError("shard_seconds must be non-negative")
+        per_nnz = shard_seconds / np.maximum(
+            slayout.shard_nnz.astype(np.float64), 1.0
+        )
+        owner = np.repeat(np.arange(n_shards), slayout.rb_count)
+        weights = weights * per_nnz[owner]
+    if weights.sum() <= 0.0:
+        # degenerate (nnz=0 or all-zero times): keep the step-balanced split
+        weights = np.bincount(
+            base.grid_rb, minlength=base.n_row_blocks
+        ).astype(np.float64)
+    bounds = _split_row_blocks(weights, n_shards)
+    return shard_blocked_layout(base, n_shards, bounds=bounds)
+
+
+def shard_row_ranges(slayout: ShardedBlockedLayout) -> list:
+    """Per-shard global ``(row_lo, row_hi)`` half-open row ranges, clipped
+    to the true row count (so they cover ``[0, n_rows)`` exactly)."""
+    br = slayout.block_rows
+    n_rows = slayout.n_rows
+    out = []
+    for s in range(slayout.n_shards):
+        lo = min(int(slayout.rb_start[s]) * br, n_rows)
+        hi = min(int(slayout.rb_start[s] + slayout.rb_count[s]) * br, n_rows)
+        out.append((lo, hi))
+    return out
+
+
+def shard_stream_cuts(
+    slayout: ShardedBlockedLayout, rows_sorted: np.ndarray
+) -> list:
+    """Sorted-stream cut positions matching the layout's shard assignment:
+    ``cuts[s]:cuts[s+1]`` is shard ``s``'s slice of the sorted nonzero
+    stream (the sub-problems the autotuner keys on)."""
+    rows_sorted = np.asarray(rows_sorted)
+    br = slayout.block_rows
+    cuts = [0]
+    for s in range(1, slayout.n_shards):
+        cuts.append(int(np.searchsorted(rows_sorted,
+                                        int(slayout.rb_start[s]) * br)))
+    cuts.append(int(rows_sorted.shape[0]))
+    return cuts
+
+
+# ---------------------------------------------------------------------------
+# Owner partition: row ownership for the reduce-scatter combine
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class OwnerPartition:
+    """Row-owner partition of the combine window for reduce-scatter.
+
+    Each shard *owns* its own padded row window of the ``(buf_rows, R)``
+    combine buffer, so the combine can be a reduce-scatter: each device
+    keeps only its owned O(I_n * R / S) slice, runs the MU/KKT epilogue
+    on owned rows, and the updated factor rows are gathered once per mode
+    update.  Owner ``s`` owns rows ``[row_start[s], row_start[s] +
+    row_count[s])``, the window's trailing padding going to the last
+    owner; ``own_rows`` is the uniform padded slice width and rows past
+    ``row_count[s]`` inside a slice are masked to zero (they belong to
+    the next owner).
+
+    Attributes:
+      n_shards:  owner count S (== the layout's shard count).
+      own_rows:  uniform padded rows per owner slice.
+      buf_rows:  rows of the combine window (``row_start[-1] + own_rows``).
+      n_rows:    true row count I_n.
+      row_start: (S,) int64 first owned row of each owner.
+      row_count: (S,) int64 really-owned rows (summing to buf_rows).
+      rb_start:  the owning layout's shard assignment (its ``rb_start`` as
+                 a tuple); consumers check it before use.
+    """
+
+    n_shards: int
+    own_rows: int
+    buf_rows: int
+    n_rows: int
+    row_start: np.ndarray
+    row_count: np.ndarray
+    rb_start: tuple
+    _device_copies: dict = dataclasses.field(default_factory=dict,
+                                             repr=False)
+
+    @property
+    def fingerprint(self) -> str:
+        """crc32 of the shard assignment, in the autotuner's ``/assign=``
+        fragment style (stable across processes)."""
+        arr = np.asarray(self.rb_start, np.int64)
+        return format(zlib.crc32(arr.tobytes()) & 0xFFFFFFFF, "08x")
+
+    def masks(self) -> np.ndarray:
+        """(S, own_rows) bool: True on really-owned rows of each slice."""
+        return (
+            np.arange(self.own_rows)[None, :]
+            < self.row_count[:, None]
+        )
+
+    def masks_on(self, device) -> torch.Tensor:
+        """:meth:`masks` as a bool tensor on ``device`` (cached, so a
+        captured CUDA graph copies nothing from the host)."""
+        device = torch.device(device)
+        m = self._device_copies.get(str(device))
+        if m is None:
+            m = torch.as_tensor(self.masks(), device=device)
+            self._device_copies[str(device)] = m
+        return m
+
+    def owner_of_rows(self) -> np.ndarray:
+        """(buf_rows,) int32 owner of every combine-window row."""
+        return np.repeat(
+            np.arange(self.n_shards, dtype=np.int32), self.row_count
+        )
+
+    def scatter_bytes(self, rank: int, itemsize: int = 4) -> int:
+        """Bytes of one per-device reduce-scatter output (the owned slice)."""
+        return self.own_rows * rank * itemsize
+
+
+# one partition per layout object, so callers that resolve it per call
+# share it; weak keys let rebalanced (abandoned) layouts free theirs
+_OWNER_PARTITIONS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def owner_partition(slayout: ShardedBlockedLayout) -> OwnerPartition:
+    """The owner partition matching a sharded layout's row cuts (memoized
+    per layout object).  Each owner's slice is its shard's padded row
+    window, so a shard's local partial window *is* its contribution to
+    its own slot of the reduce-scatter operand: its contributions to
+    other owners' slots are exactly zero."""
+    cached = _OWNER_PARTITIONS.get(slayout)
+    if cached is not None:
+        return cached
+    opart = _build_owner_partition(slayout)
+    _OWNER_PARTITIONS[slayout] = opart
+    return opart
+
+
+def _build_owner_partition(slayout: ShardedBlockedLayout) -> OwnerPartition:
+    br = slayout.block_rows
+    own_rows = slayout.n_rb_shard * br
+    row_start = slayout.rb_start.astype(np.int64) * br
+    row_count = slayout.rb_count.astype(np.int64) * br
+    # trailing window padding belongs to the last owner: the buf_rows
+    # window always ends exactly one padded slice after the last cut
+    if int(row_start[-1]) + own_rows != slayout.buf_rows:
+        raise AssertionError(
+            f"combine window ends at {slayout.buf_rows}, expected "
+            f"{int(row_start[-1]) + own_rows} (layout invariant violated)"
+        )
+    row_count = row_count.copy()
+    row_count[-1] = slayout.buf_rows - int(row_start[-1])
+    return OwnerPartition(
+        n_shards=slayout.n_shards,
+        own_rows=own_rows,
+        buf_rows=slayout.buf_rows,
+        n_rows=slayout.n_rows,
+        row_start=row_start,
+        row_count=row_count,
+        rb_start=tuple(int(x) for x in slayout.rb_start),
+    )
+
+
+# ---------------------------------------------------------------------------
+# Shard-local Π gather: per-shard unique-row index maps
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ShardedPiGather:
+    """Per-shard unique-row index maps for the shard-local Π^(n) gather.
+
+    Each shard builds its own Π rows from only the factor rows its
+    nonzeros touch:
+
+        fg_m    = A^(m)[touched[m][s]]            # (U_m, R) shard-local
+        pi[j,:] = prod_m fg_m[local_idx[m][s, j]] # per expanded slot
+
+    so the per-device Π inputs are O(nnz/S) index entries plus
+    O(touched_rows * R) gathered factor rows instead of O(I * R)
+    replicated factors.  Arrays are padded to uniform shapes (``U_m`` is
+    the max unique-row count over shards for gathered mode ``m``; padding
+    rows point at row 0 and padding slots at local index 0, masked by the
+    layout's ``valid``).
+
+    Attributes:
+      mode:          the excluded (reduce) mode n.
+      n_modes:       total tensor modes N.
+      n_shards:      shard count S (matches the owning layout).
+      modes:         the gathered modes, ascending, ``mode`` excluded.
+      touched:       per gathered mode: (S, U_m) int32 global factor rows.
+      touched_count: (S, N-1) int32 real unique-row counts per shard.
+      local_idx:     per gathered mode: (S, slot) int32 position of each
+                     expanded nonzero slot inside its shard's touched list.
+      rb_start:      the owning layout's shard assignment; consumers
+                     check it before use.
+    """
+
+    mode: int
+    n_modes: int
+    n_shards: int
+    modes: tuple
+    touched: tuple
+    touched_count: np.ndarray
+    local_idx: tuple
+    rb_start: tuple
+    _device_copies: dict = dataclasses.field(default_factory=dict,
+                                             repr=False)
+
+    @property
+    def touched_rows_pad(self) -> int:
+        """Total padded gathered factor rows per device (sum of U_m)."""
+        return int(sum(t.shape[1] for t in self.touched))
+
+    def gather_bytes(self, rank: int, itemsize: int = 4) -> int:
+        """Per-device bytes of the gathered factor rows."""
+        return self.touched_rows_pad * rank * itemsize
+
+    def replicated_bytes(self, shape: Sequence[int], rank: int,
+                         itemsize: int = 4) -> int:
+        """Bytes the replicated baseline moves per device: the full factor
+        matrix of every gathered mode."""
+        return sum(int(shape[m]) for m in self.modes) * rank * itemsize
+
+    def on(self, device) -> tuple:
+        """``(touched, local_idx)`` as int64 tensors on ``device`` (cached).
+
+        The ``local_idx`` tensors are column views of one (S, slot, N-1)
+        tensor: a strided index takes PyTorch's faster row-gather kernel
+        on the card, as ``pi_rows``'s ``indices[:, m]`` does.
+        """
+        device = torch.device(device)
+        key = str(device)
+        out = self._device_copies.get(key)
+        if out is None:
+            idx = torch.as_tensor(np.stack(self.local_idx, axis=-1),
+                                  dtype=torch.int64, device=device)
+            out = (
+                tuple(torch.as_tensor(t, dtype=torch.int64, device=device)
+                      for t in self.touched),
+                tuple(idx[..., j] for j in range(len(self.modes))),
+            )
+            self._device_copies[key] = out
+        return out
+
+
+def build_shard_pi_gather(
+    slayout: ShardedBlockedLayout, sorted_idx: np.ndarray, mode: int
+) -> ShardedPiGather:
+    """Build the per-shard unique-row maps for mode ``mode``'s Π gather.
+
+    ``sorted_idx`` is the (nnz, N) coordinate array in the mode's sorted
+    order (``ModeView.sorted_idx``), the stream the layout's ``gather``
+    indexes into.  Host numpy, once per mode.
+    """
+    if isinstance(sorted_idx, torch.Tensor):
+        sorted_idx = sorted_idx.detach().cpu().numpy()
+    sorted_idx = np.asarray(sorted_idx)
+    n_modes = int(sorted_idx.shape[1])
+    mode = int(mode)
+    if not 0 <= mode < n_modes:
+        raise ValueError(f"mode {mode} out of range for {n_modes}-mode index")
+    s_count = slayout.n_shards
+    slot = slayout.gather.shape[1]
+    modes = tuple(m for m in range(n_modes) if m != mode)
+
+    uniq_lists: dict = {m: [] for m in modes}
+    local_idx = {m: np.zeros((s_count, slot), np.int32) for m in modes}
+    touched_count = np.zeros((s_count, len(modes)), np.int32)
+    for s in range(s_count):
+        v = slayout.valid[s]
+        g = slayout.gather[s][v]  # sorted-stream positions of real nonzeros
+        for j, m in enumerate(modes):
+            uniq, inv = np.unique(sorted_idx[g, m], return_inverse=True)
+            uniq_lists[m].append(uniq.astype(np.int32))
+            local_idx[m][s, v] = inv.astype(np.int32)
+            touched_count[s, j] = uniq.size
+
+    touched = []
+    for j, m in enumerate(modes):
+        u_pad = max(1, int(touched_count[:, j].max()))
+        t = np.zeros((s_count, u_pad), np.int32)
+        for s in range(s_count):
+            u = uniq_lists[m][s]
+            t[s, : u.size] = u
+        touched.append(t)
+
+    return ShardedPiGather(
+        mode=mode,
+        n_modes=n_modes,
+        n_shards=s_count,
+        modes=modes,
+        touched=tuple(touched),
+        touched_count=touched_count,
+        local_idx=tuple(local_idx[m] for m in modes),
+        rb_start=tuple(int(x) for x in slayout.rb_start),
     )

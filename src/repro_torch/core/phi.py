@@ -24,9 +24,17 @@ Strategies:
     densified (K, I, J) tensor (:mod:`repro_torch.core.dense`) is
     contracted against factor tiles in the dense kernels
     (:mod:`repro_torch.kernels.dense`), never building Π.
+  * ``sharded``  — contiguous row-block shards of the blocked schedule
+    (a :class:`repro_torch.core.layout.ShardedBlockedLayout`), each
+    reduced by ``local_strategy`` (``blocked``, or ``cuda``: the kernels
+    B2/B3 once per shard) and summed by one combine (``combine="psum"``
+    or ``"reduce_scatter"``): over a ``torch.distributed`` mesh
+    (``mesh=``), else emulated on one device
+    (:mod:`repro_torch.core.distributed`).  With ``pi_gather``/``factors``
+    each shard builds its own Π rows from the factor rows it touches.
 
-``sharded`` and ``grid`` belong to a later slice of the port and raise
-``NotImplementedError``.
+``grid`` belongs to a later slice of the port and raises
+:class:`repro_torch.core.resilience.NotPortedError`.
 
 :func:`krao_reduce_rows` is the same reduction without the model divide
 (MTTKRP, CP-ALS's hot spot) through the same strategies; its ``cuda``
@@ -45,13 +53,22 @@ hoist the Π expansion out of the inner loop.
 """
 from __future__ import annotations
 
+import warnings
 from typing import Sequence
 
+import numpy as np
 import torch
 
 from ..device import check_on_device, resolve_device
 from .dense import build_dense_mode, dense_kr_factors
-from .layout import BlockedLayout, build_blocked_layout, mode_run_stats, pad_rows
+from .layout import (
+    BlockedLayout,
+    ShardedBlockedLayout,
+    build_blocked_layout,
+    mode_run_stats,
+    pad_rows,
+    shard_blocked_layout,
+)
 from .pi import pi_rows
 from .policy import default_policy, heuristic_policy
 from .resilience import NotPortedError
@@ -61,6 +78,8 @@ __all__ = [
     "PHI_STRATEGIES",
     "canonical_strategy",
     "expand_to_layout",
+    "expand_to_shards",
+    "expand_vals_to_shards",
     "krao_reduce_rows",
     "phi_flops_words",
     "phi_from_rows",
@@ -68,11 +87,11 @@ __all__ = [
     "phi_mu_step",
 ]
 
-PHI_STRATEGIES = ("scatter", "segment", "blocked", "cuda", "dense")
+PHI_STRATEGIES = ("scatter", "segment", "blocked", "cuda", "dense",
+                  "sharded")
 # later slices of the port, each with its ROADMAP item
 _LATER = {
-    "sharded": "ROADMAP A8 (multi-device)",
-    "grid": "ROADMAP A8 (multi-device)",
+    "grid": "ROADMAP A8b (grid)",
 }
 _ALIASES = {"pallas": "cuda"}
 
@@ -243,6 +262,28 @@ def expand_to_layout(layout: BlockedLayout, vals, pi) -> tuple:
     return vals_e, pi_e
 
 
+def expand_to_shards(slayout: ShardedBlockedLayout, vals, pi) -> tuple:
+    """Expand sorted per-nonzero tensors into per-shard padded layout
+    order: ``vals_e`` (S, n_grid_shard*block_nnz) and ``pi_e`` (S,
+    n_grid_shard*block_nnz, R), the leading axis the shard."""
+    st = slayout.on(pi.device)
+    if vals.shape[0] == 0:  # gathering from a 0-row operand is ill-formed
+        return (vals.new_zeros(st.gather.shape),
+                pi.new_zeros(st.gather.shape + (pi.shape[1],)))
+    vals_e = torch.where(st.valid, vals[st.gather], vals.new_zeros(()))
+    pi_e = torch.where(st.valid[..., None], pi[st.gather], pi.new_zeros(()))
+    return vals_e, pi_e
+
+
+def expand_vals_to_shards(slayout: ShardedBlockedLayout, vals) -> torch.Tensor:
+    """The values half of :func:`expand_to_shards`, for the shard-local Π
+    path, where no (S, slot, R) expanded Π is ever built."""
+    st = slayout.on(vals.device)
+    if vals.shape[0] == 0:
+        return vals.new_zeros(st.gather.shape)
+    return torch.where(st.valid, vals[st.gather], vals.new_zeros(()))
+
+
 def _resolve_layout(rows, n_rows, layout, vals, pi, vals_e, pi_e):
     """Default layout + expansion for the blocked/cuda strategies.
 
@@ -268,6 +309,119 @@ def _resolve_layout(rows, n_rows, layout, vals, pi, vals_e, pi_e):
     if vals_e is None or pi_e is None:
         vals_e, pi_e = expand_to_layout(layout, vals, pi)
     return layout, vals_e, pi_e
+
+
+def _default_shard_count(mesh, device: torch.device) -> int:
+    """Shards of a sharded call without a layout: the mesh's size, else
+    every card of this process on the card and 1 on the CPU (where the
+    JAX package counts ``jax.device_count()``)."""
+    if mesh is not None:
+        from .distributed import mesh_device_count  # deferred: avoids cycle
+
+        return mesh_device_count(mesh)
+    if device.type == "cuda":
+        return max(1, torch.cuda.device_count())
+    return 1
+
+
+def _sharded_block_rows(n_rows: int, n_shards: int) -> int:
+    """Default block_rows sized so >= ~4 row blocks land on every shard."""
+    target = max(8, n_rows // max(1, 4 * n_shards))
+    return int(2 ** np.clip(np.floor(np.log2(target)), 3, 8))
+
+
+def _resolve_sharded(rows, n_rows, layout, mesh, vals, pi, vals_e, pi_e):
+    """Sharded layout + expansion, with the single-device fallback.
+
+    Returns ``(layout, vals_e, pi_e)``: the :class:`ShardedBlockedLayout`,
+    or, when the shard count cannot be honoured (fewer row blocks than
+    shards), a warning and the *base* :class:`BlockedLayout` with ``None``
+    expansions; callers then run the unsharded path on it.
+    """
+    if layout is not None and not isinstance(layout, ShardedBlockedLayout):
+        raise TypeError(
+            "strategy='sharded' needs a ShardedBlockedLayout "
+            f"(got {type(layout).__name__}); use shard_blocked_layout()"
+        )
+    if layout is None:
+        n_shards = _default_shard_count(mesh, pi.device)
+        base = build_blocked_layout(
+            rows.detach().cpu().numpy(), n_rows, block_nnz=256,
+            block_rows=_sharded_block_rows(n_rows, n_shards))
+        if n_shards > base.n_row_blocks:
+            warnings.warn(
+                f"sharded Phi: {n_shards} shards requested but layout has "
+                f"only {base.n_row_blocks} row blocks; falling back to the "
+                "single-device blocked path",
+                stacklevel=3,
+            )
+            return base, None, None
+        layout = shard_blocked_layout(base, n_shards)
+        vals_e = pi_e = None  # any pre-expansion matched a different layout
+    if vals_e is None or pi_e is None:
+        vals_e, pi_e = expand_to_shards(layout, vals, pi)
+    return layout, vals_e, pi_e
+
+
+def _check_combine(strategy: str, combine: str) -> None:
+    """Validate the combine flavour; only ``sharded`` combines."""
+    if combine == "psum":
+        return
+    from .distributed import PHI_COMBINES  # deferred: avoids import cycle
+
+    if combine not in PHI_COMBINES:
+        raise ValueError(
+            f"unknown combine {combine!r}; expected one of {PHI_COMBINES}"
+        )
+    if strategy != "sharded":
+        raise ValueError(
+            f"combine={combine!r} only applies to strategy='sharded' "
+            f"(got strategy={strategy!r})"
+        )
+
+
+def _require_pig_layout(layout, pi_gather, factors) -> ShardedBlockedLayout:
+    """Validate the shard-local-Π argument triple (layout, pig, factors)."""
+    if not isinstance(layout, ShardedBlockedLayout):
+        raise TypeError(
+            "pi_gather needs an explicit ShardedBlockedLayout (the one the "
+            f"gather maps were built from); got {type(layout).__name__}"
+        )
+    if factors is None:
+        raise ValueError("pi_gather needs the full factors tuple")
+    if pi_gather.n_shards != layout.n_shards:
+        raise ValueError(
+            f"pi_gather has {pi_gather.n_shards} shards but the layout has "
+            f"{layout.n_shards}"
+        )
+    from .distributed import _validate_pig  # deferred: avoids import cycle
+
+    _validate_pig(layout, pi_gather)
+    return layout
+
+
+def _sharded(fn_name: str, rows, vals, pi, b, n_rows, layout, vals_e, pi_e,
+             mesh, local_strategy, pi_gather, factors, combine, **kw):
+    """The ``sharded`` case of the three entry points: resolve the layout
+    (or take the warned fallback, returned as ``(None, base layout)``) and
+    call ``fn_name`` of :mod:`repro_torch.core.distributed`."""
+    from . import distributed  # deferred: avoids import cycle
+
+    fn = getattr(distributed, fn_name)
+    if pi_gather is not None:
+        slayout = _require_pig_layout(layout, pi_gather, factors)
+        if vals_e is None:
+            vals_e = expand_vals_to_shards(slayout, vals)
+        return fn(slayout, vals_e, None, *([] if b is None else [b]),
+                  mesh=mesh, local_strategy=local_strategy,
+                  pi_gather=pi_gather, factors=factors, combine=combine,
+                  **kw), None
+    slayout, vals_e, pi_e = _resolve_sharded(rows, n_rows, layout, mesh,
+                                             vals, pi, vals_e, pi_e)
+    if not isinstance(slayout, ShardedBlockedLayout):
+        return None, slayout
+    return fn(slayout, vals_e, pi_e, *([] if b is None else [b]), mesh=mesh,
+              local_strategy=local_strategy, combine=combine, **kw), None
 
 
 def _dense_operands(dense, factors, b=None) -> tuple:
@@ -310,6 +464,10 @@ def phi_from_rows(
     device="cuda",
     dense=None,
     factors=None,
+    mesh=None,
+    local_strategy: str = "blocked",
+    pi_gather=None,
+    combine: str = "psum",
 ) -> torch.Tensor:
     """Φ^(n) from pre-gathered Π rows.  ``rows`` sorted unless 'scatter'.
 
@@ -318,13 +476,33 @@ def phi_from_rows(
     skip per-call re-expansion.  For ``dense``, ``dense`` (a
     :class:`repro_torch.core.dense.DenseModeData`) and the full
     ``factors`` tuple replace the sorted stream: ``rows``/``vals``/``pi``
-    may be None.  Every tensor must lie on ``device``.
+    may be None.  For ``sharded``, ``layout`` is a
+    :class:`ShardedBlockedLayout` (else one is built, or, with fewer row
+    blocks than shards, the call warns and runs ``local_strategy``
+    unsharded), ``vals_e``/``pi_e`` come from :func:`expand_to_shards`,
+    ``mesh`` places the shards on the ranks of a ``torch.distributed``
+    mesh (else they are emulated on one device) and ``combine`` picks
+    the combine; with ``pi_gather`` and the full ``factors`` each shard
+    builds its own Π rows and ``pi``/``pi_e`` may be None.  Every tensor
+    must lie on ``device``.
     """
     dev = resolve_device(device)
     check_on_device("phi_from_rows", dev, rows, vals, pi, b, vals_e, pi_e,
                     *_dense_tensors(dense, factors))
     strategy = canonical_strategy(strategy)
+    _check_combine(strategy, combine)
     eps = float(eps)
+    if strategy == "sharded":
+        if perturb is not None:
+            raise ValueError("perturb is not supported for strategy='sharded'")
+        out, base = _sharded("phi_sharded", rows, vals, pi, b, n_rows, layout,
+                             vals_e, pi_e, mesh, local_strategy, pi_gather,
+                             factors, combine, eps=eps)
+        if base is None:
+            return out
+        return phi_from_rows(rows, vals, pi, b, n_rows, eps=eps,
+                             strategy=canonical_strategy(local_strategy),
+                             layout=base, device=device)
     if strategy == "dense":
         if perturb is not None:
             raise ValueError("perturb is not supported for strategy='dense'")
@@ -372,6 +550,10 @@ def phi_mu_step(
     device="cuda",
     dense=None,
     factors=None,
+    mesh=None,
+    local_strategy: str = "blocked",
+    pi_gather=None,
+    combine: str = "psum",
 ) -> tuple:
     """One fused CP-APR inner MU step: ``(B', viol)``.
 
@@ -380,13 +562,26 @@ def phi_mu_step(
     ``viol > tol``).  ``viol`` stays a 0-d tensor on the device.  For
     ``cuda`` and ``dense`` the update runs in the fused kernels; the
     padded region of B and Φ is zero, so it adds nothing to the violation
-    or to ``B*Φ``.  ``dense``/``factors`` as in :func:`phi_from_rows`.
+    or to ``B*Φ``.  ``dense``/``factors`` and the sharded arguments as in
+    :func:`phi_from_rows`; for ``sharded`` the shards' Φ windows meet in
+    one combine and the epilogue runs on the combined window (``psum``)
+    or on each owner's rows (``reduce_scatter``), bitwise equal.
     """
     dev = resolve_device(device)
     check_on_device("phi_mu_step", dev, rows, vals, pi, b, vals_e, pi_e,
                     *_dense_tensors(dense, factors))
     strategy = canonical_strategy(strategy)
+    _check_combine(strategy, combine)
     eps = float(eps)
+    if strategy == "sharded":
+        out, base = _sharded("phi_mu_sharded", rows, vals, pi, b, n_rows,
+                             layout, vals_e, pi_e, mesh, local_strategy,
+                             pi_gather, factors, combine, eps=eps, tol=tol)
+        if base is None:
+            return out
+        return phi_mu_step(rows, vals, pi, b, n_rows, eps=eps, tol=tol,
+                           strategy=canonical_strategy(local_strategy), layout=base,
+                           device=device)
     if strategy == "dense":
         from ..kernels.dense import ops as dense_ops
 
@@ -422,6 +617,10 @@ def krao_reduce_rows(
     device="cuda",
     dense=None,
     factors=None,
+    mesh=None,
+    local_strategy: str = "blocked",
+    pi_gather=None,
+    combine: str = "psum",
 ) -> torch.Tensor:
     """Shared segmented Khatri-Rao reduction: ``out[i] = sum x_j * kr_j``.
 
@@ -435,7 +634,11 @@ def krao_reduce_rows(
         (:mod:`repro_torch.kernels.mttkrp`);
       * ``dense`` — the dense MTTKRP kernel on ``dense=`` (a
         :class:`repro_torch.core.dense.DenseModeData`) and ``factors``;
-        ``rows``/``vals``/``kr`` may be None.
+        ``rows``/``vals``/``kr`` may be None;
+      * ``sharded`` — row-block shards and one combine, as in
+        :func:`phi_from_rows` (the MTTKRP kernel once per shard for
+        ``local_strategy="cuda"``); with ``pi_gather``/``factors`` each
+        shard builds its Khatri-Rao rows and ``kr``/``kr_e`` may be None.
 
     ``rows`` must be sorted for ``blocked`` and ``cuda``.  ``sorted_rows``
     is the JAX package's promise to its ``segment_sum``; ``index_add_``
@@ -448,6 +651,16 @@ def krao_reduce_rows(
     check_on_device("krao_reduce_rows", dev, rows, vals, kr, vals_e, kr_e,
                     *_dense_tensors(dense, factors))
     strategy = canonical_strategy(strategy)
+    _check_combine(strategy, combine)
+    if strategy == "sharded":
+        out, base = _sharded("krao_sharded", rows, vals, kr, None, n_rows,
+                             layout, vals_e, kr_e, mesh, local_strategy,
+                             pi_gather, factors, combine)
+        if base is None:
+            return out
+        return krao_reduce_rows(rows, vals, kr, n_rows,
+                                strategy=canonical_strategy(local_strategy),
+                                layout=base, device=device)
     if strategy == "dense":
         from ..kernels.dense import ops as dense_ops
 

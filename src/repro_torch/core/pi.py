@@ -13,7 +13,7 @@ from typing import Sequence
 
 import torch
 
-__all__ = ["pi_rows", "pi_rows_flops_words"]
+__all__ = ["pi_rows", "pi_rows_flops_words", "pi_rows_local"]
 
 
 def pi_rows(indices: torch.Tensor, factors: Sequence[torch.Tensor],
@@ -34,6 +34,27 @@ def pi_rows(indices: torch.Tensor, factors: Sequence[torch.Tensor],
             continue
         out = out * f[indices[:, m]]
     return out
+
+
+def pi_rows_local(local_factors: Sequence[torch.Tensor],
+                  local_idx: Sequence[torch.Tensor],
+                  valid: torch.Tensor) -> torch.Tensor:
+    """Shard-local Π rows from gathered factor rows: (slot, R).
+
+    The sharded counterpart of :func:`pi_rows`: each shard gets only the
+    factor rows its nonzeros touch (``local_factors[m]``: (U_m, R), from a
+    :class:`repro_torch.core.layout.ShardedPiGather`) and per-slot
+    positions into them (``local_idx[m]``: (slot,)).  ``valid`` masks
+    padding slots to zero, as the layout expansion of the replicated rows
+    does.  The multiplication order is :func:`pi_rows`'s (ascending
+    mode), so the result is bitwise the expanded replicated Π rows.
+    """
+    f0 = local_factors[0]
+    out = torch.ones((valid.shape[-1], f0.shape[1]), dtype=f0.dtype,
+                     device=f0.device)
+    for f, li in zip(local_factors, local_idx):
+        out = out * f[li]
+    return torch.where(valid[:, None], out, out.new_zeros(()))
 
 
 def pi_rows_flops_words(nnz: int, rank: int, n_modes: int) -> tuple:

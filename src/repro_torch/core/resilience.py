@@ -18,8 +18,12 @@ Three layers, consumed by :mod:`repro_torch.core.cpapr` (and, lighter,
   exponential backoff (:func:`backoff_sleep`) instead of crashing the
   solve.  A sticky CUDA error (one that leaves the context unusable) is
   never demoted: no rung in the same process can recover from it.  The
-  multi-device rungs (shard halving on OOM, the combine demotion on a
-  fingerprint mismatch, grid -> 1D) belong to ROADMAP A8.
+  row-sharded tier adds its rungs: on a sharded mode a kernel failure
+  demotes the shard-local ``cuda -> blocked``, then ``sharded ->
+  segment``; a stale shard assignment (``"fingerprint"``) the combine
+  ``reduce_scatter -> psum``; an OOM halves the shard count and
+  rebalances, down to the single-device local path.  The grid -> 1D
+  rungs belong to ROADMAP A8b.
 
 * **Sweep checkpoint/resume** — :func:`save_checkpoint` /
   :func:`load_checkpoint` serialize the solver state in the JAX package's
@@ -74,9 +78,8 @@ __all__ = [
 
 class ShardAssignmentError(ValueError):
     """An owner partition / Π gather was built from a *different* shard
-    assignment than the layout it is used with.  Kept for the JAX
-    package's classification table; the port raises it nowhere until the
-    multi-device tier lands (ROADMAP A8)."""
+    assignment than the layout it is used with (stale after a
+    rebalance): its slices would cover the wrong rows."""
 
 
 class CheckpointError(RuntimeError):
@@ -158,11 +161,14 @@ _STICKY_MARKERS = ("illegal memory access", "device-side assert",
 def classify_failure(exc: BaseException) -> "str | None":
     """Map a runtime exception to a degradation-ladder kind.
 
-    Returns ``"oom"`` (a device or host allocation failed), ``"fingerprint"``
-    (a stale shard assignment), ``"kernel"`` (a kernel failed to build,
-    was refused by the card's limits, or failed to launch: ``cuda ->
-    blocked -> segment``), ``"policy"`` (a served policy names an unknown
-    strategy: drop to ``segment``) or ``None`` for anything the ladder
+    Returns ``"oom"`` (a device or host allocation failed: shard-count
+    halving + rebalance on a sharded mode), ``"fingerprint"`` (a stale
+    shard assignment: the combine ``reduce_scatter -> psum``),
+    ``"kernel"`` (a kernel failed to build, was refused by the card's
+    limits, or failed to launch: ``cuda -> blocked -> segment``; on a
+    sharded mode the local ``cuda -> blocked``, then ``sharded ->
+    segment``), ``"policy"`` (a served policy names an unknown strategy
+    or combine: drop to ``segment``) or ``None`` for anything the ladder
     must not swallow: asserts, keyboard interrupts, genuine bugs, options
     this port does not have yet (:class:`NotPortedError`), and sticky CUDA
     errors, after which no demotion in the same process can run.  The

@@ -44,9 +44,11 @@ The single-device parts of the JAX package's ``repro.perf.autotune``:
 The store is the port's own file: ``$REPRO_TORCH_AUTOTUNE_CACHE`` if set,
 else ``~/.cache/repro_torch/autotune.json``.  It never reads or writes
 the JAX package's store.  Its staleness metadata is the torch and CUDA
-versions and the card's name (:func:`current_device_kind`).  The sharded
-keys (``policy_for_sharded_mode``, ``shard_assignment_fragment``) belong
-to ROADMAP A8.
+versions and the card's name (:func:`current_device_kind`).  A sharded
+mode is tuned per shard (:meth:`Autotuner.policy_for_sharded_mode`) under
+keys with the JAX package's ``/shards=``, ``/assign=``
+(:func:`shard_assignment_fragment`) and ``/combine=`` dimensions; the
+``/grid=`` dimension belongs to ROADMAP A8b.
 
 ``CPAPRConfig(policy="auto")`` and ``cp_als(policy="auto")`` consult
 this per mode (see :mod:`repro_torch.core.cpapr`).
@@ -84,6 +86,7 @@ __all__ = [
     "current_device_kind",
     "default_cache_path",
     "policy_key",
+    "shard_assignment_fragment",
 ]
 
 _ENV_PREFIX = "REPRO_TORCH_AUTOTUNE_"
@@ -120,19 +123,45 @@ def _platform_of(t) -> str:
 
 
 def policy_key(nnz: int, n_rows: int, rank: int, platform: str,
-               stats: ModeStats | None = None) -> str:
-    """Cache key for one tuning problem.
+               n_shards: int = 1, stats: ModeStats | None = None,
+               assign: str | None = None, combine: str | None = None,
+               grid: "tuple | None" = None) -> str:
+    """Cache key for one tuning problem, equal to the JAX package's string.
 
     With ``stats`` the key is the v2 format: a ``v2/`` prefix plus the
     binned segment-run dimensions, so equal-size modes with different
     nonzero distributions resolve to distinct entries.  Without ``stats``
     the legacy v1 format comes back (migration bookkeeping).  ``platform``
-    is ``"cuda"`` or ``"cpu"``.
+    is ``"cuda"`` or ``"cpu"``.  ``n_shards`` > 1 appends ``/shards=N``,
+    ``assign`` (a :func:`shard_assignment_fragment`) ``/assign=...`` (a
+    rebalanced assignment is a different problem), and a non-default
+    ``combine`` (``"reduce_scatter"``) ``/combine=...``.  A ``grid`` with
+    more than one column is the N-D grid, a later slice (ROADMAP A8b).
     """
     base = f"{platform}/nnz={nnz}/rows={n_rows}/rank={rank}"
     if stats is not None:
         base = f"v2/{base}/{stats.key_fragment()}"
-    return base
+    if grid is not None and int(grid[1]) > 1:
+        from ..core.resilience import NotPortedError
+
+        raise NotPortedError("the /grid= key dimension is not ported yet: "
+                             "ROADMAP A8b (grid)")
+    if n_shards in (None, 1):
+        return base
+    key = f"{base}/shards={n_shards}"
+    if assign is not None:
+        key = f"{key}/assign={assign}"
+    if combine not in (None, "psum"):
+        key = f"{key}/combine={combine}"
+    return key
+
+
+def shard_assignment_fragment(cuts) -> str:
+    """Short stable signature of a shard assignment's stream cuts (crc32
+    of the cut positions), so a rebalanced assignment re-keys the same
+    way in every future run."""
+    arr = np.asarray(list(cuts), np.int64)
+    return format(zlib.crc32(arr.tobytes()) & 0xFFFFFFFF, "08x")
 
 
 def _policy_to_json(p: PhiPolicy) -> dict:
@@ -810,6 +839,97 @@ class Autotuner:
                                     cutout.b, n_rows=cutout.n_rows,
                                     rank=cutout.rank, stats=cutout.stats,
                                     n_modes=cutout.n_modes)
+
+    def policy_for_sharded_mode(self, rows, vals, pi, b, n_rows: int,
+                                rank: int, n_shards: int,
+                                stats: ModeStats | None = None,
+                                cuts: "list | None" = None,
+                                assign: str | None = None,
+                                combine: str | None = None,
+                                grid: "tuple | None" = None,
+                                n_modes: int = 3) -> tuple:
+        """Tuned policies for one mode split into ``n_shards`` row shards.
+
+        Each shard's sub-problem (its contiguous slice of the sorted
+        stream, rebased to its local row window) is tuned and cached under
+        a ``/shards=`` key with the shard's own segment-run stats.  One
+        launch shape serves every shard, so the winners are reconciled to
+        the winner of the largest-nnz shard.  Returns ``(uniform_policy,
+        per_shard_policies)``; shards that own no nonzeros get None.
+
+        ``pi`` may be None for a non-measuring tuner (no probe reads it).
+        ``cuts`` pins the assignment (``n_shards + 1`` sorted-stream cut
+        positions, e.g. from
+        :func:`repro_torch.core.layout.shard_stream_cuts` after a
+        rebalance) and adds the ``/assign=`` dimension; without it the
+        nnz-balanced split keeps the plain ``/shards=`` keyspace.
+        ``combine`` adds ``/combine=`` (``"psum"``/None keep the plain
+        keyspace); ``grid`` with more than one column raises
+        :class:`NotPortedError` (ROADMAP A8b).
+        """
+        if pi is None and self.measure:
+            raise ValueError("a measuring tuner needs the Pi rows to probe; "
+                             "pass pi or use Autotuner(measure=False)")
+        platform = self.platform or _platform_of(rows)
+        rows_np = _host(rows)
+        nnz = int(rows_np.shape[0])
+        if n_shards <= 1 or nnz == 0:
+            pol = self.policy_for_mode(rows, vals, pi, b, n_rows=n_rows,
+                                       rank=rank, stats=stats,
+                                       n_modes=n_modes)
+            return pol, [pol] * max(1, n_shards)
+
+        if cuts is not None:
+            cuts = [int(c) for c in cuts]
+            if (len(cuts) != n_shards + 1 or cuts[0] != 0 or cuts[-1] != nnz
+                    or any(b_ < a_ for a_, b_ in zip(cuts, cuts[1:]))):
+                raise ValueError(
+                    f"cuts must be non-decreasing from 0 to nnz={nnz} with "
+                    f"{n_shards + 1} entries, got {cuts}"
+                )
+            if assign is None:
+                assign = shard_assignment_fragment(cuts)
+        else:
+            # contiguous nnz-balanced cuts, snapped forward to row
+            # boundaries (a row never spans shards)
+            cuts = [0]
+            for s in range(1, n_shards):
+                p = s * nnz // n_shards
+                while 0 < p < nnz and rows_np[p] == rows_np[p - 1]:
+                    p += 1
+                cuts.append(max(p, cuts[-1]))
+            cuts.append(nnz)
+
+        per_shard: list = []
+        best, best_nnz = None, -1
+        for s in range(n_shards):
+            c0, c1 = cuts[s], cuts[s + 1]
+            if c1 <= c0:
+                per_shard.append(None)
+                continue
+            row_lo = int(rows_np[c0])
+            row_hi = int(rows_np[c1 - 1]) + 1
+            local_rows = rows_np[c0:c1] - row_lo
+            shard_stats = mode_run_stats(local_rows, row_hi - row_lo)
+            key = policy_key(c1 - c0, row_hi - row_lo, rank, platform,
+                             n_shards=n_shards, stats=shard_stats,
+                             assign=assign, combine=combine, grid=grid)
+            v1_key = policy_key(c1 - c0, row_hi - row_lo, rank, platform,
+                                n_shards=n_shards)
+            dev = vals.device
+            pol = self._tune_key(
+                key, torch.as_tensor(local_rows, device=dev), vals[c0:c1],
+                pi[c0:c1] if pi is not None else None, b[row_lo:row_hi],
+                row_hi - row_lo, rank, platform, stats=shard_stats,
+                v1_key=v1_key, n_modes=n_modes)
+            per_shard.append(pol)
+            if c1 - c0 > best_nnz:
+                best, best_nnz = pol, c1 - c0
+        if best is None:  # every shard empty (cannot happen when nnz > 0)
+            best = heuristic_policy(nnz, n_rows, rank,
+                                    vmem_budget=self.vmem_budget,
+                                    platform=platform)
+        return best, per_shard
 
 
 def _host(rows) -> np.ndarray:

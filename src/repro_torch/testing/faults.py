@@ -4,16 +4,19 @@ Context managers that register hooks into
 :mod:`repro_torch.core.resilience`'s registries (the core never imports
 this package) plus file/cache corruption helpers, as in the JAX
 package's ``repro.testing.faults``.  Together they drive the fault x
-strategy recovery matrix of ``tests/test_torch_faults.py`` and phases
-11-12 of ``chip_smoke.py``:
+strategy x shard-count recovery matrix of ``tests/test_torch_faults.py``
+and phases 11, 12 and 14 of ``chip_smoke.py``:
 
 * :func:`inject_nan` — poison a chosen mode's update output with a NaN,
   exercising the numerical guard + kappa ladder;
 * :func:`fail_strategy` — raise a simulated kernel failure from a chosen
   strategy, exercising ``cuda -> blocked -> segment``;
-* :func:`fail_oom` / :func:`fail_fingerprint` — the simulated
-  ``RESOURCE_EXHAUSTED`` and shard-assignment faults; on one device the
-  ladder has no rung for them (ROADMAP A8), so they propagate;
+* :func:`fail_oom` — raise a simulated ``RESOURCE_EXHAUSTED`` while a
+  mode runs with at least ``min_shards`` shards, exercising shard-count
+  halving + rebalance;
+* :func:`fail_fingerprint` — raise a simulated owner-partition
+  fingerprint mismatch from a sharded mode, exercising the combine
+  ``reduce_scatter -> psum``;
 * :func:`kill_at_sweep` — raise :class:`KilledError` (deliberately
   *unclassifiable*, so the ladder re-raises) at a chosen outer sweep,
   simulating a process kill for checkpoint/resume tests;
@@ -109,10 +112,12 @@ def fail_strategy(
 
 
 @contextlib.contextmanager
-def fail_oom(mode: "int | None" = None, min_shards: int = 1,
+def fail_oom(mode: "int | None" = None, min_shards: int = 2,
              times: "int | None" = None):
     """Raise a simulated ``RESOURCE_EXHAUSTED`` while a mode runs with at
-    least ``min_shards`` shards (every single-device mode has one)."""
+    least ``min_shards`` shards: after the ladder halves below that, the
+    solve proceeds (``min_shards=1`` also hits single-device modes, which
+    have no OOM rung).  ``times=None`` means every matching attempt."""
     budget = [times]
 
     def hook(ctx):
@@ -134,12 +139,16 @@ def fail_oom(mode: "int | None" = None, min_shards: int = 1,
 
 @contextlib.contextmanager
 def fail_fingerprint(mode: "int | None" = None, times: int = 1):
-    """Raise a simulated owner-partition fingerprint mismatch from a mode
-    (the error the sharded tier raises on stale gather maps)."""
+    """Raise a simulated owner-partition fingerprint mismatch from a
+    sharded mode (the error the sharded tier raises on gather maps that
+    are stale against a rebalanced layout)."""
     budget = [times]
 
     def hook(ctx):
-        if _spent(budget, mode is None or ctx["mode"] == mode):
+        match = ctx["strategy"] == "sharded" and (
+            mode is None or ctx["mode"] == mode
+        )
+        if _spent(budget, match):
             raise resilience.ShardAssignmentError(
                 "owner partition was built from a different shard "
                 "assignment (rb_start mismatch, simulated)"

@@ -1,7 +1,9 @@
 """The port's persistent autotuner against the JAX package's.
 
-Mirrors ``tests/test_autotune_cache.py`` (its single-device cases; the
-sharded keys wait for ROADMAP A8) and the autotune half of
+Mirrors ``tests/test_autotune_cache.py`` (its single-device cases and
+its sharded ones: the ``/shards=``, ``/assign=`` and ``/combine=`` key
+dimensions equal to the reference's strings, per-shard tuning, the
+re-keying of a rebalanced assignment) and the autotune half of
 ``tests/test_fused_autotune.py`` for ``repro_torch.perf.autotune``: the
 store's location (its own file and environment variable, never the JAX
 package's), recovery from bad files, the v2 keys (the reference's with
@@ -662,3 +664,122 @@ def test_poisoned_entry_demotes_in_cp_als(port_tensor, tmp_path):
     assert [(e.kind, e.mode, e.detail["action"]) for e in recs] == [
         ("demote_policy", 2, "warpspeed->segment")]
     assert all(np.isfinite(fits))
+
+
+# ---------------------------------------------------------------------------
+# The sharded key dimensions
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n_shards", (None, 1, 2, 4))
+def test_sharded_policy_keys_equal_reference(n_shards):
+    """Every combination of /shards=, /assign= and /combine= (and the v2
+    stats prefix) is the reference's string; /grid= waits for ROADMAP
+    A8b and raises."""
+    from repro_torch.core.resilience import NotPortedError
+
+    rows = np.repeat(np.arange(50, dtype=np.int32), 20)
+    stats, rstats = mode_run_stats(rows, 50), r_mode_run_stats(rows, 50)
+    frag = P_at.shard_assignment_fragment([0, 250, 500, 750, 1000])
+    assert frag == R_at.shard_assignment_fragment([0, 250, 500, 750, 1000])
+    assert frag != P_at.shard_assignment_fragment([0, 300, 500, 750, 1000])
+    for st, rst in ((None, None), (stats, rstats)):
+        for assign in (None, frag):
+            for combine in (None, "psum", "reduce_scatter"):
+                for grid in (None, (n_shards or 1, 1)):
+                    kw = dict(n_shards=n_shards, assign=assign,
+                              combine=combine, grid=grid)
+                    assert policy_key(1000, 50, 8, "cuda", stats=st, **kw) \
+                        == R_at.policy_key(1000, 50, 8, "cuda", stats=rst,
+                                           **kw)
+    with pytest.raises(NotPortedError, match="A8b"):
+        policy_key(1000, 50, 8, "cuda", n_shards=4, grid=(2, 2))
+
+
+@pytest.mark.parametrize("combine", (None, "reduce_scatter"))
+def test_sharded_tuning_keys_equal_reference(small_tensor, tmp_path,
+                                             port_tensor, combine):
+    """The same mode tuned per shard by both packages' non-measuring
+    tuners: the same key strings (the platform aside) and the same
+    per-shard policies; a single-device entry is never shadowed."""
+    t, kt = small_tensor
+    from repro.core.pi import pi_rows as r_pi_rows
+    from repro.core.sparse_tensor import sort_mode as r_sort_mode
+
+    mv, pi, b = _mode_problem(port_tensor)
+    rmv = r_sort_mode(t, 0)
+    rpi = r_pi_rows(rmv.sorted_idx, kt.factors, 0)
+    rb = kt.factors[0] * kt.lam[None, :]
+    tuner = Autotuner(cache_path=str(tmp_path / "p.json"), measure=False,
+                      platform="cpu")
+    rtuner = R_at.Autotuner(cache_path=str(tmp_path / "r.json"),
+                            measure=False, platform="cpu")
+    single = tuner.policy_for_mode(mv.rows, mv.sorted_vals, pi, b,
+                                   n_rows=mv.n_rows, rank=RANK)
+    for cuts in (None, [0, mv.nnz // 3, mv.nnz]):
+        got = tuner.policy_for_sharded_mode(
+            mv.rows, mv.sorted_vals, pi, b, n_rows=mv.n_rows, rank=RANK,
+            n_shards=2, cuts=cuts, combine=combine)
+        want = rtuner.policy_for_sharded_mode(
+            rmv.rows, rmv.sorted_vals, rpi, rb, n_rows=rmv.n_rows, rank=RANK,
+            n_shards=2, cuts=cuts, combine=combine)
+        assert [None if p is None else p.label() for p in got[1]] == \
+            [None if p is None else p.label() for p in want[1]]
+    sharded_keys = sorted(k for k in tuner.cache.entries if "/shards=" in k)
+    assert sharded_keys == sorted(k for k in rtuner.cache.entries
+                                  if "/shards=" in k)
+    assert len(sharded_keys) == 4
+    assert sum("/assign=" in k for k in sharded_keys) == 2
+    assert all(("/combine=" in k) == (combine is not None)
+               for k in sharded_keys)
+    t2 = Autotuner(cache_path=str(tmp_path / "p.json"), measure=False,
+                   platform="cpu")
+    assert t2.policy_for_mode(mv.rows, mv.sorted_vals, pi, b,
+                              n_rows=mv.n_rows, rank=RANK) == single
+    with pytest.raises(ValueError, match="cuts"):
+        tuner.policy_for_sharded_mode(mv.rows, mv.sorted_vals, pi, b,
+                                      n_rows=mv.n_rows, rank=RANK, n_shards=2,
+                                      cuts=[0, mv.nnz])
+    with pytest.raises(ValueError, match="Pi rows"):
+        Autotuner(cache_path=str(tmp_path / "m.json")).policy_for_sharded_mode(
+            mv.rows, mv.sorted_vals, None, b, n_rows=mv.n_rows, rank=RANK,
+            n_shards=2)
+
+
+def test_sharded_tuning_handles_degenerate_splits(port_tensor, tmp_path):
+    """All nonzeros in one row: later shards are empty (None) and the
+    uniform policy comes from the one populated shard."""
+    mv, pi, b = _mode_problem(port_tensor)
+    rows = torch.zeros(mv.nnz, dtype=mv.rows.dtype)
+    tuner = Autotuner(cache_path=str(tmp_path / "c.json"), measure=False)
+    uniform, per_shard = tuner.policy_for_sharded_mode(
+        rows, mv.sorted_vals, pi, b, n_rows=mv.n_rows, rank=RANK, n_shards=3)
+    assert per_shard[0] is not None
+    assert per_shard[1] is None and per_shard[2] is None
+    assert uniform == per_shard[0]
+
+
+def test_rebalance_threads_assignment_through_autotune_keys(tmp_path):
+    """With policy='auto' and a non-measuring tuner, a boundary move
+    re-keys the shard sub-problems under /assign= cache keys, as in the
+    reference (its tuner on platform "tpu", the port's on "cuda": both
+    heuristics then pick a blocked policy, which has shards to move)."""
+    from repro_torch.core.sparse_tensor import SparseTensor
+
+    sparse = np.repeat(np.arange(20) * 8, 2)
+    dense = np.repeat(160 + np.arange(4) * 8, 320)
+    rows = np.sort(np.concatenate([sparse, dense])).astype(np.int64)
+    rng = np.random.default_rng(0)
+    idx = np.stack([rows, rng.integers(0, 30, rows.size),
+                    rng.integers(0, 25, rows.size)], 1)
+    t = SparseTensor(shape=(192, 30, 25), indices=torch.as_tensor(idx),
+                     values=torch.ones(rows.size))
+    tuner = Autotuner(cache_path=str(tmp_path / "c.json"), measure=False,
+                      platform="cuda")
+    res = cpapr_mu(t, 3, device="cpu", config=CPAPRConfig(
+        rank=3, max_outer=2, max_inner=2, strategy="sharded", n_shards=2,
+        policy="auto", autotuner=tuner, track_loglik=False,
+        rebalance_every=1))
+    moved = [ev for ev in res.rebalances or [] if ev["mode"] == 0]
+    assert moved, "skewed mode 0 should rebalance"
+    assert any("/assign=" in k for k in tuner.cache.entries)

@@ -194,10 +194,22 @@ def test_mixed_bf16_factors_solve_like_reference(kind, strategy):
     ("rebalance_every", 1),
 ])
 def test_unported_options_raise(field, value):
+    """Only the grid's option is still unported (ROADMAP A8b).  The
+    row-sharded ones are ported and, as in the JAX package, act only with
+    ``strategy="sharded"``: on the default strategy the solve is the
+    plain one."""
     pt, pkt = port_problem("uniform")
     cfg = P_cpapr.CPAPRConfig(rank=RANK, max_outer=1, **{field: value})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        P_cpapr.cpapr_mu(pt, RANK, init=pkt, config=cfg, device="cpu")
+    if field == "grid_shape":
+        with pytest.raises(NotImplementedError, match="ROADMAP A8b"):
+            P_cpapr.cpapr_mu(pt, RANK, init=pkt, config=cfg, device="cpu")
+        return
+    got = P_cpapr.cpapr_mu(pt, RANK, init=pkt, config=cfg, device="cpu")
+    plain = P_cpapr.cpapr_mu(pt, RANK, init=pkt, device="cpu",
+                             config=P_cpapr.CPAPRConfig(rank=RANK,
+                                                        max_outer=1))
+    assert got.kkt_history == plain.kkt_history
+    assert got.rebalances is None
 
 
 @pytest.mark.parametrize("field,value", [
@@ -206,23 +218,30 @@ def test_unported_options_raise(field, value):
 ])
 def test_multi_device_options_raise_before_the_ladder(tmp_path, field,
                                                      value):
-    """An A8 option raises before any mode runs, even with the ladder
-    armed (a kernel fault that would be demoted is pending) and with
-    checkpoints on: nothing is demoted and no checkpoint is written."""
+    """The grid (ROADMAP A8b) raises before any mode runs, even with the
+    ladder armed (a kernel fault that would be demoted is pending) and
+    with checkpoints on: nothing is demoted and no checkpoint is written.
+    The row-sharded options run under the same armed ladder and write
+    their checkpoints."""
     from repro_torch.core import resilience
     from repro_torch.testing import faults
 
     pt, pkt = port_problem("uniform")
+    ck = tmp_path / "never.ckpt"
     cfg = P_cpapr.CPAPRConfig(rank=RANK, max_outer=2, checkpoint_every=1,
-                              checkpoint_path=str(tmp_path / "never.ckpt"),
-                              max_demotions=4, **{field: value})
+                              checkpoint_path=str(ck), max_demotions=4,
+                              **{field: value})
+    if value != "grid":
+        res = P_cpapr.cpapr_mu(pt, RANK, init=pkt, config=cfg, device="cpu")
+        assert res.n_outer == 2 and ck.exists()
+        return
     with faults.fail_strategy(strategy="segment") as budget:
-        with pytest.raises(resilience.NotPortedError, match="ROADMAP A8"):
+        with pytest.raises(resilience.NotPortedError, match="ROADMAP A8b"):
             P_cpapr.cpapr_mu(pt, RANK, init=pkt, config=cfg, device="cpu")
     assert budget == [1]  # no mode ran
-    assert not (tmp_path / "never.ckpt").exists()
+    assert not ck.exists()
     assert resilience.classify_failure(
-        resilience.NotPortedError("ROADMAP A8")) is None
+        resilience.NotPortedError("ROADMAP A8b")) is None
 
 
 @pytest.mark.parametrize("case", ("checkpoint", "resume", "auto"))

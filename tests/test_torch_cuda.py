@@ -1024,3 +1024,101 @@ def test_dense_workspaces_stay_bounded_on_the_card(card):
     for _ in range(2):
         want, _ = dense_ops.phi_mu_dense(x, c, a, want)
     _close(g_mu, want, TOL, "graph replay after its workspaces were dropped")
+
+
+# --- the row-sharded tier: B2 and B3 once per shard ------------------------
+
+
+def _sharded_inputs(kind, mode, n_shards, card):
+    from repro_torch.core.layout import build_shard_pi_gather, shard_blocked_layout
+    from repro_torch.core.phi import expand_to_shards
+
+    t, kt = fixture(kind)
+    mv = sort_mode(t, mode)
+    sl = shard_blocked_layout(
+        build_blocked_layout(mv.rows.numpy(), mv.n_rows, BN, BR), n_shards)
+    pi = pi_rows(mv.sorted_idx, kt.factors, mode)
+    vals_es, pi_es = expand_to_shards(sl, mv.sorted_vals, pi)
+    pig = build_shard_pi_gather(sl, mv.sorted_idx, mode)
+    b = kt.factors[mode] * kt.lam[None, :]
+    factors = tuple(f.to(card) for f in kt.factors)
+    return sl, pig, vals_es.to(card), pi_es.to(card), b.to(card), factors
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_shards", (2, 4))
+@pytest.mark.parametrize("kind", FIXTURES)
+def test_sharded_kernels_per_shard(card, kind, n_shards):
+    """Each sharded Φ and MTTKRP call (both combines, replicated and
+    shard-local Π) launches B2 and B3 exactly once per shard on slices of
+    the shard stack, agrees with the plain blocked schedule, and each
+    shard's kernel window is exactly zero on its padding rows."""
+    from repro_torch.core import distributed as D
+
+    for mode in MODES:
+        sl, pig, vals_es, pi_es, b, factors = _sharded_inputs(
+            kind, mode, n_shards, card)
+        for combine in D.PHI_COMBINES:
+            for local_pi in (False, True):
+                kw = dict(combine=combine)
+                if local_pi:
+                    kw.update(pi_gather=pig, factors=factors)
+                before = (ops.launch_counts["phi_blocked"],
+                          mttkrp_ops.launch_counts["mttkrp_blocked"])
+                phi = D.phi_sharded(sl, vals_es, pi_es, b,
+                                    local_strategy="cuda", **kw)
+                kr = D.krao_sharded(sl, vals_es, pi_es,
+                                    local_strategy="cuda", **kw)
+                torch.cuda.synchronize()
+                assert (ops.launch_counts["phi_blocked"] - before[0],
+                        mttkrp_ops.launch_counts["mttkrp_blocked"]
+                        - before[1]) == (n_shards, n_shards)
+                what = f"{kind} mode {mode} S={n_shards} {combine} {local_pi}"
+                _close(phi, D.phi_sharded(sl, vals_es, pi_es, b, **kw), TOL,
+                       f"phi {what}")
+                _close(kr, D.krao_sharded(sl, vals_es, pi_es, **kw), TOL,
+                       f"krao {what}")
+        st = sl.on(card)
+        b_buf = pad_rows(b, sl.buf_rows)
+        for s in range(n_shards):
+            r0 = int(sl.rb_start[s]) * sl.block_rows
+            real = int(sl.rb_count[s]) * sl.block_rows
+            args = (vals_es[s], pi_es[s], st.local_rows[s], st.grid_rb[s])
+            for win in (D._shard_window(sl, 1e-10, "cuda", *args,
+                                        b_buf[r0:r0 + sl.win_rows]),
+                        D._shard_window(sl, 0.0, "cuda", *args, None)):
+                assert not win[real:].any(), (kind, mode, s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("combine", ("psum", "reduce_scatter"))
+def test_sharded_solves_on_the_card(card, combine):
+    """Sharded CP-APR and CP-ALS with the local cuda kernels: B2 per shard
+    per inner step, B3 per shard per mode update, results within TOL of
+    the blocked-local solves."""
+    t, kt = fixture("uniform")
+    pol = PhiPolicy(strategy="cuda", block_nnz=BN, block_rows=BR)
+    cfg = P_cpapr.CPAPRConfig(rank=RANK, max_outer=3, strategy="sharded",
+                              n_shards=2, combine=combine, policy=pol)
+    before = dict(ops.launch_counts)
+    got = P_cpapr.cpapr_mu(t, RANK, init=kt, config=cfg, device="cuda")
+    b2 = ops.launch_counts["phi_blocked"] - before["phi_blocked"]
+    assert b2 == 2 * (got.n_outer * t.ndim + sum(got.inner_iters))
+    assert ops.launch_counts["phi_mu_blocked"] == before["phi_mu_blocked"]
+    want = P_cpapr.cpapr_mu(t, RANK, init=kt, device="cpu",
+                            config=dataclasses.replace(cfg, policy=PhiPolicy(
+                                strategy="blocked", block_nnz=BN,
+                                block_rows=BR)))
+    assert got.inner_iters == want.inner_iters
+    np.testing.assert_allclose(got.loglik_history, want.loglik_history,
+                               **TOL)
+    before = mttkrp_ops.launch_counts["mttkrp_blocked"]
+    fits = P_cpals.cp_als(t, RANK, n_iters=2, init=kt, strategy="sharded",
+                          n_shards=2, combine=combine, policy=pol,
+                          device="cuda")[1]
+    assert mttkrp_ops.launch_counts["mttkrp_blocked"] - before == 2 * 2 * 3
+    want = P_cpals.cp_als(t, RANK, n_iters=2, init=kt, strategy="sharded",
+                          n_shards=2, combine=combine, device="cpu",
+                          policy=PhiPolicy(strategy="blocked", block_nnz=BN,
+                                           block_rows=BR))[1]
+    np.testing.assert_allclose(fits, want, rtol=1e-5, atol=1e-6)

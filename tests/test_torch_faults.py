@@ -1,15 +1,19 @@
 """The port's fault-injection recovery matrix, against the JAX package.
 
-Mirrors the single-device rows of ``tests/test_faults.py``: every
-injected fault (NaN factors, kernel failures, corrupted checkpoints,
-poisoned autotune entries) must still end in a converged CP-APR solve
-whose factors meet the dense f64 KKT oracle, with the recovery recorded
-in ``CPAPRResult.recoveries``.  Then the checkpoint contract: a killed
-and resumed solve is bitwise the uninterrupted one (``segment``,
-``blocked``, ``dense`` and ``cuda``'s plain version), and a checkpoint
-resumes across the two packages in both directions.  The sharded rows
-wait for the multi-device port (ROADMAP A8); their faults (simulated OOM,
-shard fingerprint) have no single-device rung and propagate.
+Mirrors the rows of ``tests/test_faults.py``: every injected fault (NaN
+factors, kernel failures, simulated OOM, stale shard assignments,
+corrupted checkpoints, poisoned autotune entries) must still end in a
+converged CP-APR solve whose factors meet the dense f64 KKT oracle, with
+the recovery recorded in ``CPAPRResult.recoveries``; the sharded rows
+(emulated shards) walk the multi-device rungs: the local ``cuda ->
+blocked``, ``sharded -> segment``, shard halving on OOM down to the
+single-device path, and the combine ``reduce_scatter -> psum``.  On an
+unsharded mode the OOM and fingerprint faults have no rung and
+propagate.  Then the checkpoint contract: a killed and resumed solve is
+bitwise the uninterrupted one (``segment``, ``blocked``, ``dense``,
+``cuda``'s plain version and a rebalanced ``sharded`` solve), and a
+checkpoint, sharded ones with their rebalanced cuts too, resumes across
+the two packages in both directions.
 
 Both packages get the same inputs: the reference's fixture tensor and
 its seeded starting model, handed over as numpy arrays.
@@ -50,6 +54,17 @@ RANK = 4
 TOL = 5e-2  # loose outer tolerance: every matrix row must *converge*
 SWEEPS = 60  # the clean fixture solve converges in ~35 sweeps at TOL
 PB = PhiPolicy(strategy="blocked", block_nnz=64, block_rows=4)
+PC = PhiPolicy(strategy="cuda", block_nnz=64, block_rows=4)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The solves here are thousands of small CPU ops: one intra-op thread
+    keeps them from contending with the other test workers' threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @functools.lru_cache(maxsize=None)
@@ -124,6 +139,33 @@ MATRIX = {
         cfg=dict(strategy="dense"),
         fault=lambda: faults.fail_strategy(strategy="dense", mode=1),
         kind="demote_kernel"),
+    "nan-sharded-rs": dict(
+        cfg=dict(strategy="sharded", n_shards=2, combine="reduce_scatter",
+                 policy=PB),
+        fault=lambda: faults.inject_nan(mode=0, outer=1),
+        kind="nan_guard"),
+    "kernel-sharded-local-cuda": dict(
+        cfg=dict(strategy="sharded", n_shards=2, policy=PC),
+        fault=lambda: faults.fail_strategy(strategy="sharded"),
+        kind="demote_kernel"),
+    "kernel-sharded-to-segment": dict(
+        cfg=dict(strategy="sharded", n_shards=2, policy=PB),
+        fault=lambda: faults.fail_strategy(strategy="sharded", mode=1),
+        kind="demote_kernel"),
+    "oom-sharded": dict(
+        cfg=dict(strategy="sharded", n_shards=4, policy=PB),
+        fault=lambda: faults.fail_oom(min_shards=3),
+        kind="demote_oom"),
+    "oom-to-single-device": dict(
+        # unbounded OOM: the ladder must walk 4 -> 2 -> single-device
+        cfg=dict(strategy="sharded", n_shards=4, policy=PB),
+        fault=lambda: faults.fail_oom(min_shards=2),
+        kind="demote_oom"),
+    "fingerprint-rs": dict(
+        cfg=dict(strategy="sharded", n_shards=2, combine="reduce_scatter",
+                 policy=PB),
+        fault=lambda: faults.fail_fingerprint(),
+        kind="demote_fingerprint"),
 }
 
 
@@ -171,18 +213,61 @@ def test_demotion_walks_the_ladder_and_records_each_rung():
     assert "simulated kernel" in res.recoveries[0].detail["error"]
 
 
+class _stale_assignment:
+    """A shard-assignment fault on any mode (``fail_fingerprint`` fires on
+    sharded modes only)."""
+
+    def _hook(self, ctx):
+        raise resilience.ShardAssignmentError(
+            "owner partition was built from a different shard assignment "
+            "(simulated)")
+
+    def __enter__(self):
+        resilience.register_mode_hook(self._hook)
+
+    def __exit__(self, *exc):
+        resilience.unregister_mode_hook(self._hook)
+        return False
+
+
 @pytest.mark.parametrize("fault,match", [
-    (lambda: faults.fail_oom(), "RESOURCE_EXHAUSTED"),
-    (lambda: faults.fail_fingerprint(), "shard assignment"),
+    (lambda: faults.fail_oom(min_shards=1), "RESOURCE_EXHAUSTED"),
+    (lambda: _stale_assignment(), "shard assignment"),
 ])
 def test_multi_device_faults_propagate_on_one_device(fault, match):
     """OOM and fingerprint faults classify as in the JAX package, but a
-    single-device mode has no rung for them (ROADMAP A8): they reach the
-    caller instead of being demoted into something else."""
+    single-device mode has no rung for them: they reach the caller
+    instead of being demoted into something else."""
     with pytest.raises(Exception, match=match):
         with fault():
             solve(CPAPRConfig(rank=RANK, max_outer=2, strategy="cuda",
                               policy=PB, max_demotions=4))
+
+
+def test_sharded_rungs_record_their_actions():
+    """The multi-device rungs name what they did: the local kernel
+    demotion, shard halving then the single-device path on repeated OOM,
+    and the combine demotion on a stale assignment."""
+    def actions(cfg, *cms):
+        with _chain(*cms):
+            res = solve(CPAPRConfig(rank=RANK, max_outer=2, max_demotions=4,
+                                    **cfg))
+        return [(e.kind, e.mode, e.detail["action"])
+                for e in res.recoveries]
+
+    assert actions(dict(strategy="sharded", n_shards=2, policy=PC),
+                   faults.fail_strategy(strategy="cuda", mode=0),
+                   faults.fail_strategy(strategy="blocked", mode=0)) == [
+        ("demote_kernel", 0, "local cuda->blocked"),
+        ("demote_kernel", 0, "sharded->segment")]
+    assert actions(dict(strategy="sharded", n_shards=4, policy=PB),
+                   faults.fail_oom(mode=2, min_shards=2)) == [
+        ("demote_oom", 2, "shards 4->2"),
+        ("demote_oom", 2, "sharded@2->single-device blocked")]
+    assert actions(dict(strategy="sharded", n_shards=2, policy=PB,
+                        combine="reduce_scatter"),
+                   faults.fail_fingerprint(mode=1)) == [
+        ("demote_fingerprint", 1, "combine reduce_scatter->psum")]
 
 
 def test_max_demotions_bounds_the_ladder():
@@ -283,7 +368,9 @@ def _assert_bitwise(ref, res):
     dict(strategy="blocked", policy=PB),
     dict(strategy="cuda", policy=PB),
     dict(strategy="dense"),
-], ids=("segment", "blocked", "cuda", "dense"))
+    dict(strategy="sharded", n_shards=2, combine="reduce_scatter",
+         policy=PB, rebalance_every=2),
+], ids=("segment", "blocked", "cuda", "dense", "sharded"))
 def test_kill_and_resume_is_bitwise(tmp_path, tier):
     """Kill at sweep 5, resume from the sweep-4 checkpoint: factors,
     lambda and every history bitwise the uninterrupted run's."""
@@ -353,16 +440,19 @@ def test_fingerprint_mismatch_rejected(tmp_path):
 
 
 def test_sharded_checkpoint_raises_and_is_not_quarantined(tmp_path):
-    """A sound checkpoint of sharded modes needs the multi-device tier:
-    the port says so and leaves the file where it is."""
+    """A sound checkpoint of grid-sharded modes needs the N-D grid tier
+    (ROADMAP A8b): the port says so and leaves the file where it is.
+    (Row-sharded checkpoints resume: ``test_kill_and_resume_is_bitwise``
+    and the cross-package tests.)"""
     ck = str(tmp_path / "ck.bin")
     cfg = _ck_cfg(ck, max_outer=2)
     solve(cfg)
     state = resilience.load_checkpoint(ck)
     state["mode_shards"] = [2, 1, 1]
-    state["strategies"] = ["sharded", "segment", "segment"]
+    state["mode_grids"] = [[2, 2], None, None]
+    state["strategies"] = ["grid", "segment", "segment"]
     resilience.save_checkpoint(ck, state)
-    with pytest.raises(resilience.NotPortedError, match="ROADMAP A8"):
+    with pytest.raises(resilience.NotPortedError, match="ROADMAP A8b"):
         solve(cfg, resume_from=ck)
     assert os.path.exists(ck) and not os.path.exists(ck + ".corrupt")
 
@@ -387,7 +477,10 @@ def test_resume_after_fault_preserves_recovery_log(tmp_path):
 # Checkpoints across the two packages
 # ---------------------------------------------------------------------------
 
-CROSS = {"segment": ("segment", None), "blocked": ("blocked", PB)}
+# name -> (strategy, port policy, options both packages take)
+SHARDED_KW = dict(n_shards=2, combine="reduce_scatter", rebalance_every=2)
+CROSS = {"segment": ("segment", None, {}), "blocked": ("blocked", PB, {}),
+         "sharded": ("sharded", PB, SHARDED_KW)}
 
 
 def _rcfg(strategy, ck, **kw):
@@ -409,13 +502,15 @@ def _close_to(res, want):
 
 @pytest.mark.parametrize("name", sorted(CROSS))
 def test_reference_checkpoint_resumes_in_the_port(tmp_path, name):
-    strategy, pol = CROSS[name]
+    strategy, pol, kw = CROSS[name]
     t, kt = reference_problem()
     ck = str(tmp_path / "ck.bin")
     want = r_cpapr_mu(t, RANK, init=kt,
-                      config=_rcfg(strategy, None, checkpoint_every=0))
-    r_cpapr_mu(t, RANK, init=kt, config=_rcfg(strategy, ck, max_outer=4))
-    res = solve(_ck_cfg(ck, strategy=strategy, policy=pol), resume_from=ck)
+                      config=_rcfg(strategy, None, checkpoint_every=0, **kw))
+    r_cpapr_mu(t, RANK, init=kt, config=_rcfg(strategy, ck, max_outer=4,
+                                              **kw))
+    res = solve(_ck_cfg(ck, strategy=strategy, policy=pol, **kw),
+                resume_from=ck)
     assert [e.kind for e in res.recoveries] == ["resume"]
     assert res.n_outer == want.n_outer
     _close_to(res, want)
@@ -423,13 +518,13 @@ def test_reference_checkpoint_resumes_in_the_port(tmp_path, name):
 
 @pytest.mark.parametrize("name", sorted(CROSS))
 def test_port_checkpoint_resumes_in_the_reference(tmp_path, name):
-    strategy, pol = CROSS[name]
+    strategy, pol, kw = CROSS[name]
     t, kt = reference_problem()
     ck = str(tmp_path / "ck.bin")
     want = solve(_ck_cfg(None, strategy=strategy, policy=pol,
-                         checkpoint_every=0))
-    solve(_ck_cfg(ck, strategy=strategy, policy=pol, max_outer=4))
-    res = r_cpapr_mu(t, RANK, init=kt, config=_rcfg(strategy, ck),
+                         checkpoint_every=0, **kw))
+    solve(_ck_cfg(ck, strategy=strategy, policy=pol, max_outer=4, **kw))
+    res = r_cpapr_mu(t, RANK, init=kt, config=_rcfg(strategy, ck, **kw),
                      resume_from=ck)
     assert [e.kind for e in res.recoveries] == ["resume"]
     assert res.n_outer == want.n_outer

@@ -212,10 +212,23 @@ def test_cp_als_seeded_init_is_deterministic():
     ("mesh", object(), "A8"), ("n_shards", 2, "A8"),
 ])
 def test_cp_als_unported_options_raise(field, value, item):
+    """The multi-device options of ROADMAP {item} are ported: as in the JAX
+    package they act only with ``strategy="sharded"``, so on the default
+    strategy the fits are the plain ones; with it, ``n_shards`` shards
+    the MTTKRP and the fits match the reference's."""
     pt, pkt = port_problem("uniform")
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        P_cpals.cp_als(pt, RANK, n_iters=1, init=pkt, device="cpu",
-                       **{field: value})
+    got = P_cpals.cp_als(pt, RANK, n_iters=1, init=pkt, device="cpu",
+                         **{field: value})[1]
+    assert got == P_cpals.cp_als(pt, RANK, n_iters=1, init=pkt,
+                                 device="cpu")[1]
+    if field == "n_shards":
+        t, kt = make_fixture("uniform")
+        want = R_cpals.cp_als(t, RANK, n_iters=2, init=kt,
+                              strategy="sharded", n_shards=value)[1]
+        got = P_cpals.cp_als(pt, RANK, n_iters=2, init=pkt,
+                             strategy="sharded", n_shards=value,
+                             device="cpu")[1]
+        np.testing.assert_allclose(got, want, **TOL)
 
 
 def test_cp_als_policy_auto_matches_reference(tmp_path):
@@ -240,15 +253,24 @@ def test_cp_als_policy_auto_matches_reference(tmp_path):
 
 @pytest.mark.parametrize("strategy", ("sharded", "grid"))
 def test_unported_strategies_raise(strategy):
-    _, port = problem("uniform", 0)
+    """``grid`` raises (ROADMAP A8b); ``sharded`` is ported and its
+    default-layout MTTKRP matches the reference's."""
+    ref, port = problem("uniform", 0)
     pmv = port["mv"]
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        P_phi.krao_reduce_rows(pmv.rows, pmv.sorted_vals, port["kr"],
-                               pmv.n_rows, strategy=strategy, device="cpu")
+    args = (pmv.rows, pmv.sorted_vals, port["kr"], pmv.n_rows)
     pt, pkt = port_problem("uniform")
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        P_cpals.cp_als(pt, RANK, n_iters=1, init=pkt, strategy=strategy,
-                       device="cpu")
+    if strategy == "grid":
+        with pytest.raises(NotImplementedError, match="ROADMAP A8b"):
+            P_phi.krao_reduce_rows(*args, strategy=strategy, device="cpu")
+        with pytest.raises(NotImplementedError, match="ROADMAP A8b"):
+            P_cpals.cp_als(pt, RANK, n_iters=1, init=pkt, strategy=strategy,
+                           device="cpu")
+        return
+    rmv = ref["mv"]
+    want = R_phi.krao_reduce_rows(rmv.rows, rmv.sorted_vals, ref["kr"],
+                                  rmv.n_rows, strategy=strategy)
+    got = P_phi.krao_reduce_rows(*args, strategy=strategy, device="cpu")
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
 def test_cp_als_validates_inputs():

@@ -369,11 +369,20 @@ def test_flop_word_counts_equal(nnz, rank):
 
 @pytest.mark.parametrize("strategy", ("sharded", "grid"))
 def test_later_strategies_raise(strategy):
-    _, port = problem("uniform", 0)
+    """``grid`` is the next slice (ROADMAP A8b) and raises; ``sharded`` is
+    ported and, with its default layout, matches the reference's."""
+    ref, port = problem("uniform", 0)
     pmv = port["mv"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        P_phi.phi_from_rows(pmv.rows, pmv.sorted_vals, port["pi"], port["b"],
-                            pmv.n_rows, strategy=strategy, device="cpu")
+    args = (pmv.rows, pmv.sorted_vals, port["pi"], port["b"], pmv.n_rows)
+    if strategy == "grid":
+        with pytest.raises(NotImplementedError, match="ROADMAP A8b"):
+            P_phi.phi_from_rows(*args, strategy=strategy, device="cpu")
+        return
+    rmv = ref["mv"]
+    want = R_phi.phi_from_rows(rmv.rows, rmv.sorted_vals, ref["pi"],
+                               ref["b"], rmv.n_rows, strategy=strategy)
+    got = P_phi.phi_from_rows(*args, strategy=strategy, device="cpu")
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
 def test_pallas_is_an_alias_of_cuda():

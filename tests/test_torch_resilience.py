@@ -197,6 +197,40 @@ def test_config_fingerprint_matches_the_reference():
     assert a != resilience.config_fingerprint(dict(fields, rank=5))
 
 
+@pytest.mark.parametrize("combine", ("auto", "psum", "reduce_scatter"))
+@pytest.mark.parametrize("strategy", ("segment", "cuda", "sharded"))
+def test_solver_fingerprint_hashes_combine_and_shard_pi(strategy, combine):
+    """The solve's checkpoint fingerprint hashes the config's own
+    ``combine`` and ``shard_pi`` (and ``cuda`` as ``pallas``) exactly as
+    the reference's does, so a checkpoint of either package resumes in
+    the other only under the same sharded configuration."""
+    from repro.core import cpapr as R_cpapr
+    from repro.core.sparse_tensor import SparseTensor as RTensor
+
+    from repro_torch.core import cpapr as P_cpapr
+    from repro_torch.core.sparse_tensor import SparseTensor as PTensor
+
+    idx = np.array([[0, 1, 2], [3, 0, 1], [2, 2, 0]], np.int32)
+    vals = np.array([1.0, 2.0, 3.0], np.float32)
+    rt = RTensor(shape=(4, 3, 3), indices=jnp.asarray(idx),
+                 values=jnp.asarray(vals))
+    pt = PTensor(shape=(4, 3, 3), indices=torch.as_tensor(idx),
+                 values=torch.as_tensor(vals))
+    rname = {"cuda": "pallas"}.get(strategy, strategy)
+    seen = set()
+    for shard_pi in (True, False):
+        got = P_cpapr._ckpt_fingerprint(pt, P_cpapr.CPAPRConfig(
+            rank=2, strategy=strategy, combine=combine, shard_pi=shard_pi))
+        want = R_cpapr._ckpt_fingerprint(rt, R_cpapr.CPAPRConfig(
+            rank=2, strategy=rname, combine=combine, shard_pi=shard_pi))
+        assert got == want
+        seen.add(got)
+    assert len(seen) == 2  # shard_pi is hashed
+    other = "psum" if combine != "psum" else "auto"
+    assert P_cpapr._ckpt_fingerprint(pt, P_cpapr.CPAPRConfig(
+        rank=2, strategy=strategy, combine=other)) not in seen
+
+
 def test_recovery_event_roundtrips_through_checkpoint(tmp_path):
     ev = resilience.RecoveryEvent("demote_kernel", outer=3, mode=1,
                                   attempt=0, detail={"action": "a->b"})
@@ -269,7 +303,7 @@ CUDA_CASES = {
     "torch-device-assert": (lambda tp, mp: RuntimeError(
         "CUDA error: device-side assert triggered"), None),
     "not-ported": (lambda tp, mp: resilience.NotPortedError(
-        "strategy 'sharded' is not ported yet: ROADMAP A8"), None),
+        "strategy 'grid' is not ported yet: ROADMAP A8b (grid)"), None),
 }
 
 
