@@ -149,6 +149,35 @@ Phases (any failure exits nonzero before the last line):
     tensor with skewed row blocks ``rebalance_every=1`` records exactly
     the re-splits the nnz weights call for, and its killed and resumed
     solve keeps them.
+15. The N-D device grid (run after phase 14), on the phase 2 tensor at
+    256 x 256 with the local ``cuda`` kernels, N_SHARDS cells emulated:
+    (1) on every mode, the explicit grid (GRID_EXPLICIT: 1 x 4 on the
+    one-row-block modes 0 and 1, 2 x 2 on 2 and 3) and the one
+    ``choose_grid_shape`` picks at that blocking: ``phi_grid``,
+    ``krao_grid`` and ``phi_mu_grid`` launch B2/B3 exactly A*B times per
+    call and agree with ``local_strategy="blocked"`` within KERNEL_RTOL;
+    every cell's kernel window is exactly zero past its shard's real
+    rows and the grid-stacked B on its masked rows; one grid fused MU
+    step per shape as a CUDA-graph burst beside the unsharded ``cuda``
+    step and the S = N_SHARDS 1-D step, with each grid's
+    ``pad_fraction`` and ``grid_scatter_wire_bytes``.  (2) Counted
+    ``cpapr_mu(strategy="grid", n_shards=N_SHARDS)`` with
+    ``grid_shape=None`` (the solver's own per-mode pick; modes it cannot
+    grid warn and run unsharded) and with ``grid_shape=(1, 4)``: a mode
+    hook reads the launch counts, so each grid update must launch B2
+    A*B x (1 + inner) times and B1 never, each fallback update B2 once
+    and B1 per inner iteration; log-likelihoods within LOGLIK_RTOL of
+    phase 3's ``cuda`` and ``segment`` solves, no demotion, seconds per
+    sweep beside phases 3 and 14.  (3) A counted grid ``cp_als``: fits
+    within FIT_ATOL of ``segment``, B3 A*B per grid mode and 1 per
+    fallback mode per iteration.  (4) A (1, 1) ``make_grid_mesh`` on a
+    one-rank NCCL group within LOGLIK_RTOL of the emulated 1 x 1 solve.
+    (5) Ladder on: ``fail_oom(min_shards=3)`` and
+    ``fail_strategy("grid")`` each take the ``grid 2x2->sharded@2`` rung
+    once (the kernel fault after ``local cuda->blocked``), within
+    LOGLIK_RTOL of the clean 2 x 2 solve; a 1 x 4 solve killed and
+    resumed ends within LOGLIK_RTOL of the uninterrupted one with equal
+    counts and its checkpoint's ``mode_grids``.
 10. One launch per fused dense step: the device kernels of one
     ``phi_mu_dense`` call on the near-dense tensor's mode 0, counted with
     torch.profiler (last, so that no timed phase runs under its set-up):
@@ -156,11 +185,12 @@ Phases (any failure exits nonzero before the last line):
 
 The counted main-path solves of phases 3, 5 and 6 fail on any demotion
 (``recoveries`` must be empty): a ladder that quietly ran a plain
-strategy would otherwise pass as the kernel; so do phases 13's and
-14's.  Phases 7-9 and 11-14 print their own times.  The line before the
-last is the per-kernel JSON record (``launches`` from the counted runs
-of phases 3-7, ``service_launches`` from phase 13's, ``sharded_launches``
-from phase 14's); the last is
+strategy would otherwise pass as the kernel; so do phases 13's, 14's
+and 15's.  Phases 7-9 and 11-15 print their own times.  The line before
+the last is the per-kernel JSON record (``launches`` from the counted
+runs of phases 3-7, ``service_launches`` from phase 13's,
+``sharded_launches`` from phase 14's, ``grid_launches`` from phase
+15's); the last is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -211,7 +241,10 @@ HEURISTIC_REGRET_OPEN = 1.10  # phase 9: a regret above this is an open item
 PPA_ITERS = 5  # timed calls per perturbation (median), after 2 untimed
 KILL_AT = 3  # phases 11, 14: the sweep at whose start a solve is killed
 SHARD_COUNTS = (2, 4)  # phase 14.1's shard counts
-N_SHARDS = 4  # the shard count of phase 14's solves
+N_SHARDS = 4  # the shard count of phase 14's solves and phase 15's grids
+# phase 15.1's explicit grid per uber mode: the hub-sized modes 0 and 1
+# (one 256-row block each) can only split their nonzero stream
+GRID_EXPLICIT = {0: (1, 4), 1: (1, 4), 2: (2, 2), 3: (2, 2)}
 # phase 14.5's skewed tensor for rebalancing (the CPU tests' construction,
 # scaled): SKEW_SPARSE mode-0 row blocks of 8 rows with 2 nonzeros (one
 # grid step of 64 each), then 4 with SKEW_DENSE; the other modes' extents
@@ -2064,8 +2097,9 @@ def skewed_rebalance_part(dev, seed: int) -> None:
 
 
 def sharded_phase(t, init, mvs, layouts, res, ref, dev, seed: int,
-                  timing_iters: int) -> dict:
-    """Phase 14; returns the launch counts of its counted solves."""
+                  timing_iters: int) -> tuple:
+    """Phase 14; returns the launch counts of its counted solves and its
+    counted CP-APR solve."""
     t0 = time.perf_counter()
     sharded_kernel_phase(t, init, mvs, layouts, timing_iters)
     print(f"14.1 kernels per shard: {time.perf_counter() - t0:.1f} s")
@@ -2081,6 +2115,431 @@ def sharded_phase(t, init, mvs, layouts, res, ref, dev, seed: int,
     t0 = time.perf_counter()
     sharded_ladder_phase(t, init, layouts, sh, dev, seed)
     print(f"14.5 ladder, rebalance, resume: {time.perf_counter() - t0:.1f} s")
+    return launches, sh
+
+
+# ---------------------------------------------------------------------------
+# Phase 15: the N-D device-grid tier
+# ---------------------------------------------------------------------------
+
+
+def _grid_shapes(mv, lay) -> list:
+    """15.1's grid shapes of one mode: the explicit GRID_EXPLICIT one and
+    the one :func:`choose_grid_shape` picks at N_SHARDS from the mode's
+    skew at the layout's blocking (once where they are equal)."""
+    from repro_torch.core.layout import choose_grid_shape, mode_run_stats
+
+    chosen = choose_grid_shape(
+        mv.n_rows, lay.block_rows, RANK, N_SHARDS,
+        stats=mode_run_stats(mv.rows.cpu().numpy(), mv.n_rows))
+    explicit = GRID_EXPLICIT[mv.mode]
+    return [("explicit", explicit)] + (
+        [] if chosen == explicit else [("chosen", chosen)])
+
+
+def _grid_padding_zero(g, vals_cs, pi_cs, b) -> int:
+    """Every cell's B2 and B3 window (the kernels' own output) is exactly
+    zero past its shard's real rows, and the grid-stacked B is zero on
+    every masked row; returns the padding rows checked."""
+    import torch
+
+    from repro_torch.core import distributed as D
+
+    st = g.on(b.device)
+    b_own = D.grid_stack(g, b)
+    check(bool((b_own[~g.masks_on(b.device)[0]] == 0).all()),
+          f"grid {g.grid_a}x{g.grid_b}: a masked row of the grid-stacked B "
+          f"is not zero")
+    own = g.slayout.n_rb_shard * g.block_rows
+    padded = 0
+    for f in range(g.n_shards):
+        s = f // g.grid_b
+        b_win = b_own[s * g.grid_b:(s + 1) * g.grid_b].reshape(
+            g.own_rows_pad, -1)[:own]
+        real = int(g.slayout.rb_count[s]) * g.block_rows
+        args = (vals_cs[f], pi_cs[f], st.local_rows[f], st.grid_rb[f])
+        for w in (D._shard_window(g.slayout, 1e-10, "cuda", *args, b_win),
+                  D._shard_window(g.slayout, 0.0, "cuda", *args, None)):
+            check(bool((w[real:] == 0).all()),
+                  f"grid {g.grid_a}x{g.grid_b} cell {f}: a padding row of "
+                  f"the kernel's window is not exactly zero")
+        padded += own - real
+    torch.cuda.synchronize()
+    return padded
+
+
+def grid_kernel_phase(t, init, mvs, layouts, timing_iters: int) -> None:
+    """15.1: B2/B3 once per grid cell, against the plain blocked cells;
+    exact launch counts; exact-zero padding; one grid fused MU step per
+    shape as a CUDA-graph burst beside the unsharded ``cuda`` step and
+    the S = N_SHARDS 1-D step."""
+    import torch
+
+    from repro_torch.core import distributed as D
+    from repro_torch.core.layout import (
+        build_grid_layout,
+        owner_partition,
+        shard_blocked_layout,
+    )
+    from repro_torch.core.phi import (
+        expand_to_grid,
+        expand_to_layout,
+        expand_to_shards,
+        phi_mu_step,
+    )
+    from repro_torch.core.pi import pi_rows
+    from repro_torch.kernels.mttkrp import ops as mttkrp_ops
+    from repro_torch.kernels.phi import ops as phi_ops
+
+    dev = t.device
+    for n, (mv, lay) in enumerate(zip(mvs, layouts)):
+        pi = pi_rows(mv.sorted_idx, init.factors, n)
+        b = init.factors[n] * init.lam[None, :]
+        vals_e, pi_e = expand_to_layout(lay, mv.sorted_vals, pi)
+        steps = {"unsharded cuda": graph_ms(
+            lambda: phi_mu_step(mv.rows, mv.sorted_vals, pi, b, mv.n_rows,
+                                strategy="cuda", layout=lay, vals_e=vals_e,
+                                pi_e=pi_e, device=dev), timing_iters)}
+        if lay.n_row_blocks >= N_SHARDS:
+            sl = shard_blocked_layout(lay, N_SHARDS)
+            opart = owner_partition(sl)
+            vals_es, pi_es = expand_to_shards(sl, mv.sorted_vals, pi)
+            b_own1 = D.owner_stack(opart, b)
+            steps[f"1-D S={N_SHARDS}"] = graph_ms(
+                lambda: D.phi_mu_sharded_owner(sl, opart, vals_es, pi_es,
+                                               b_own1, local_strategy="cuda"),
+                timing_iters)
+        else:
+            steps[f"1-D S={N_SHARDS}"] = None  # falls back: one row block
+        for label, shape in _grid_shapes(mv, lay):
+            a, bc = shape
+            g = build_grid_layout(lay, shape)
+            vals_cs, pi_cs = expand_to_grid(g, mv.sorted_vals, pi)
+            want = {"B2": {"phi_blocked": a * bc, "phi_mu_blocked": 0},
+                    "B3": {"mttkrp_blocked": a * bc}}
+            calls = {
+                "phi_grid": ("B2", lambda loc: D.phi_grid(
+                    g, vals_cs, pi_cs, b, local_strategy=loc)),
+                "krao_grid": ("B3", lambda loc: D.krao_grid(
+                    g, vals_cs, pi_cs, local_strategy=loc)),
+                "phi_mu_grid": ("B2", lambda loc: D.phi_mu_grid(
+                    g, vals_cs, pi_cs, b, local_strategy=loc)),
+            }
+            worst = {}
+            for name, (kern, call) in calls.items():
+                phi_ops.reset_launch_counts()
+                mttkrp_ops.reset_launch_counts()
+                got = call("cuda")
+                torch.cuda.synchronize()
+                counted = (dict(phi_ops.launch_counts) if kern == "B2"
+                           else {"mttkrp_blocked":
+                                 mttkrp_ops.launch_counts["mttkrp_blocked"]})
+                check(counted == want[kern],
+                      f"mode {n} grid {a}x{bc} {name}: launches {counted}, "
+                      f"expected {want[kern]} (A*B = {a * bc})")
+                plain = call("blocked")
+                if name == "phi_mu_grid":
+                    e_v = errors(got[1].reshape(1), plain[1].reshape(1))
+                    check(e_v[2], f"mode {n} grid {a}x{bc}: the fused "
+                                  f"step's KKT value disagrees")
+                    got, plain = got[0], plain[0]
+                e = errors(got, plain)
+                worst[name] = e[0]
+                check(e[2], f"mode {n} grid {a}x{bc} {name}: the per-cell "
+                            f"{kern} result disagrees with the blocked cells")
+            padded = _grid_padding_zero(g, vals_cs, pi_cs, b)
+            b_own = D.grid_stack(g, b)
+            steps[f"grid {a}x{bc} ({label})"] = graph_ms(
+                lambda: D.phi_mu_grid_owner(g, vals_cs, pi_cs, b_own,
+                                            local_strategy="cuda"),
+                timing_iters)
+            print(f"mode {n} grid {a}x{bc} ({label}): cells "
+                  f"{g.n_shards}, nnz per cell {g.cell_nnz.tolist()}, grid "
+                  f"steps per cell {g.n_grid_cell}, pad_fraction "
+                  f"{g.pad_fraction:.4f} (unsharded {lay.pad_fraction:.4f}), "
+                  f"sub_rows {g.sub_rows}, grid_scatter_wire_bytes "
+                  f"{D.grid_scatter_wire_bytes(g, RANK):.0f} (1-D owner "
+                  f"scatter at S={N_SHARDS}: "
+                  f"{_owner_wire(lay, N_SHARDS):.0f}); B2/B3 per cell vs "
+                  f"blocked max abs err "
+                  + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+                  + f" (rtol {KERNEL_RTOL}, atol {KERNEL_ATOL}) ok; launches "
+                  f"{a * bc} per call; {padded} padding rows over the cells, "
+                  f"all exactly zero")
+        print(f"mode {n} fused MU step, device ms per step in a CUDA graph "
+              f"(graph_ms): " + ", ".join(
+                  f"{k} " + ("n/a (fewer row blocks than shards)" if v is None
+                             else f"{v:.4f} ms") for k, v in steps.items()))
+
+
+def _owner_wire(lay, s_count: int) -> float:
+    """The 1-D reduce-scatter's wire bytes at ``s_count`` shards, or nan
+    where the mode has fewer row blocks than shards."""
+    from repro_torch.core import distributed as D
+    from repro_torch.core.layout import owner_partition, shard_blocked_layout
+
+    if lay.n_row_blocks < s_count:
+        return float("nan")
+    return D.owner_scatter_wire_bytes(
+        owner_partition(shard_blocked_layout(lay, s_count)), RANK)
+
+
+def _grid_cfg(**kw):
+    """Phase 15's grid CP-APR config: default_policy's 256 x 256 blocking
+    on the local cuda kernels, N_SHARDS emulated cells."""
+    from repro_torch.core.cpapr import CPAPRConfig
+    from repro_torch.core.policy import PhiPolicy
+
+    base = dict(rank=RANK, max_outer=MAX_OUTER, max_inner=MAX_INNER,
+                strategy="grid", n_shards=N_SHARDS,
+                policy=PhiPolicy(strategy="cuda", block_nnz=256,
+                                 block_rows=256))
+    base.update(kw)
+    return CPAPRConfig(**base)
+
+
+def grid_solve_phase(t, init, res, ref, sh, grid_shape, dev):
+    """15.2: one counted grid CP-APR solve; returns it and its launches.
+
+    A mode hook snapshots the launch counts and the mode's grid before
+    every mode update: each grid update must launch B2 A*B x (1 + inner)
+    times and B1 never, each fallback update (a mode with fewer row
+    blocks than the grid's row axis warns and runs unsharded) B2 once
+    and B1 per inner iteration, and the implied inner counts must be the
+    solve's own."""
+    import warnings
+
+    import torch
+
+    from repro_torch.core import resilience
+    from repro_torch.core.cpapr import cpapr_mu
+    from repro_torch.kernels.phi import ops
+
+    events: list = []
+    grids: dict = {}
+
+    def snapshot(ctx):
+        events.append((ctx["mode"], ctx["strategy"], dict(ops.launch_counts)))
+        grids[ctx["mode"]] = ctx.get("grid")
+
+    resilience.register_mode_hook(snapshot)
+    try:
+        ops.reset_launch_counts()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            gr = cpapr_mu(t, RANK, init=init, device=dev,
+                          config=_grid_cfg(grid_shape=grid_shape))
+        torch.cuda.synchronize()
+        final = dict(ops.launch_counts)
+    finally:
+        resilience.unregister_mode_hook(snapshot)
+    fell_back = [str(w.message) for w in caught
+                 if "falling back" in str(w.message)]
+    label = f"grid_shape={grid_shape}"
+    print(f"grid solve ({label}, S={N_SHARDS}, cuda local kernels): "
+          f"{gr.n_outer} sweeps, inner iterations {gr.inner_iters}, "
+          f"launches {final}; per-mode grids {grids}; "
+          f"{len(fell_back)} fallback warnings: {fell_back}")
+    print(f"  kkt {gr.kkt_history}")
+    print(f"  loglik {gr.loglik_history}")
+    print(f"  seconds per sweep {gr.sweep_seconds} (phase 3's unsharded "
+          f"cuda {res.sweep_seconds}; phase 14's S={N_SHARDS} "
+          f"{sh.sweep_seconds})")
+    check(gr.recoveries is None, f"grid solve ({label}) recoveries or "
+                                 f"demotions: {gr.recoveries}")
+    n_fallback = sum(1 for g in grids.values() if g is None)
+    check(len(fell_back) == n_fallback,
+          f"{n_fallback} modes run unsharded but {len(fell_back)} warned")
+    per = _per_update_launches(events, final)
+    inner = []
+    for mode, strategy, b1, b2 in per:
+        g = grids[mode]
+        if g is not None:
+            cells = g[0] * g[1]
+            check(strategy == "grid" and b1 == 0 and b2 % cells == 0
+                  and b2 >= 2 * cells,
+                  f"grid mode {mode} {g} launched B1 {b1} and B2 {b2} times "
+                  f"in one update: not {cells} x (1 + inner) and no B1")
+            inner.append(b2 // cells - 1)
+        else:
+            check(strategy == "cuda" and b2 == 1 and b1 >= 1,
+                  f"fallback mode {mode} launched B1 {b1} and B2 {b2} times "
+                  f"in one update: not B2 once and B1 per inner iteration")
+            inner.append(b1)
+    sweeps = [sum(inner[k * t.ndim:(k + 1) * t.ndim])
+              for k in range(gr.n_outer)]
+    check(len(per) == gr.n_outer * t.ndim and sweeps == gr.inner_iters,
+          f"launches imply inner counts {sweeps}, the solve reports "
+          f"{gr.inner_iters}")
+    ll = gr.loglik_history
+    check(len(ll) == len(res.loglik_history) and monotone(ll)
+          and all(math.isfinite(x) for x in ll),
+          f"grid log-likelihood not finite and nondecreasing: {ll}")
+    for other, name in ((res, "cuda"), (ref, "segment")):
+        ll_err = max(abs(a - b) / abs(b)
+                     for a, b in zip(ll, other.loglik_history))
+        kkt_err = max(abs(a - b) / max(abs(b), 1e-30)
+                      for a, b in zip(gr.kkt_history, other.kkt_history))
+        print(f"grid ({label}) vs unsharded {name}: loglik max rel diff "
+              f"{ll_err:.3e} (rtol {LOGLIK_RTOL}), kkt max rel diff "
+              f"{kkt_err:.3e} (rtol {KKT_RTOL})")
+        check(ll_err <= LOGLIK_RTOL and kkt_err <= KKT_RTOL,
+              f"the grid solve ({label}) disagrees with the {name} solve")
+    return gr, {"phi_blocked": final["phi_blocked"],
+                "phi_mu_blocked": final["phi_mu_blocked"]}
+
+
+def grid_als_phase(t, init, dev) -> int:
+    """15.3: the counted grid CP-ALS (each mode's grid from
+    choose_grid_shape, as in the JAX package's ``cp_als``); returns its
+    B3 launches."""
+    import warnings
+
+    from repro_torch.core import resilience
+    from repro_torch.core.policy import PhiPolicy
+    from repro_torch.kernels.mttkrp import ops
+
+    cells: dict = {}
+
+    def grids(ctx):
+        cells[ctx["mode"]] = ctx["n_shards"] if ctx["strategy"] == "grid" \
+            else 1
+
+    kw = dict(n_shards=N_SHARDS,
+              policy=PhiPolicy(strategy="cuda", block_nnz=256,
+                               block_rows=256))
+    resilience.register_mode_hook(grids)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # the fallback modes warn
+            fits, spi, counted = timed_cp_als(t, init, "grid", dev,
+                                              counts=ops, **kw)
+    finally:
+        resilience.unregister_mode_hook(grids)
+    ref_fits, ref_spi, _ = timed_cp_als(t, init, "segment", dev)
+    launches = counted["mttkrp_blocked"]
+    want = ALS_ITERS * sum(cells[n] for n in range(t.ndim))
+    print(f"cp_als grid (S={N_SHARDS}, cuda local): fits {fits}, "
+          f"{spi:.6f} s per iteration, mttkrp_blocked launches {launches} "
+          f"(expected {want}: A*B per grid mode, 1 per fallback mode, per "
+          f"iteration; cells per mode {cells})")
+    print(f"cp_als segment: fits {ref_fits}, {ref_spi:.6f} s per iteration")
+    check(launches == want, f"mttkrp_blocked launched {launches} times, "
+                            f"expected {want}")
+    check(all(math.isfinite(f) for f in fits), f"non-finite fit: {fits}")
+    fit_err = max(abs(a - b) for a, b in zip(fits, ref_fits))
+    print(f"cp_als grid vs segment: fit max abs diff {fit_err:.3e} "
+          f"(atol {FIT_ATOL})")
+    check(fit_err <= FIT_ATOL, "grid CP-ALS fits disagree")
+    return launches
+
+
+def grid_nccl_phase(t, init, dev) -> None:
+    """15.4: a (1, 1) grid on a one-rank NCCL process group against the
+    emulated 1 x 1 grid solve."""
+    import torch.distributed as dist
+
+    from repro_torch.core.cpapr import cpapr_mu
+    from repro_torch.core.distributed import make_grid_mesh
+
+    rdv = _work_path("nccl_grid_rendezvous")
+    dist.init_process_group("nccl", init_method=f"file://{rdv}", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_grid_mesh(1, 1)
+        emu = cpapr_mu(t, RANK, init=init, device=dev,
+                       config=_grid_cfg(n_shards=1, grid_shape=(1, 1)))
+        got = cpapr_mu(t, RANK, init=init, device=dev,
+                       config=_grid_cfg(n_shards=None, grid_shape=(1, 1),
+                                        mesh=mesh))
+        err = _ll_rel(got, emu)
+        print(f"one-rank NCCL (1, 1) grid mesh: inner iterations "
+              f"{got.inner_iters} (emulated {emu.inner_iters}), final loglik "
+              f"{got.loglik_history[-1]} (emulated {emu.loglik_history[-1]}, "
+              f"rel diff {err:.3e}, rtol {LOGLIK_RTOL}), seconds per sweep "
+              f"{got.sweep_seconds}")
+        check(got.recoveries is None and emu.recoveries is None
+              and err <= LOGLIK_RTOL,
+              "the NCCL grid-mesh solve disagrees with the emulated one")
+    finally:
+        dist.destroy_process_group()
+
+
+def grid_ladder_phase(t, init, gr, dev) -> None:
+    """15.5: the grid rungs with the ladder on, and a killed and resumed
+    grid solve."""
+    import warnings
+
+    from repro_torch.core import resilience
+    from repro_torch.core.cpapr import cpapr_mu
+    from repro_torch.testing import faults
+
+    warnings.filterwarnings("ignore", message="grid CP-APR mode")
+    runs = {
+        "oom": (lambda: faults.fail_oom(mode=2, min_shards=3, times=1),
+                [("demote_oom", 2, "grid 2x2->sharded@2")]),
+        "kernel": (lambda: faults.fail_strategy(strategy="grid", mode=3,
+                                                times=2),
+                   [("demote_kernel", 3, "local cuda->blocked"),
+                    ("demote_kernel", 3, "grid 2x2->sharded@2")]),
+    }
+    clean = cpapr_mu(t, RANK, init=init, device=dev,
+                     config=_grid_cfg(grid_shape=(2, 2)))
+    for label, (fault, want) in runs.items():
+        with fault() as budget:
+            r = cpapr_mu(t, RANK, init=init, device=dev,
+                         config=_grid_cfg(grid_shape=(2, 2),
+                                          max_demotions=4))
+        rec = [(e.kind, e.mode, e.detail.get("action"))
+               for e in r.recoveries or []]
+        err = _ll_rel(r, clean)
+        print(f"injected {label} fault on a 2x2 grid mode: recoveries {rec}, "
+              f"inner iterations {r.inner_iters}, final loglik rel diff from "
+              f"the clean 2x2 solve {err:.3e} (rtol {LOGLIK_RTOL})")
+        check(budget == [0] and rec == want,
+              f"the {label} fault did not take the grid rung as {want}: "
+              f"{rec}")
+        check(err <= LOGLIK_RTOL, f"the {label}-demoted solve disagrees")
+    ck = _work_path("uber_grid.ckpt")
+    cfg = _grid_cfg(grid_shape=(1, 4), checkpoint_every=1,
+                    checkpoint_path=ck)
+    resumed = _killed_then_resumed(t, cfg, dev, init=init)
+    grids = resilience.load_checkpoint(ck)["mode_grids"]
+    err = _ll_rel(resumed, gr)
+    print(f"1x4 grid uber solve killed at sweep {KILL_AT} and resumed: inner "
+          f"iterations {resumed.inner_iters} (uninterrupted "
+          f"{gr.inner_iters}), checkpointed mode_grids {grids}, final loglik "
+          f"rel diff {err:.3e} (rtol {LOGLIK_RTOL})")
+    check(resumed.inner_iters == gr.inner_iters and err <= LOGLIK_RTOL
+          and grids == [[1, 4]] * t.ndim,
+          "the resumed grid solve disagrees with the uninterrupted one")
+
+
+def grid_phase(t, init, mvs, layouts, res, ref, sh, dev,
+               timing_iters: int) -> dict:
+    """Phase 15; returns the launch counts of its counted solves."""
+    t0 = time.perf_counter()
+    grid_kernel_phase(t, init, mvs, layouts, timing_iters)
+    print(f"15.1 kernels per grid cell: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launches: dict = {}
+    solves = {}
+    for grid_shape in (None, (1, 4)):
+        gr, counted = grid_solve_phase(t, init, res, ref, sh, grid_shape,
+                                       dev)
+        solves[grid_shape] = gr
+        for k, v in counted.items():
+            launches[k] = launches.get(k, 0) + v
+    print(f"15.2 grid CP-APR: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launches["mttkrp_blocked"] = grid_als_phase(t, init, dev)
+    print(f"15.3 grid CP-ALS: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    grid_nccl_phase(t, init, dev)
+    print(f"15.4 one-rank NCCL grid mesh: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    grid_ladder_phase(t, init, solves[(1, 4)], dev)
+    print(f"15.5 grid ladder, resume: {time.perf_counter() - t0:.1f} s")
     return launches
 
 
@@ -2256,9 +2715,15 @@ def main(argv=None) -> int:
 
     # --- phase 14: the row-sharded multi-device tier ------------------------
     t0 = time.perf_counter()
-    sharded_launches = sharded_phase(t, init, mvs, layouts, res, ref, dev,
-                                     args.seed, TIMING_ITERS)
+    sharded_launches, sh = sharded_phase(t, init, mvs, layouts, res, ref,
+                                         dev, args.seed, TIMING_ITERS)
     print(f"phase 14 (sharded tier): {time.perf_counter() - t0:.1f} s")
+
+    # --- phase 15: the N-D device-grid tier --------------------------------
+    t0 = time.perf_counter()
+    grid_launches = grid_phase(t, init, mvs, layouts, res, ref, sh, dev,
+                               TIMING_ITERS)
+    print(f"phase 15 (grid tier): {time.perf_counter() - t0:.1f} s")
 
     # --- phase 10: one launch per fused dense step ------------------------
     one_launch_phase(*dense_first)
@@ -2274,6 +2739,7 @@ def main(argv=None) -> int:
          "replaces": KERNELS[k][1], "launches": launches[k],
          "service_launches": service_launches.get(k, 0),
          "sharded_launches": sharded_launches.get(k, 0),
+         "grid_launches": grid_launches.get(k, 0),
          "max_abs_err": v["max_abs_err"], "max_rel_err": v["max_rel_err"],
          "ms": v["ms"], "plain_ms": v["plain_ms"], "bound_ms": v["bound_ms"],
          "bound_by": "bytes"

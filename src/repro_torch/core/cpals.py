@@ -20,6 +20,9 @@ recorded in that list; without one every failure propagates.
 one combine per mode update (:mod:`repro_torch.core.distributed`; the
 MTTKRP kernel B3 once per shard for a ``cuda`` policy), over a
 ``torch.distributed`` mesh (``mesh=``) or emulated (``n_shards``).
+``strategy="grid"`` runs each mode's MTTKRP over an ``A x B`` device grid
+chosen per mode by :func:`repro_torch.core.layout.choose_grid_shape` (B3
+once per cell), emulated on one device as in the JAX package.
 """
 from __future__ import annotations
 
@@ -35,7 +38,7 @@ from .cpapr import (
     mode_pi_gather,
     resolve_mode_policies,
 )
-from .layout import ShardedBlockedLayout
+from .layout import GridLayout, ShardedBlockedLayout
 from .phi import canonical_strategy, krao_reduce_rows
 from .pi import pi_rows
 from .sparse_tensor import KTensor, ModeView, SparseTensor, random_ktensor, sort_mode
@@ -91,7 +94,8 @@ def _make_als_mode_update(mv: ModeView, rank: int, strategy: str, layout,
     every shard (``local_strategy``) and meets in one ``combine``; with
     ``pig`` the shards build their own Khatri-Rao rows."""
     shard_kw = dict(mesh=mesh, local_strategy=local_strategy, pi_gather=pig,
-                    combine=combine) if strategy == "sharded" else {}
+                    combine=combine) \
+        if strategy in ("sharded", "grid") else {}
     n = mv.mode
 
     def gram_solve(factors, m_n):
@@ -163,7 +167,7 @@ def cp_als(
     that fails on the card is never replaced unseen by its plain version.
     """
     dev = resolve_device(device)
-    canonical_strategy(strategy)  # grid raises here
+    canonical_strategy(strategy)  # an unknown one raises before any work
     t = t.to(dev)
     if validate:
         resilience.validate_decomposition_inputs(t, rank, where="cp_als")
@@ -220,13 +224,14 @@ def cp_als(
             try:
                 if resilience.have_hooks():
                     sl = layouts[n]
-                    sharded = isinstance(sl, ShardedBlockedLayout)
+                    multi = isinstance(sl, (ShardedBlockedLayout,
+                                            GridLayout))
                     resilience.fire_mode_hooks({
                         "outer": it + 1, "mode": n,
                         "strategy": strategies[n],
-                        "local": locals_[n] if sharded else strategies[n],
+                        "local": locals_[n] if multi else strategies[n],
                         "combine": combine,
-                        "n_shards": int(sl.n_shards) if sharded else 1})
+                        "n_shards": int(sl.n_shards) if multi else 1})
                 factors[n] = updates[n](factors)
             except Exception as e:
                 _demote_mode(n, it, e)

@@ -49,9 +49,15 @@ rows and gathers the factor once per mode update.  A mode with fewer
 row blocks than shards warns and runs unsharded.  ``shard_pi`` builds
 each shard's Π rows from the factor rows it touches and
 ``rebalance_every`` re-splits the shards by nonzero count between
-sweeps.  The N-D grid (``grid_shape``, ``strategy="grid"``) belongs to a
-later slice and raises :class:`NotPortedError` (ROADMAP A8b) before
-anything runs, so the ladder never sees it.
+sweeps.  ``strategy="grid"`` refines each mode's row shards over an
+``A x B`` device grid (``grid_shape``, else :func:`choose_grid_shape` per
+mode from its skew): the inner loop carries each cell's owned
+(sub_rows, R) tile and meets in the column all-gather + reduce-scatter
+pair, B2 once per cell per call for a ``cuda`` policy; the factor is
+gathered once per mode update.  A mode that cannot be gridded warns and
+runs unsharded, and the ladder's grid rung drops a grid mode to its
+``A``-shard 1-D split (a single-row-shard grid to the single-device
+local path).
 """
 from __future__ import annotations
 
@@ -70,11 +76,14 @@ from .convert import policy_from_dict
 from .dense import DenseModeData, build_dense_mode
 from .layout import (
     BlockedLayout,
+    GridLayout,
     ModeStats,
     ShardedBlockedLayout,
     ShardedPiGather,
     build_blocked_layout,
+    build_grid_layout,
     build_shard_pi_gather,
+    choose_grid_shape,
     mode_run_stats,
     owner_partition,
     rebalance_shards,
@@ -85,6 +94,7 @@ from .phi import (
     _dense_operands,
     _sharded_block_rows,
     canonical_strategy,
+    expand_to_grid,
     expand_to_layout,
     expand_to_shards,
     expand_vals_to_shards,
@@ -93,7 +103,7 @@ from .phi import (
 )
 from .pi import pi_rows
 from .policy import PhiPolicy, default_policy
-from .resilience import STRATEGY_DEMOTION, NotPortedError, RecoveryEvent
+from .resilience import STRATEGY_DEMOTION, RecoveryEvent
 from .sparse_tensor import KTensor, ModeView, SparseTensor, random_ktensor, sort_mode
 
 __all__ = [
@@ -142,8 +152,11 @@ class CPAPRConfig:
     # Shard count for the emulated sharded path (ignored when mesh is set;
     # defaults to torch.cuda.device_count() on the card, 1 on the CPU).
     n_shards: "int | None" = None
-    # strategy="grid": the N-D device grid, a later slice (ROADMAP A8b);
-    # must stay unset.
+    # strategy="grid": the (A, B) device grid of every mode; None picks it
+    # per mode from the mode's row skew (choose_grid_shape), where a hub
+    # mode takes any wire saving of the O(I_n * R / A) column combine.  A
+    # grid run's mesh is a ("row", "col") mesh of that shape
+    # (make_grid_mesh).
     grid_shape: "tuple | None" = None
     # strategy="sharded": compute Pi rows shard-locally from the factor
     # rows each shard touches (ShardedPiGather) instead of materializing
@@ -306,7 +319,9 @@ def hoisted_mode_inputs(mv: ModeView, factors, strategy: str, layout,
     if pig is not None:
         return None, expand_vals_to_shards(layout, mv.sorted_vals), None
     pi = pi_rows(mv.sorted_idx, factors, mv.mode)
-    if strategy == "sharded" and layout is not None:
+    if strategy == "grid" and isinstance(layout, GridLayout):
+        vals_e, pi_e = expand_to_grid(layout, mv.sorted_vals, pi)
+    elif strategy == "sharded" and layout is not None:
         vals_e, pi_e = expand_to_shards(layout, mv.sorted_vals, pi)
     elif strategy in ("blocked", "cuda") and layout is not None:
         vals_e, pi_e = expand_to_layout(layout, mv.sorted_vals, pi)
@@ -413,6 +428,10 @@ def effective_mode_combine(combine: str, strategy: str, layout, rank: int,
     factor element width in bytes.
     """
     eff = resolve_combine(combine, strategy)
+    if isinstance(layout, GridLayout):
+        # the 1-D or N-D pick happened when the layout was resolved
+        # (choose_grid_shape); a grid has exactly one combine
+        return "reduce_scatter"
     if (combine == "auto" and eff == "reduce_scatter"
             and isinstance(layout, ShardedBlockedLayout)):
         from .distributed import preferred_combine  # deferred: avoids cycle
@@ -460,6 +479,45 @@ def _shard_mode_layout(mv: ModeView, pol: PhiPolicy, n_shards: int) -> tuple:
     return "sharded", shard_blocked_layout(base, n_shards)
 
 
+def _grid_mode_layout(mv: ModeView, pol: PhiPolicy, n_shards: int,
+                      grid_shape, rank: int, stats=None) -> tuple:
+    """(strategy, layout, grid_shape) for one grid mode.
+
+    ``grid_shape=None`` picks the (A, B) split from the mode's skew
+    (:func:`choose_grid_shape`: hub modes take any wire saving, uniform
+    modes need a decisive one, else the degenerate (S, 1) keeps the 1-D
+    combine bitwise).  Warns and falls back to the single-device
+    blocked/cuda path when the blocking cannot honour the grid.
+    """
+    import warnings
+
+    base = _blocked_layout(mv, pol)
+    shape = grid_shape
+    if shape is None:
+        shape = choose_grid_shape(mv.n_rows, pol.block_rows, rank, n_shards,
+                                  stats=stats,
+                                  itemsize=mv.sorted_vals.element_size())
+    a, b = int(shape[0]), int(shape[1])
+    local = _local_of(pol)
+    if a > base.n_row_blocks:
+        warnings.warn(
+            f"grid CP-APR mode {mv.mode}: row axis {a} requested but the "
+            f"layout has only {base.n_row_blocks} row blocks; falling back "
+            f"to the single-device {local} path for this mode",
+            stacklevel=4,
+        )
+        return local, base, None
+    try:
+        return "grid", build_grid_layout(base, (a, b)), (a, b)
+    except ValueError as e:
+        warnings.warn(
+            f"grid CP-APR mode {mv.mode}: cannot honour grid {a}x{b} ({e}); "
+            f"falling back to the single-device {local} path for this mode",
+            stacklevel=4,
+        )
+        return local, base, None
+
+
 def _dense_mode_data(mv: ModeView, shape) -> DenseModeData:
     """Densify one mode into its :class:`DenseModeData` (the dense tier's
     counterpart of a blocked layout), on the mode view's device."""
@@ -491,6 +549,7 @@ def resolve_mode_policies(
     mesh: "object | None" = None,
     n_shards: "int | None" = None,
     combine: str = "auto",
+    grid_shape: "tuple | None" = None,
     device="cpu",
 ) -> tuple:
     """Per-mode ``(strategies, layouts, policies, locals)`` lists.
@@ -505,7 +564,11 @@ def resolve_mode_policies(
     the card and 1 on the CPU) from the policy's blocking (default 256 x
     :func:`repro_torch.core.phi._sharded_block_rows`), or warn and run
     unsharded with fewer row blocks than shards; ``locals`` holds each
-    mode's shard-local flavour (``blocked`` or ``cuda``).
+    mode's shard-local flavour (``blocked`` or ``cuda``).  ``grid`` modes
+    get a :class:`GridLayout` of ``grid_shape`` (else
+    :func:`choose_grid_shape`'s per mode, from the mode's skew and the
+    shard count), or warn and run unsharded when the mode cannot be
+    gridded.
 
     ``policy="auto"`` asks the autotuner (``autotuner``, else a default
     :class:`repro_torch.perf.autotune.Autotuner`) per mode, from the
@@ -513,7 +576,9 @@ def resolve_mode_policies(
     tuner sends to the dense tier runs it while the others keep their
     sparse winners.  A sharded mode is tuned per shard
     (``Autotuner.policy_for_sharded_mode``, keyed on ``/shards=`` and the
-    requested combine).  As in the JAX package, a served policy's
+    requested combine); a grid mode's row shards are tuned the same way
+    and cached under ``/grid=AxB`` when ``B > 1``.  As in the JAX
+    package, a served policy's
     strategy is adopted unchecked: an unknown one fails inside the mode's
     first update, where the degradation ladder's ``policy`` rung catches
     it when the caller has turned the ladder on.
@@ -525,11 +590,23 @@ def resolve_mode_policies(
     if policy != "auto":
         strategy = canonical_strategy(strategy)
     sharded = strategy == "sharded"
+    grid = strategy == "grid"
     eff_combine = resolve_combine(combine, strategy)
     eff_shards = (_effective_shard_count(mesh, n_shards,
                                          torch.device(device))
-                  if sharded else 1)
+                  if sharded or grid else 1)
     strategies = [strategy] * n_modes
+    # per-mode (A, B): grid_shape pins it; None asks choose_grid_shape
+    grid_shapes: list = [None] * n_modes
+
+    def _pick_grid_shape(mv, stats_n):
+        if grid_shape is not None:
+            return tuple(int(x) for x in grid_shape)
+        return choose_grid_shape(
+            mv.n_rows, _sharded_block_rows(mv.n_rows, eff_shards), rank,
+            eff_shards, stats=stats_n,
+            itemsize=mv.sorted_vals.element_size())
+
     if policy == "auto":
         from ..perf.autotune import Autotuner  # deferred: avoids a cycle
 
@@ -540,7 +617,19 @@ def resolve_mode_policies(
         for n, mv in enumerate(mvs):
             pi_n = pi_rows(mv.sorted_idx, factors, n)
             b_n = factors[n] * lam[None, :]
-            if sharded:
+            if grid:
+                # the whole mode's skew picks the (A, B) split, which then
+                # keys the row-shard tuning (/grid=AxB)
+                stats_n = mode_run_stats(mv.rows.detach().cpu().numpy(),
+                                         mv.n_rows,
+                                         row_width=_mode_row_width(shape, n))
+                grid_shapes[n] = _pick_grid_shape(mv, stats_n)
+                pol, _ = tuner.policy_for_sharded_mode(
+                    mv.rows, mv.sorted_vals, pi_n, b_n, n_rows=mv.n_rows,
+                    rank=rank, n_shards=int(grid_shapes[n][0]),
+                    combine=eff_combine, grid=grid_shapes[n],
+                    n_modes=n_modes)
+            elif sharded:
                 # per-shard stats are computed on the shard slices inside
                 # policy_for_sharded_mode
                 pol, _ = tuner.policy_for_sharded_mode(
@@ -562,13 +651,17 @@ def resolve_mode_policies(
                 layouts[n] = _dense_mode_data(mv, shape)
             elif pol.strategy in ("blocked", "cuda", "pallas"):
                 locals_[n] = _local_of(pol)
-                if sharded:
+                if grid:
+                    strategies[n], layouts[n], grid_shapes[n] = \
+                        _grid_mode_layout(mv, pol, eff_shards,
+                                          grid_shapes[n], rank)
+                elif sharded:
                     strategies[n], layouts[n] = _shard_mode_layout(
                         mv, pol, eff_shards)
                 else:
                     layouts[n] = _blocked_layout(mv, pol)
         return strategies, layouts, policies, locals_
-    if sharded:
+    if sharded or grid:
         for n, mv in enumerate(mvs):
             if isinstance(policy, PhiPolicy):
                 pol = policy
@@ -579,8 +672,16 @@ def resolve_mode_policies(
             policies[n] = pol
             if canonical_strategy(pol.strategy) in ("blocked", "cuda"):
                 locals_[n] = _local_of(pol)
-                strategies[n], layouts[n] = _shard_mode_layout(
-                    mv, pol, eff_shards)
+                if grid:
+                    stats_n = mode_run_stats(mv.rows.detach().cpu().numpy(),
+                                             mv.n_rows)
+                    strategies[n], layouts[n], grid_shapes[n] = \
+                        _grid_mode_layout(mv, pol, eff_shards,
+                                          _pick_grid_shape(mv, stats_n),
+                                          rank)
+                else:
+                    strategies[n], layouts[n] = _shard_mode_layout(
+                        mv, pol, eff_shards)
             else:  # an unblocked user policy has nothing to shard
                 strategies[n] = canonical_strategy(pol.strategy)
         return strategies, layouts, policies, locals_
@@ -601,15 +702,26 @@ def resolve_mode_policies(
 
 
 def _restore_mode_layouts(mvs, strategies, policies, shape,
-                          mode_shards=None, rb_bounds=None) -> list:
+                          mode_shards=None, rb_bounds=None,
+                          mode_grids=None) -> list:
     """Rebuild per-mode layouts exactly as checkpointed: tuned block sizes
-    from the saved policies, densified dense-tier modes, and sharded modes
-    on their saved (possibly rebalanced) row-block cuts, so the resumed
-    schedule is the killed run's."""
+    from the saved policies, densified dense-tier modes, sharded modes on
+    their saved (possibly rebalanced) row-block cuts and grid modes on
+    their saved ``[A, B]`` (``mode_grids``), so the resumed schedule is
+    the killed run's."""
     layouts: list = [None] * len(mvs)
     rb_bounds = rb_bounds or {}
     for n, mv in enumerate(mvs):
-        if strategies[n] == "dense":
+        if strategies[n] == "grid":
+            g = (mode_grids or [None] * len(mvs))[n]
+            if g is None:
+                raise resilience.CheckpointError(
+                    f"checkpoint names strategy 'grid' for mode {n} but "
+                    f"records no grid shape (mode_grids missing)")
+            layouts[n] = build_grid_layout(
+                _blocked_layout(mv, policies[n]), (int(g[0]), int(g[1])),
+                bounds=rb_bounds.get(n))
+        elif strategies[n] == "dense":
             layouts[n] = _dense_mode_data(mv, shape)
         elif strategies[n] == "sharded":
             layouts[n] = shard_blocked_layout(
@@ -659,18 +771,54 @@ def _hoisted_steps(mv: ModeView, cfg: CPAPRConfig, strategy: str, layout,
     return phi, step
 
 
+def _stacked_mode_update(mv: ModeView, cfg: CPAPRConfig, strategy: str,
+                         layout, pig, stack, unstack, phi_own, step_own):
+    """Per-mode solve on a stacked carry: the scooch and the fused inner
+    MU loop run on ``stack``'s per-device slices of the factor, whose
+    only per-iteration combine is the one inside ``step_own``; the factor
+    is reassembled by ``unstack`` (gathered, under a mesh) and
+    renormalized once, after the inner loop.  ``phi_own`` and
+    ``step_own``, both ``(vals_e, pi_e, b_own, factors)``, are the
+    stacked Φ and fused step."""
+    n = mv.mode
+
+    def update(factors, lam):
+        _, vals_e, pi_e = hoisted_mode_inputs(mv, factors, strategy, layout,
+                                              pig)
+        a_own = stack(factors[n])
+        lam_b = lam[None, None, :]
+
+        # --- scooch: lift inadmissible zeros (Alg. 1 line 3), local
+        phi0_own = phi_own(vals_e, pi_e, a_own * lam_b, factors)
+        s = torch.where((a_own < cfg.kappa_tol) & (phi0_own > 1.0),
+                        torch.full_like(a_own, cfg.kappa),
+                        torch.zeros_like(a_own))
+        b_own = (a_own + s) * lam_b
+
+        # --- fused inner MU loop (Alg. 1 lines 5-8), stacked carry
+        i, viol = 0, math.inf
+        while i < cfg.max_inner and viol > cfg.tol:
+            b_own, viol_t = step_own(vals_e, pi_e, b_own, factors)
+            viol = float(viol_t)  # host sync: decides the next iteration
+            i += 1
+
+        # --- renormalize (Alg. 1 lines 9-10) on the reassembled factor
+        b = unstack(b_own)
+        lam_new = torch.sum(b, dim=0)
+        a_new = b / torch.clamp_min(lam_new, cfg.eps)
+        return a_new, lam_new, viol, i
+
+    return update
+
+
 def _make_owner_mode_update(mv: ModeView, cfg: CPAPRConfig,
                             layout: ShardedBlockedLayout, local_strategy: str,
                             pig: "ShardedPiGather | None"):
-    """Owner-partitioned per-mode solve (the reduce-scatter epilogue).
-
-    The scooch and the fused inner MU loop run on the owner-stacked
-    (S, own_rows, R) carry (under a mesh, this rank's (1, own_rows, R)
-    slot): each inner iteration's only combine is a reduce-scatter whose
-    per-device output is the owned O(I_n * R / S) slice.  The factor is
-    reassembled (gathered, under a mesh) and renormalized once, after the
-    inner loop.
-    """
+    """Owner-partitioned per-mode solve (the reduce-scatter epilogue): the
+    owner-stacked (S, own_rows, R) carry (under a mesh, this rank's
+    (1, own_rows, R) slot), each inner iteration's only combine a
+    reduce-scatter whose per-device output is the owned O(I_n * R / S)
+    slice."""
     from .distributed import (  # deferred: avoids import cycle
         owner_stack,
         owner_unstack,
@@ -678,42 +826,47 @@ def _make_owner_mode_update(mv: ModeView, cfg: CPAPRConfig,
         phi_sharded_owner,
     )
 
-    n = mv.mode
     mesh = cfg.mesh
     opart = owner_partition(layout)
 
-    def update(factors, lam):
-        a_n = factors[n]
-        _, vals_e, pi_e = hoisted_mode_inputs(mv, factors, "sharded", layout,
-                                              pig)
-        kw = dict(eps=cfg.eps, mesh=mesh, local_strategy=local_strategy,
-                  pi_gather=pig, factors=factors if pig is not None else None)
-        a_own = owner_stack(opart, a_n, mesh)
-        lam_b = lam[None, None, :]
+    def kw(factors):
+        return dict(eps=cfg.eps, mesh=mesh, local_strategy=local_strategy,
+                    pi_gather=pig,
+                    factors=factors if pig is not None else None)
 
-        # --- scooch: lift inadmissible zeros (Alg. 1 line 3), owner-local
-        phi0_own = phi_sharded_owner(layout, opart, vals_e, pi_e,
-                                     a_own * lam_b, **kw)
-        s = torch.where((a_own < cfg.kappa_tol) & (phi0_own > 1.0),
-                        torch.full_like(a_own, cfg.kappa),
-                        torch.zeros_like(a_own))
-        b_own = (a_own + s) * lam_b
+    return _stacked_mode_update(
+        mv, cfg, "sharded", layout, pig,
+        stack=lambda a: owner_stack(opart, a, mesh),
+        unstack=lambda b: owner_unstack(opart, b, mesh),
+        phi_own=lambda v, p, b, f: phi_sharded_owner(layout, opart, v, p, b,
+                                                     **kw(f)),
+        step_own=lambda v, p, b, f: phi_mu_sharded_owner(
+            layout, opart, v, p, b, tol=cfg.tol, **kw(f)))
 
-        # --- fused inner MU loop (Alg. 1 lines 5-8), owner-stacked carry
-        i, viol = 0, math.inf
-        while i < cfg.max_inner and viol > cfg.tol:
-            b_own, viol_t = phi_mu_sharded_owner(layout, opart, vals_e, pi_e,
-                                                 b_own, tol=cfg.tol, **kw)
-            viol = float(viol_t)  # host sync: decides the next iteration
-            i += 1
 
-        # --- renormalize (Alg. 1 lines 9-10) on the reassembled factor
-        b = owner_unstack(opart, b_own, mesh)
-        lam_new = torch.sum(b, dim=0)
-        a_new = b / torch.clamp_min(lam_new, cfg.eps)
-        return a_new, lam_new, viol, i
+def _make_grid_mode_update(mv: ModeView, cfg: CPAPRConfig,
+                           glayout: GridLayout, local_strategy: str):
+    """Grid-partitioned per-mode solve (the N-D combine epilogue): the
+    grid-stacked (A*B, sub_rows, R) carry (under a mesh, this rank's
+    (1, sub_rows, R) cell), each inner iteration's only combine the
+    column all-gather + reduce-scatter pair: ``2 (B-1) * sub_rows * R``
+    wire per device, O(I_n * R / A)."""
+    from .distributed import (  # deferred: avoids import cycle
+        grid_stack,
+        grid_unstack,
+        phi_grid_owner,
+        phi_mu_grid_owner,
+    )
 
-    return update
+    mesh = cfg.mesh
+    kw = dict(eps=cfg.eps, mesh=mesh, local_strategy=local_strategy)
+    return _stacked_mode_update(
+        mv, cfg, "grid", glayout, None,
+        stack=lambda a: grid_stack(glayout, a, mesh),
+        unstack=lambda b: grid_unstack(glayout, b, mesh),
+        phi_own=lambda v, p, b, f: phi_grid_owner(glayout, v, p, b, **kw),
+        step_own=lambda v, p, b, f: phi_mu_grid_owner(
+            glayout, v, p, b, tol=cfg.tol, **kw))
 
 
 def _make_mode_update(mv: ModeView, cfg: CPAPRConfig, strategy: str,
@@ -725,8 +878,11 @@ def _make_mode_update(mv: ModeView, cfg: CPAPRConfig, strategy: str,
     sharded mode whose effective combine is the reduce-scatter runs
     :func:`_make_owner_mode_update`'s owner-stacked loop; with ``pig``
     (``shard_pi``) no (nnz, R) Π is built: each shard gathers the factor
-    rows its nonzeros touch and rebuilds its Π rows per inner iteration."""
+    rows its nonzeros touch and rebuilds its Π rows per inner iteration.
+    A grid mode runs :func:`_make_grid_mode_update`'s grid-stacked loop."""
     n = mv.mode
+    if strategy == "grid" and isinstance(layout, GridLayout):
+        return _make_grid_mode_update(mv, cfg, layout, local_strategy)
     if (strategy == "sharded" and isinstance(layout, ShardedBlockedLayout)
             and effective_mode_combine(
                 cfg.combine, strategy, layout, cfg.rank,
@@ -760,15 +916,6 @@ def _make_mode_update(mv: ModeView, cfg: CPAPRConfig, strategy: str,
     return update
 
 
-def _check_supported(cfg: CPAPRConfig) -> None:
-    """Raise :class:`NotPortedError` for the grid options, before anything
-    runs: the ladder must never "demote" one into a run."""
-    if cfg.grid_shape is not None:
-        raise NotPortedError("cpapr_mu: grid_shape is not ported yet: "
-                             "ROADMAP A8b (grid)")
-    canonical_strategy(cfg.strategy)  # grid raises here
-
-
 def _reference_name(strategy: str) -> str:
     return _REFERENCE_NAME.get(strategy, strategy)
 
@@ -799,8 +946,7 @@ def _ckpt_fingerprint(t: SparseTensor, cfg: CPAPRConfig) -> str:
 def _load_resume_state(path: str, fp: str, recoveries: list) -> "dict | None":
     """The verified state of checkpoint ``path``, or None after
     quarantining a corrupt or mismatched file (recorded in
-    ``recoveries``).  A sound checkpoint of grid modes raises
-    :class:`NotPortedError` and stays where it is."""
+    ``recoveries``)."""
     try:
         state = resilience.load_checkpoint(path)
         if state.get("fingerprint") != fp:
@@ -814,10 +960,6 @@ def _load_resume_state(path: str, fp: str, recoveries: list) -> "dict | None":
             "checkpoint_corrupt", outer=0,
             detail={"error": str(e), "quarantined": qpath}))
         return None
-    if any(g is not None for g in state.get("mode_grids") or []):
-        raise NotPortedError(f"{path}: the checkpoint's modes run on a "
-                             f"device grid, which is not ported yet: "
-                             f"ROADMAP A8b (grid)")
     state["strategies"] = [canonical_strategy(s)
                            for s in state["strategies"]]
     state["locals"] = [canonical_strategy(s)
@@ -850,7 +992,7 @@ def cpapr_mu(
     cfg = config or CPAPRConfig(rank=rank)
     if cfg.rank != rank:
         raise ValueError(f"cpapr_mu: rank={rank} but config.rank={cfg.rank}")
-    _check_supported(cfg)
+    canonical_strategy(cfg.strategy)  # an unknown one raises before any work
     t = t.to(dev)
     if cfg.validate:
         resilience.validate_decomposition_inputs(t, rank, where="cpapr_mu")
@@ -881,7 +1023,7 @@ def cpapr_mu(
             mvs, rank=rank, strategy=cfg.strategy, policy=cfg.policy,
             shape=t.shape, factors=factors, lam=lam,
             autotuner=cfg.autotuner, mesh=cfg.mesh, n_shards=cfg.n_shards,
-            combine=cfg.combine, device=dev)
+            combine=cfg.combine, grid_shape=cfg.grid_shape, device=dev)
         # per-mode effective config: the kappa ladder and the combine
         # demotion mutate these without touching the caller's cfg
         mode_cfgs = [cfg] * n_modes
@@ -898,7 +1040,8 @@ def cpapr_mu(
                      for k, v in resume_state.get("rb_bounds", {}).items()}
         layouts = _restore_mode_layouts(
             mvs, strategies, policies, t.shape,
-            list(resume_state["mode_shards"]), rb_bounds)
+            list(resume_state["mode_shards"]), rb_bounds,
+            resume_state.get("mode_grids"))
         # the per-mode kappa ladder and combine demotions, so the resumed
         # trajectory matches the killed run even mid-recovery
         mode_cfgs = [dataclasses.replace(cfg, kappa=float(k), combine=c)
@@ -928,11 +1071,14 @@ def cpapr_mu(
 
     def _ctx(outer: int, n: int) -> dict:
         sl = layouts[n]
-        sharded = isinstance(sl, ShardedBlockedLayout)
-        return {"outer": outer, "mode": n, "strategy": strategies[n],
-                "local": locals_[n] if sharded else strategies[n],
-                "combine": mode_cfgs[n].combine,
-                "n_shards": int(sl.n_shards) if sharded else 1}
+        multi = isinstance(sl, (ShardedBlockedLayout, GridLayout))
+        ctx = {"outer": outer, "mode": n, "strategy": strategies[n],
+               "local": locals_[n] if multi else strategies[n],
+               "combine": mode_cfgs[n].combine,
+               "n_shards": int(sl.n_shards) if multi else 1}
+        if isinstance(sl, GridLayout):
+            ctx["grid"] = (int(sl.grid_a), int(sl.grid_b))
+        return ctx
 
     def _invoke(outer: int, n: int, factors, lam):
         """One raw mode-update attempt: fault hooks, the update, the
@@ -978,11 +1124,46 @@ def cpapr_mu(
             return f"shards {sl.n_shards}->{new_s}"
         return None
 
+    def _grid_to_1d(n: int) -> str:
+        """The grid -> 1-D rung (STRATEGY_DEMOTION["grid"]): keep the row
+        shard split, drop the column axis.  Under a grid mesh the 1-D
+        path runs on its ``"row"`` sub-mesh (every column then computes
+        the same sharded result).  A single-row-shard grid leaves the
+        multi-device family for the single-device local path."""
+        sl = layouts[n]
+        if sl.grid_a > 1:
+            strategies[n], layouts[n] = "sharded", sl.slayout
+            if mode_cfgs[n].mesh is not None:
+                mode_cfgs[n] = dataclasses.replace(
+                    mode_cfgs[n], mesh=mode_cfgs[n].mesh["row"])
+            return (f"grid {sl.grid_a}x{sl.grid_b}->"
+                    f"{STRATEGY_DEMOTION['grid']}@{sl.grid_a}")
+        strategies[n], layouts[n] = locals_[n], sl.slayout.base
+        return f"grid 1x{sl.grid_b}->single-device {locals_[n]}"
+
+    def _demote_grid(n: int, kind: str) -> "str | None":
+        """The grid mode's rungs: a kernel or policy failure first demotes
+        the cell-local cuda -> blocked, then the grid -> 1-D rung; an OOM
+        takes the grid -> 1-D rung at once (the replicated B window
+        shrinks to the owned slice), further OOMs then halve the shards."""
+        if kind in ("kernel", "policy") and locals_[n] == "cuda":
+            locals_[n] = "blocked"
+            return "local cuda->blocked"
+        if kind in ("kernel", "policy", "oom"):
+            return _grid_to_1d(n)
+        return None
+
     def _demote(n: int, kind: str, exc: BaseException) -> "dict | None":
         """Take one degradation-ladder rung for mode ``n``; returns the
         recovery detail, or None when no rung applies (the error then
-        propagates).  The grid rungs wait for ROADMAP A8b."""
+        propagates)."""
         detail = {"error": f"{type(exc).__name__}: {exc}"[:200]}
+        if strategies[n] == "grid" and isinstance(layouts[n], GridLayout):
+            action = _demote_grid(n, kind)
+            if action is None:
+                return None
+            detail["action"] = action
+            return detail
         if strategies[n] == "sharded" \
                 and isinstance(layouts[n], ShardedBlockedLayout):
             action = _demote_sharded(n, kind)
@@ -1085,10 +1266,20 @@ def cpapr_mu(
             return  # every rank holds the same state: rank 0 writes it
         rb_bounds: dict = {}
         shards: list = []
+        grids: list = []
         locals_out: list = []
         for n in range(n_modes):
             sl = layouts[n]
-            if isinstance(sl, ShardedBlockedLayout):
+            grids.append([int(sl.grid_a), int(sl.grid_b)]
+                         if isinstance(sl, GridLayout) else None)
+            if isinstance(sl, GridLayout):
+                # the 1-D row cuts the grid refines and its (A, B): resume
+                # rebuilds the same cell schedule
+                rb_bounds[str(n)] = ([int(x) for x in sl.slayout.rb_start]
+                                     + [int(sl.slayout.base.n_row_blocks)])
+                shards.append(int(sl.grid_a))
+                locals_out.append(_reference_name(locals_[n]))
+            elif isinstance(sl, ShardedBlockedLayout):
                 rb_bounds[str(n)] = ([int(x) for x in sl.rb_start]
                                      + [int(sl.base.n_row_blocks)])
                 shards.append(int(sl.n_shards))
@@ -1116,7 +1307,7 @@ def cpapr_mu(
             "combines": [mc.combine for mc in mode_cfgs],
             "kappas": [float(mc.kappa) for mc in mode_cfgs],
             "mode_shards": shards,
-            "mode_grids": [None] * n_modes,
+            "mode_grids": grids,
             "rb_bounds": rb_bounds,
             "lam": lam,
             "factors": factors,

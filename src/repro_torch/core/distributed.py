@@ -21,12 +21,22 @@ Two families, as in the JAX package's ``repro.core.distributed``:
   zero, so both combines add exact zeros: they are bitwise equal to each
   other and to the one-device emulation in any summation order.
 
+* **The N-D grid tier** (``strategy="grid"``): a row-shard split refined
+  over an ``A x B`` device grid (:class:`repro_torch.core.layout.GridLayout`):
+  each of the ``A`` row shards' nonzero streams is cut into ``B`` cells,
+  each cell reduces a partial shard window (B2 or B3 on the card), and
+  per inner iteration the column group all-gathers the B window and
+  reduce-scatters the partial windows into each cell's owned
+  (sub_rows, R) tile: O(I_n * R / A) wire per device.  There is no
+  collective over the row group inside an inner iteration.
+
 * **dist_cpapr_mu**: nonzeros split over the data axes, factor columns
   over ``"model"``; two collectives per inner iteration (the model-axis
   sum of the partial dot products, the data-axis sum of Φ).
 
 The mesh is a :class:`torch.distributed.device_mesh.DeviceMesh` with the
 JAX package's axis names: ``("data",)`` for the sharded tier,
+``("row", "col")`` for the grid (:func:`make_grid_mesh`),
 ``("data", "model")`` or ``("pod", "data", "model")`` for
 ``dist_cpapr_mu``.  Every rank runs the same call on the same inputs and
 keeps only its own shard (its rank in the data group), so the JAX
@@ -50,6 +60,7 @@ import torch
 import torch.distributed as dist
 
 from .layout import (
+    GridLayout,
     OwnerPartition,
     ShardedBlockedLayout,
     ShardedPiGather,
@@ -64,12 +75,21 @@ __all__ = [
     "DistCPAPRConfig",
     "PHI_COMBINES",
     "dist_cpapr_mu",
+    "grid_scatter_wire_bytes",
+    "grid_stack",
+    "grid_unstack",
+    "krao_grid",
     "krao_sharded",
+    "make_grid_mesh",
     "make_phi_mesh",
     "mesh_device_count",
     "owner_scatter_wire_bytes",
     "owner_stack",
     "owner_unstack",
+    "phi_grid",
+    "phi_grid_owner",
+    "phi_mu_grid",
+    "phi_mu_grid_owner",
     "phi_mu_sharded",
     "phi_mu_sharded_owner",
     "phi_sharded",
@@ -618,6 +638,266 @@ def phi_mu_sharded_owner(slayout: ShardedBlockedLayout,
                            pi_gather, factors, b_own, mesh, False)
     return _owner_combined(slayout, opart, window, b_own, float(tol), mesh,
                            True)
+
+
+# ---------------------------------------------------------------------------
+# N-D grid combine: all-gather + reduce-scatter over the column axis
+# ---------------------------------------------------------------------------
+
+
+def make_grid_mesh(grid_a: int, grid_b: int,
+                   device_type: "str | None" = None):
+    """2-D ``("row", "col")`` mesh over the ``A*B`` ranks of the process
+    group, which must be initialized with world size ``A*B``.  Rank ``r``
+    holds grid cell ``r = s*B + c``, the row-major flat order of every
+    ``(A*B, ...)`` cell array.  ``device_type`` defaults to ``"cuda"``
+    (NCCL); pass ``"cpu"`` for a ``gloo`` group."""
+    a, b = int(grid_a), int(grid_b)
+    if not (dist.is_available() and dist.is_initialized()):
+        raise ValueError(
+            f"grid {a}x{b} needs an initialized torch.distributed process "
+            "group (one rank per grid cell)")
+    world = dist.get_world_size()
+    if a * b != world:
+        raise ValueError(
+            f"grid {a}x{b} needs {a * b} ranks, the process group has "
+            f"{world}")
+    from torch.distributed.device_mesh import init_device_mesh
+
+    return init_device_mesh(device_type or "cuda", (a, b),
+                            mesh_dim_names=("row", "col"))
+
+
+def _validate_grid_mesh(glayout: GridLayout, mesh) -> None:
+    if mesh is None:
+        return
+    names = tuple(mesh.mesh_dim_names or ())
+    if names != ("row", "col"):
+        raise ValueError(
+            f"grid mesh must have axes ('row', 'col'), got {names}")
+    shape = (int(mesh.size(0)), int(mesh.size(1)))
+    if shape != (glayout.grid_a, glayout.grid_b):
+        raise ValueError(
+            f"mesh shape {shape} does not match the layout's grid "
+            f"{(glayout.grid_a, glayout.grid_b)}")
+    if mesh_device_count(mesh) != dist.get_world_size():
+        raise ValueError(
+            f"the grid mesh covers {mesh_device_count(mesh)} of the process "
+            f"group's {dist.get_world_size()} ranks; its KKT max needs all")
+
+
+def _grid_cell(glayout: GridLayout, mesh) -> tuple:
+    """(column group, row group, this rank's flat cell index) on a grid
+    mesh."""
+    s = mesh.get_local_rank("row")
+    c = mesh.get_local_rank("col")
+    return (mesh.get_group("col"), mesh.get_group("row"),
+            s * glayout.grid_b + c)
+
+
+def grid_stack(glayout: GridLayout, b: torch.Tensor,
+               mesh=None) -> torch.Tensor:
+    """Grid-stacked (A*B, sub_rows, R) form of a full (n_rows, R) block.
+
+    Cell ``(s, c)`` owns rows ``[row_start[s] + c*sub_rows, +sub_rows)``
+    of the combine window; rows past its shard's real count are masked to
+    zero (they only ever multiply padding slots), as :func:`owner_stack`
+    masks them.  Under a mesh only this rank's cell comes back, shape
+    (1, sub_rows, R).
+    """
+    opart = owner_partition(glayout.slayout)
+    b_buf = pad_rows(b, glayout.stack_rows)
+    mask = glayout.masks_on(b.device)[0]
+    sub = glayout.sub_rows
+    if mesh is not None:
+        _, _, f = _grid_cell(glayout, mesh)
+        s, c = divmod(f, glayout.grid_b)
+        r0 = int(opart.row_start[s]) + c * sub
+        cell = b_buf[r0:r0 + sub]
+        return torch.where(mask[f][:, None], cell, cell.new_zeros(()))[None]
+    slots = torch.stack([b_buf[int(s0):int(s0) + glayout.own_rows_pad]
+                         for s0 in opart.row_start])
+    cells = slots.reshape(glayout.n_shards, sub, b.shape[-1])
+    return torch.where(mask[:, :, None], cells, cells.new_zeros(()))
+
+
+def grid_unstack(glayout: GridLayout, stacked: torch.Tensor,
+                 mesh=None) -> torch.Tensor:
+    """Reassemble the full (n_rows, R) block from grid-stacked slices.
+
+    The once-per-mode-update factor gather of the grid epilogue: under a
+    mesh ``stacked`` is this rank's (1, sub_rows, R) cell, gathered over
+    the column group into its shard's window and then over the row group
+    into the whole block.
+    """
+    opart = owner_partition(glayout.slayout)
+    r = stacked.shape[-1]
+    pad = glayout.own_rows_pad
+    if mesh is not None:
+        col_group, row_group, _ = _grid_cell(glayout, mesh)
+        window = stacked.new_empty((pad, r))
+        _all_gather(window, stacked.reshape(glayout.sub_rows, r).contiguous(),
+                    col_group)
+        stacked = stacked.new_empty((glayout.grid_a * pad, r))
+        _all_gather(stacked, window, row_group)
+    shards = stacked.reshape(glayout.grid_a, pad, r)
+    if pad == opart.own_rows and np.all(np.asarray(opart.row_count)
+                                        == opart.own_rows):
+        return shards.reshape(glayout.grid_a * pad, r)[: opart.n_rows]
+    out = stacked.new_zeros((glayout.stack_rows, r))
+    for s in range(glayout.grid_a):
+        cnt = int(opart.row_count[s])
+        s0 = int(opart.row_start[s])
+        out[s0:s0 + cnt] = shards[s, :cnt]
+    return out[: opart.n_rows]
+
+
+def grid_scatter_wire_bytes(glayout: GridLayout, rank: int,
+                            itemsize: int = 4) -> float:
+    """Per-device ring wire bytes of one grid combine iteration: the
+    all-gather of the (own_rows_pad, R) B window plus the reduce-scatter
+    of the combined window over the column axis, ``2 (B-1) * sub_rows *
+    R`` elements: O(I_n * R / A) instead of the 1-D O(I_n * R)."""
+    if glayout.grid_b <= 1:
+        return 0.0
+    return float(
+        2 * (glayout.grid_b - 1) * glayout.sub_rows * rank * itemsize)
+
+
+def _grid_combined(glayout: GridLayout, vals_cs, pi_cs, b_own, eps: float,
+                   tol: float, mesh, local_strategy: str, fused: bool,
+                   plain: bool):
+    """Grid combine core: column all-gather + reduce-scatter.
+
+    Each cell reduces its slice of its shard's nonzero stream into a
+    *partial* shard window (B2, or B3 for ``plain``, on the card); the
+    column reduce-scatter sums the ``B`` partials and hands each cell its
+    owned (sub_rows, R) tile.  The B window is rebuilt from the column's
+    carry tiles by an all-gather.  No row-axis collective exists: shard
+    windows never overlap on real rows.
+
+    ``fused=False`` returns the grid-stacked combined window; ``plain``
+    drops the model weighting (MTTKRP, ``b_own`` None).  ``fused=True``
+    runs the owner-local MU step and returns ``(b_own', viol)``, the KKT
+    max met in one all-reduce with MAX over the whole mesh.  Without a
+    mesh the same schedule runs on one device, summing each column's
+    partials in cell order: bitwise the ring reduce-scatter at B <= 2
+    (two addends commute), equal up to summation order beyond.  Under a
+    mesh ``b_own`` and the result are this rank's (1, sub_rows, R) cell;
+    ``vals_cs``/``pi_cs`` hold every cell, and the rank reads its own.
+    """
+    slayout = glayout.slayout
+    bdim, sub = glayout.grid_b, glayout.sub_rows
+    pad = glayout.own_rows_pad
+    own_rows = owner_partition(slayout).own_rows
+    device = vals_cs.device
+    st = glayout.on(device)
+    smask = glayout.masks_on(device)[1]
+
+    def window(f, b_win):
+        win = _shard_window(slayout, eps, local_strategy, vals_cs[f],
+                            pi_cs[f], st.local_rows[f], st.grid_rb[f], b_win)
+        return pad_rows(torch.where(smask[f][:, None], win,
+                                    win.new_zeros(())), pad)
+
+    if mesh is None:
+        parts = []
+        for s in range(glayout.grid_a):
+            b_win = None if plain else \
+                b_own[s * bdim:(s + 1) * bdim].reshape(pad, -1)[:own_rows]
+            win = None
+            for c in range(bdim):
+                w = window(s * bdim + c, b_win)
+                win = w if win is None else win + w
+            parts.append(win.reshape(bdim, sub, -1))
+        stacked = torch.cat(parts)
+        if not fused:
+            return stacked
+        viol = torch.max(torch.abs(torch.minimum(b_own, 1.0 - stacked)))
+        return torch.where(viol > tol, b_own * stacked, b_own), viol
+
+    col_group, _, f = _grid_cell(glayout, mesh)
+    b_c = None
+    b_win = None
+    if not plain:
+        b_c = b_own if b_own.shape[0] == 1 else b_own[f:f + 1]
+        b_full = b_c.new_empty((pad, b_c.shape[-1]))
+        _all_gather(b_full, b_c[0].contiguous(), col_group)
+        b_win = b_full[:own_rows]
+    win = window(f, b_win)
+    owned = win.new_empty((sub, win.shape[1]))
+    _reduce_scatter(owned, win.contiguous(), col_group)
+    owned = owned[None]
+    if not fused:
+        return owned
+    viol = torch.max(torch.abs(torch.minimum(b_c, 1.0 - owned)))
+    viol = _all_reduce(viol.clone(), None, dist.ReduceOp.MAX)
+    return torch.where(viol > tol, b_c * owned, b_c), viol
+
+
+def phi_grid(glayout: GridLayout, vals_cs, pi_cs, b, eps: float = 1e-10,
+             mesh=None, local_strategy: str = "blocked") -> torch.Tensor:
+    """Φ^(n) over an ``A x B`` nonzero grid: (n_rows, R).  Inputs from
+    :func:`repro_torch.core.phi.expand_to_grid`; the combine is the column
+    all-gather + reduce-scatter pair, and the full result is reassembled
+    here."""
+    _validate_grid_mesh(glayout, mesh)
+    stacked = _grid_combined(glayout, vals_cs, pi_cs,
+                             grid_stack(glayout, b, mesh), float(eps), 0.0,
+                             mesh, _local_strategy(local_strategy), False,
+                             False)
+    return grid_unstack(glayout, stacked, mesh)
+
+
+def krao_grid(glayout: GridLayout, vals_cs, kr_cs, mesh=None,
+              local_strategy: str = "blocked") -> torch.Tensor:
+    """Grid-partitioned plain Khatri-Rao reduction (MTTKRP): the cells of
+    :func:`phi_grid` without the model weighting (B3 once per cell on the
+    card), so the all-gather drops out and only the column reduce-scatter
+    remains."""
+    _validate_grid_mesh(glayout, mesh)
+    stacked = _grid_combined(glayout, vals_cs, kr_cs, None, 0.0, 0.0, mesh,
+                             _local_strategy(local_strategy), False, True)
+    return grid_unstack(glayout, stacked, mesh)
+
+
+def phi_mu_grid(glayout: GridLayout, vals_cs, pi_cs, b, eps: float = 1e-10,
+                tol: float = 1e-4, mesh=None,
+                local_strategy: str = "blocked") -> tuple:
+    """Fused grid MU step ``(B', viol)`` on the full factor.  The masked
+    rows hold B = Φ = 0: they add nothing to the KKT max or to ``B * Φ``.
+    The solver's inner loop keeps the grid-stacked carry instead
+    (:func:`phi_mu_grid_owner`)."""
+    _validate_grid_mesh(glayout, mesh)
+    b_own, viol = _grid_combined(glayout, vals_cs, pi_cs,
+                                 grid_stack(glayout, b, mesh), float(eps),
+                                 float(tol), mesh,
+                                 _local_strategy(local_strategy), True, False)
+    return grid_unstack(glayout, b_own, mesh), viol
+
+
+def phi_grid_owner(glayout: GridLayout, vals_cs, pi_cs, b_own,
+                   eps: float = 1e-10, mesh=None,
+                   local_strategy: str = "blocked") -> torch.Tensor:
+    """Grid-stacked combined Φ (A*B, sub_rows, R), not reassembled;
+    ``b_own`` is the grid-stacked B (:func:`grid_stack`).  The solver's
+    scooch step consumes this form."""
+    _validate_grid_mesh(glayout, mesh)
+    return _grid_combined(glayout, vals_cs, pi_cs, b_own, float(eps), 0.0,
+                          mesh, _local_strategy(local_strategy), False, False)
+
+
+def phi_mu_grid_owner(glayout: GridLayout, vals_cs, pi_cs, b_own,
+                      eps: float = 1e-10, tol: float = 1e-4, mesh=None,
+                      local_strategy: str = "blocked") -> tuple:
+    """Grid-partitioned fused MU step ``(b_own', viol)``, no gather: the
+    loop-carry form of the grid epilogue.  The solver carries the
+    grid-stacked tiles across inner iterations and reassembles the factor
+    once per mode update with :func:`grid_unstack`."""
+    _validate_grid_mesh(glayout, mesh)
+    return _grid_combined(glayout, vals_cs, pi_cs, b_own, float(eps),
+                          float(tol), mesh, _local_strategy(local_strategy),
+                          True, False)
 
 
 # ---------------------------------------------------------------------------

@@ -23,8 +23,11 @@ contiguous row-block shards (:class:`ShardedBlockedLayout`,
 :func:`shard_blocked_layout`, :func:`rebalance_shards`), assigns each
 shard ownership of its window of the combine buffer
 (:class:`OwnerPartition`) and maps each shard's nonzeros to the factor
-rows they touch (:class:`ShardedPiGather`); all host numpy, array-equal
-to the JAX package's.
+rows they touch (:class:`ShardedPiGather`).  The N-D grid tier refines
+a row-shard split over an ``A x B`` device grid (:class:`GridLayout`,
+:func:`build_grid_layout`, :func:`choose_grid_shape`): each shard's
+nonzero stream is cut into ``B`` cells.  All host numpy, array-equal to
+the JAX package's.
 """
 from __future__ import annotations
 
@@ -38,14 +41,18 @@ import torch
 
 __all__ = [
     "BlockedLayout",
+    "GridLayout",
     "LayoutTensors",
     "ModeStats",
     "OwnerPartition",
     "ShardedBlockedLayout",
     "ShardedPiGather",
     "build_blocked_layout",
+    "build_grid_layout",
     "build_shard_pi_gather",
+    "choose_grid_shape",
     "fill_stats",
+    "grid_factor_pairs",
     "mode_run_stats",
     "owner_partition",
     "pad_rows",
@@ -698,6 +705,268 @@ def _build_owner_partition(slayout: ShardedBlockedLayout) -> OwnerPartition:
         row_start=row_start,
         row_count=row_count,
         rb_start=tuple(int(x) for x in slayout.rb_start),
+    )
+
+
+# ---------------------------------------------------------------------------
+# N-D grid layout: nonzeros over an (A x B) device grid
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class GridLayout:
+    """Nonzeros partitioned over an ``A x B`` device grid.
+
+    Ballard, Knight and Rouse (arXiv 1708.07401) show that the 1-D
+    row-block split cannot meet the MTTKRP communication lower bound at
+    high device counts: its combine moves O(I_n * R) per device however
+    many devices share the work.  The grid split takes the bound's shape:
+    rows are cut into ``A`` contiguous row-block shards (the ``"row"``
+    mesh axis) and each shard's sorted nonzero stream into ``B``
+    contiguous *cells* (the ``"col"`` axis).  Each device then owns an
+    O(I_n * R / (A*B)) slice of the factor, the per-iteration combine is
+    an all-gather plus a reduce-scatter over the size-``B`` column axis,
+    and the combine's wire per device is ``2 (B-1) * sub_rows * R`` =
+    O(I_n * R / A) instead of the 1-D O(I_n * R).
+
+    A cell's stream slice is a contiguous run of its shard's grid steps,
+    padded with all-dummy steps so that every one of the shard's
+    ``n_rb_shard`` row blocks is visited (the kernels' invariant) and
+    ``grid_rb`` stays non-decreasing.  A ``B = 1`` grid is therefore
+    bitwise the 1-D sharded schedule.
+
+    Attributes:
+      slayout:      the ``A``-shard 1-D layout the grid refines.
+      grid_a:       row-axis size A (row-block shards).
+      grid_b:       column-axis size B (stream cells per shard).
+      n_grid_cell:  uniform grid steps per cell (max over cells, padded).
+      sub_rows:     rows of one device's owned factor slice,
+                    ``ceil(own_rows / B)``.
+      own_rows_pad: ``B * sub_rows``: a shard's padded row window as the
+                    column collectives see it.
+      stack_rows:   rows the factor is padded to before owner slicing
+                    (``row_start[-1] + own_rows_pad``).
+      cell_nnz:     (A*B,) int64 real nonzeros per cell (balance metric).
+      gather:       (A*B, n_grid_cell*block_nnz) int64 into the sorted
+                    stream; cell (s, c) at flat index ``s*B + c``.
+      valid:        (A*B, n_grid_cell*block_nnz) bool; False for padding.
+      local_rows:   (A*B, n_grid_cell*block_nnz) int32 row within block.
+      grid_rb:      (A*B, n_grid_cell) int32 shard-local row block per
+                    step (non-decreasing, covering [0, n_rb_shard)).
+      pad_fraction: overall padding overhead across all cells.
+    """
+
+    slayout: ShardedBlockedLayout
+    grid_a: int
+    grid_b: int
+    n_grid_cell: int
+    sub_rows: int
+    own_rows_pad: int
+    stack_rows: int
+    cell_nnz: np.ndarray
+    gather: np.ndarray
+    valid: np.ndarray
+    local_rows: np.ndarray
+    grid_rb: np.ndarray
+    pad_fraction: float
+    _device_copies: dict = dataclasses.field(default_factory=dict,
+                                             repr=False)
+
+    @property
+    def n_shards(self) -> int:
+        return self.grid_a * self.grid_b
+
+    @property
+    def block_nnz(self) -> int:
+        return self.slayout.block_nnz
+
+    @property
+    def block_rows(self) -> int:
+        return self.slayout.block_rows
+
+    @property
+    def n_rows(self) -> int:
+        return self.slayout.n_rows
+
+    @property
+    def n_rb_shard(self) -> int:
+        return self.slayout.n_rb_shard
+
+    def masks(self) -> np.ndarray:
+        """(A*B, sub_rows) bool: True on really-owned rows of each
+        device's owned slice (cell (s, c) owns rows ``[c*sub_rows,
+        (c+1)*sub_rows)`` of shard s's padded row window)."""
+        opart = owner_partition(self.slayout)
+        k = np.arange(self.sub_rows)[None, :]
+        c = np.tile(np.arange(self.grid_b), self.grid_a)[:, None]
+        cnt = np.repeat(opart.row_count, self.grid_b)[:, None]
+        return (c * self.sub_rows + k) < cnt
+
+    def shard_masks(self) -> np.ndarray:
+        """(A*B, own_rows) bool: each cell's copy of its shard's real-row
+        mask over the unpadded shard window (what a cell's window is
+        masked with before the column reduce-scatter)."""
+        return np.repeat(owner_partition(self.slayout).masks(), self.grid_b,
+                         axis=0)
+
+    def on(self, device) -> LayoutTensors:
+        """The stacked (A*B, ...) index arrays as tensors on ``device``
+        (cached)."""
+        return _layout_tensors(self, device)
+
+    def masks_on(self, device) -> tuple:
+        """(:meth:`masks`, :meth:`shard_masks`) as bool tensors on
+        ``device`` (cached, so a captured CUDA graph copies nothing from
+        the host)."""
+        key = f"masks:{torch.device(device)}"
+        m = self._device_copies.get(key)
+        if m is None:
+            m = (torch.as_tensor(self.masks(), device=device),
+                 torch.as_tensor(self.shard_masks(), device=device))
+            self._device_copies[key] = m
+        return m
+
+
+def grid_factor_pairs(n_shards: int) -> list:
+    """All ``(A, B)`` with ``A * B == n_shards`` (A >= 1, B >= 1)."""
+    n = int(n_shards)
+    return [(a, n // a) for a in range(1, n + 1) if n % a == 0]
+
+
+def choose_grid_shape(n_rows: int, block_rows: int, rank: int,
+                      n_shards: int, stats: "ModeStats | None" = None,
+                      itemsize: int = 4) -> tuple:
+    """Wire-minimal ``(A, B)`` grid shape for one mode, from its skew.
+
+    Models the combine's wire per device: the 1-D path (``B = 1``) pays
+    the owner reduce-scatter's ``(S-1) * own_rows * R``, an ``A x B``
+    grid ``2 (B-1) * ceil(own_rows_A / B) * R`` for the column
+    all-gather and reduce-scatter.  A hub mode (one row owning more than
+    a quarter of the nonzeros, ``dup_bin <= 1``) cannot be balanced by a
+    row split, only the column split shares the hub's work, so skewed
+    modes take any wire advantage; near-uniform modes stay 1-D unless
+    the grid at least halves the wire (two collectives per inner
+    iteration cost latency too).  Modes with fewer row blocks than A
+    take shapes that fit; ``(S, 1)`` fits whenever 1-D does.
+    """
+    s = int(n_shards)
+    if s <= 1:
+        return (max(s, 1), 1)
+    n_rb = max(-(-int(n_rows) // int(block_rows)), 1)
+    br = int(block_rows)
+
+    def wire(a: int, b: int) -> float:
+        own = -(-n_rb // a) * br
+        if b <= 1:
+            return float((s - 1) * own * rank * itemsize)
+        sub = -(-own // b)
+        return float(2 * (b - 1) * sub * rank * itemsize)
+
+    feasible = [(a, b) for a, b in grid_factor_pairs(s) if a <= n_rb]
+    if not feasible:
+        return (s, 1)
+    best = min(feasible, key=lambda ab: (wire(*ab), ab[1]))
+    if best[1] == 1:
+        return best
+    hub = stats is not None and stats.nnz > 0 and stats.dup_bin <= 1
+    if not hub and wire(*best) > 0.5 * wire(s, 1):
+        return (s, 1)
+    return best
+
+
+def build_grid_layout(layout: BlockedLayout, grid_shape: "Sequence[int]",
+                      bounds: "Sequence[int] | None" = None) -> GridLayout:
+    """Partition a blocked layout over an ``(A, B)`` device grid.
+
+    Rows split into ``A`` contiguous row-block shards (exactly
+    :func:`shard_blocked_layout`, honouring ``bounds``); each shard's
+    grid-step stream then splits into ``B`` contiguous cells balanced by
+    real nonzeros per step.  Raises ``ValueError`` when a shard has fewer
+    grid steps than ``B`` (every cell must own at least one step).
+    """
+    a, b = (int(x) for x in grid_shape)
+    if a < 1 or b < 1:
+        raise ValueError(f"grid_shape must be >= (1, 1), got {(a, b)}")
+    slayout = shard_blocked_layout(layout, a, bounds=bounds)
+    bn = slayout.block_nnz
+    n_rb_shard = slayout.n_rb_shard
+    n_gs = slayout.n_grid_shard
+    if b > n_gs:
+        raise ValueError(
+            f"grid_b={b} exceeds grid steps per shard ({n_gs}); "
+            "use a smaller block_nnz or a narrower grid"
+        )
+
+    # each shard's contiguous step -> cell split, balanced by real
+    # nonzeros per step
+    step_nnz = slayout.valid.reshape(a, n_gs, bn).sum(axis=2)
+    cell_cuts = []
+    for s in range(a):
+        w = step_nnz[s].astype(np.float64)
+        if w.sum() <= 0.0:
+            w = np.ones(n_gs)
+        cell_cuts.append(_split_row_blocks(w, b))
+
+    # a cell visits every one of its shard's n_rb_shard row blocks (dummy
+    # steps before and after its own), so every kernel output window is
+    # initialized and grid_rb stays non-decreasing
+    spans = np.zeros((a, b, 2), np.int64)  # (rb_lo, rb_hi) per cell
+    steps = np.zeros((a, b), np.int64)
+    for s in range(a):
+        for c in range(b):
+            c0, c1 = cell_cuts[s][c], cell_cuts[s][c + 1]
+            rb_lo = int(slayout.grid_rb[s, c0])
+            rb_hi = int(slayout.grid_rb[s, c1 - 1])
+            spans[s, c] = (rb_lo, rb_hi)
+            steps[s, c] = rb_lo + (c1 - c0) + (n_rb_shard - 1 - rb_hi)
+    n_grid_cell = int(steps.max())
+
+    slot = n_grid_cell * bn
+    gather = np.zeros((a * b, slot), np.int64)
+    valid = np.zeros((a * b, slot), bool)
+    local_rows = np.zeros((a * b, slot), np.int32)
+    grid_rb = np.zeros((a * b, n_grid_cell), np.int32)
+    cell_nnz = np.zeros(a * b, np.int64)
+    for s in range(a):
+        for c in range(b):
+            f = s * b + c
+            c0, c1 = cell_cuts[s][c], cell_cuts[s][c + 1]
+            rb_lo, rb_hi = (int(x) for x in spans[s, c])
+            pre = np.arange(rb_lo, dtype=np.int32)
+            real = slayout.grid_rb[s, c0:c1].astype(np.int32)
+            post = np.arange(rb_hi + 1, n_rb_shard, dtype=np.int32)
+            pad = np.full(
+                n_grid_cell - pre.size - real.size - post.size,
+                n_rb_shard - 1, np.int32,
+            )
+            grid_rb[f] = np.concatenate([pre, real, post, pad])
+            lo, hi = pre.size * bn, (pre.size + real.size) * bn
+            gather[f, lo:hi] = slayout.gather[s, c0 * bn:c1 * bn]
+            valid[f, lo:hi] = slayout.valid[s, c0 * bn:c1 * bn]
+            local_rows[f, lo:hi] = slayout.local_rows[s, c0 * bn:c1 * bn]
+            cell_nnz[f] = int(np.count_nonzero(valid[f]))
+
+    opart = owner_partition(slayout)
+    sub_rows = -(-opart.own_rows // b)
+    own_rows_pad = b * sub_rows
+    stack_rows = int(opart.row_start[-1]) + own_rows_pad
+    nnz = int(cell_nnz.sum())
+    pad_fraction = 0.0 if nnz == 0 else 1.0 - nnz / max(a * b * slot, 1)
+
+    return GridLayout(
+        slayout=slayout,
+        grid_a=a,
+        grid_b=b,
+        n_grid_cell=n_grid_cell,
+        sub_rows=sub_rows,
+        own_rows_pad=own_rows_pad,
+        stack_rows=stack_rows,
+        cell_nnz=cell_nnz,
+        gather=gather,
+        valid=valid,
+        local_rows=local_rows,
+        grid_rb=grid_rb,
+        pad_fraction=float(pad_fraction),
     )
 
 

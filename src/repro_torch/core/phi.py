@@ -32,9 +32,13 @@ Strategies:
     (``mesh=``), else emulated on one device
     (:mod:`repro_torch.core.distributed`).  With ``pi_gather``/``factors``
     each shard builds its own Π rows from the factor rows it touches.
-
-``grid`` belongs to a later slice of the port and raises
-:class:`repro_torch.core.resilience.NotPortedError`.
+  * ``grid``     — the row shards refined over an ``A x B`` device grid
+    (a :class:`repro_torch.core.layout.GridLayout`): each shard's nonzero
+    stream is cut into ``B`` cells, each cell reduced by
+    ``local_strategy`` (B2/B3 once per cell for ``cuda``), and the cells
+    meet in the column all-gather + reduce-scatter pair
+    (:func:`repro_torch.core.distributed.phi_grid`).  A grid the mode
+    cannot honour warns and runs ``local_strategy`` unsharded.
 
 :func:`krao_reduce_rows` is the same reduction without the model divide
 (MTTKRP, CP-ALS's hot spot) through the same strategies; its ``cuda``
@@ -63,20 +67,23 @@ from ..device import check_on_device, resolve_device
 from .dense import build_dense_mode, dense_kr_factors
 from .layout import (
     BlockedLayout,
+    GridLayout,
     ShardedBlockedLayout,
     build_blocked_layout,
+    build_grid_layout,
+    choose_grid_shape,
     mode_run_stats,
     pad_rows,
     shard_blocked_layout,
 )
 from .pi import pi_rows
 from .policy import default_policy, heuristic_policy
-from .resilience import NotPortedError
 from .sparse_tensor import ModeView
 
 __all__ = [
     "PHI_STRATEGIES",
     "canonical_strategy",
+    "expand_to_grid",
     "expand_to_layout",
     "expand_to_shards",
     "expand_vals_to_shards",
@@ -88,21 +95,14 @@ __all__ = [
 ]
 
 PHI_STRATEGIES = ("scatter", "segment", "blocked", "cuda", "dense",
-                  "sharded")
-# later slices of the port, each with its ROADMAP item
-_LATER = {
-    "grid": "ROADMAP A8b (grid)",
-}
+                  "sharded", "grid")
 _ALIASES = {"pallas": "cuda"}
 
 
 def canonical_strategy(strategy: str) -> str:
     """Map an alias (``"pallas"``) to the port's strategy name and reject
-    the strategies that later slices will add."""
+    unknown ones."""
     s = _ALIASES.get(strategy, strategy)
-    if s in _LATER:
-        raise NotPortedError(
-            f"strategy {strategy!r} is not ported yet: {_LATER[s]}")
     if s not in PHI_STRATEGIES:
         raise ValueError(f"unknown strategy {strategy!r}")
     return s
@@ -275,6 +275,15 @@ def expand_to_shards(slayout: ShardedBlockedLayout, vals, pi) -> tuple:
     return vals_e, pi_e
 
 
+def expand_to_grid(glayout: GridLayout, vals, pi) -> tuple:
+    """Expand sorted per-nonzero tensors into per-cell padded layout
+    order: ``vals_e`` (A*B, n_grid_cell*block_nnz) and ``pi_e`` (A*B,
+    n_grid_cell*block_nnz, R), the leading axis the flat cell (cell
+    ``(s, c)`` at ``s*B + c``, row-major over the ``("row", "col")``
+    mesh)."""
+    return expand_to_shards(glayout, vals, pi)
+
+
 def expand_vals_to_shards(slayout: ShardedBlockedLayout, vals) -> torch.Tensor:
     """The values half of :func:`expand_to_shards`, for the shard-local Π
     path, where no (S, slot, R) expanded Π is ever built."""
@@ -363,8 +372,63 @@ def _resolve_sharded(rows, n_rows, layout, mesh, vals, pi, vals_e, pi_e):
     return layout, vals_e, pi_e
 
 
+def _resolve_grid(rows, n_rows, layout, mesh, vals, pi, vals_e, pi_e,
+                  rank: int):
+    """Grid layout + expansion, with the single-device fallback.
+
+    Returns ``(layout, vals_e, pi_e)``: the :class:`GridLayout`, or, when
+    the grid cannot be honoured (fewer row blocks than the row axis, or
+    fewer grid steps than the column axis), a warning and the *base*
+    :class:`BlockedLayout` with ``None`` expansions; callers then run the
+    unsharded path on it, as for :func:`_resolve_sharded`.  Without a
+    layout the shape is the mesh's, else :func:`choose_grid_shape`'s for
+    the default shard count.
+    """
+    if layout is not None and not isinstance(layout, GridLayout):
+        raise TypeError(
+            "strategy='grid' needs a GridLayout "
+            f"(got {type(layout).__name__}); use build_grid_layout()"
+        )
+    if layout is None:
+        if mesh is not None:
+            shape = (int(mesh.size(0)), int(mesh.size(1)))
+        else:
+            n_shards = _default_shard_count(None, pi.device)
+            shape = choose_grid_shape(
+                n_rows, _sharded_block_rows(n_rows, n_shards), rank,
+                n_shards)
+        base = build_blocked_layout(
+            rows.detach().cpu().numpy(), n_rows, block_nnz=256,
+            block_rows=_sharded_block_rows(n_rows, shape[0]))
+        try:
+            layout = build_grid_layout(base, shape)
+        except ValueError as e:
+            warnings.warn(
+                f"grid Phi: {e}; falling back to the single-device "
+                "blocked path",
+                stacklevel=4,
+            )
+            return base, None, None
+        vals_e = pi_e = None  # any pre-expansion matched a different layout
+    if vals_e is None or pi_e is None:
+        vals_e, pi_e = expand_to_grid(layout, vals, pi)
+    return layout, vals_e, pi_e
+
+
+def _check_grid_args(pi_gather, perturb) -> None:
+    if perturb is not None:
+        raise ValueError("perturb is not supported for strategy='grid'")
+    if pi_gather is not None:
+        raise ValueError(
+            "pi_gather is not supported for strategy='grid'; use "
+            "strategy='sharded' for the shard-local Pi path"
+        )
+
+
 def _check_combine(strategy: str, combine: str) -> None:
-    """Validate the combine flavour; only ``sharded`` combines."""
+    """Validate the combine flavour; only the multi-device strategies
+    combine (the grid's one combine is a reduce-scatter, so it takes
+    ``"reduce_scatter"`` as a no-op alias)."""
     if combine == "psum":
         return
     from .distributed import PHI_COMBINES  # deferred: avoids import cycle
@@ -373,7 +437,7 @@ def _check_combine(strategy: str, combine: str) -> None:
         raise ValueError(
             f"unknown combine {combine!r}; expected one of {PHI_COMBINES}"
         )
-    if strategy != "sharded":
+    if strategy not in ("sharded", "grid"):
         raise ValueError(
             f"combine={combine!r} only applies to strategy='sharded' "
             f"(got strategy={strategy!r})"
@@ -400,14 +464,28 @@ def _require_pig_layout(layout, pi_gather, factors) -> ShardedBlockedLayout:
     return layout
 
 
-def _sharded(fn_name: str, rows, vals, pi, b, n_rows, layout, vals_e, pi_e,
-             mesh, local_strategy, pi_gather, factors, combine, **kw):
-    """The ``sharded`` case of the three entry points: resolve the layout
-    (or take the warned fallback, returned as ``(None, base layout)``) and
-    call ``fn_name`` of :mod:`repro_torch.core.distributed`."""
+def _multi_device(op: str, strategy: str, rows, vals, pi, b, n_rows, layout,
+                  vals_e, pi_e, mesh, local_strategy, pi_gather, factors,
+                  combine, perturb=None, **kw):
+    """The ``sharded`` and ``grid`` cases of the three entry points:
+    resolve the layout (or take the warned fallback, returned as ``(None,
+    base layout)``) and call ``{op}_{strategy}`` of
+    :mod:`repro_torch.core.distributed` (``op`` is ``phi``, ``phi_mu`` or
+    ``krao``)."""
     from . import distributed  # deferred: avoids import cycle
 
-    fn = getattr(distributed, fn_name)
+    fn = getattr(distributed, f"{op}_{strategy}")
+    if strategy == "grid":
+        _check_grid_args(pi_gather, perturb)
+        glayout, vals_e, pi_e = _resolve_grid(rows, n_rows, layout, mesh,
+                                              vals, pi, vals_e, pi_e,
+                                              int(pi.shape[-1]))
+        if not isinstance(glayout, GridLayout):
+            return None, glayout
+        return fn(glayout, vals_e, pi_e, *([] if b is None else [b]),
+                  mesh=mesh, local_strategy=local_strategy, **kw), None
+    if perturb is not None:
+        raise ValueError("perturb is not supported for strategy='sharded'")
     if pi_gather is not None:
         slayout = _require_pig_layout(layout, pi_gather, factors)
         if vals_e is None:
@@ -483,7 +561,11 @@ def phi_from_rows(
     ``mesh`` places the shards on the ranks of a ``torch.distributed``
     mesh (else they are emulated on one device) and ``combine`` picks
     the combine; with ``pi_gather`` and the full ``factors`` each shard
-    builds its own Π rows and ``pi``/``pi_e`` may be None.  Every tensor
+    builds its own Π rows and ``pi``/``pi_e`` may be None.  For ``grid``,
+    ``layout`` is a :class:`GridLayout` (else one is built, of the mesh's
+    shape or :func:`choose_grid_shape`'s), ``vals_e``/``pi_e`` come from
+    :func:`expand_to_grid` and ``mesh`` is a ``("row", "col")`` mesh
+    (:func:`repro_torch.core.distributed.make_grid_mesh`).  Every tensor
     must lie on ``device``.
     """
     dev = resolve_device(device)
@@ -492,12 +574,11 @@ def phi_from_rows(
     strategy = canonical_strategy(strategy)
     _check_combine(strategy, combine)
     eps = float(eps)
-    if strategy == "sharded":
-        if perturb is not None:
-            raise ValueError("perturb is not supported for strategy='sharded'")
-        out, base = _sharded("phi_sharded", rows, vals, pi, b, n_rows, layout,
-                             vals_e, pi_e, mesh, local_strategy, pi_gather,
-                             factors, combine, eps=eps)
+    if strategy in ("sharded", "grid"):
+        out, base = _multi_device("phi", strategy, rows, vals, pi, b, n_rows,
+                                  layout, vals_e, pi_e, mesh, local_strategy,
+                                  pi_gather, factors, combine, perturb,
+                                  eps=eps)
         if base is None:
             return out
         return phi_from_rows(rows, vals, pi, b, n_rows, eps=eps,
@@ -565,7 +646,8 @@ def phi_mu_step(
     or to ``B*Φ``.  ``dense``/``factors`` and the sharded arguments as in
     :func:`phi_from_rows`; for ``sharded`` the shards' Φ windows meet in
     one combine and the epilogue runs on the combined window (``psum``)
-    or on each owner's rows (``reduce_scatter``), bitwise equal.
+    or on each owner's rows (``reduce_scatter``), bitwise equal; for
+    ``grid`` the epilogue runs on each cell's owned tile.
     """
     dev = resolve_device(device)
     check_on_device("phi_mu_step", dev, rows, vals, pi, b, vals_e, pi_e,
@@ -573,10 +655,11 @@ def phi_mu_step(
     strategy = canonical_strategy(strategy)
     _check_combine(strategy, combine)
     eps = float(eps)
-    if strategy == "sharded":
-        out, base = _sharded("phi_mu_sharded", rows, vals, pi, b, n_rows,
-                             layout, vals_e, pi_e, mesh, local_strategy,
-                             pi_gather, factors, combine, eps=eps, tol=tol)
+    if strategy in ("sharded", "grid"):
+        out, base = _multi_device("phi_mu", strategy, rows, vals, pi, b,
+                                  n_rows, layout, vals_e, pi_e, mesh,
+                                  local_strategy, pi_gather, factors,
+                                  combine, eps=eps, tol=tol)
         if base is None:
             return out
         return phi_mu_step(rows, vals, pi, b, n_rows, eps=eps, tol=tol,
@@ -638,7 +721,9 @@ def krao_reduce_rows(
       * ``sharded`` — row-block shards and one combine, as in
         :func:`phi_from_rows` (the MTTKRP kernel once per shard for
         ``local_strategy="cuda"``); with ``pi_gather``/``factors`` each
-        shard builds its Khatri-Rao rows and ``kr``/``kr_e`` may be None.
+        shard builds its Khatri-Rao rows and ``kr``/``kr_e`` may be None;
+      * ``grid`` — an ``A x B`` device grid, as in :func:`phi_from_rows`
+        (the MTTKRP kernel once per cell for ``local_strategy="cuda"``).
 
     ``rows`` must be sorted for ``blocked`` and ``cuda``.  ``sorted_rows``
     is the JAX package's promise to its ``segment_sum``; ``index_add_``
@@ -652,10 +737,11 @@ def krao_reduce_rows(
                     *_dense_tensors(dense, factors))
     strategy = canonical_strategy(strategy)
     _check_combine(strategy, combine)
-    if strategy == "sharded":
-        out, base = _sharded("krao_sharded", rows, vals, kr, None, n_rows,
-                             layout, vals_e, kr_e, mesh, local_strategy,
-                             pi_gather, factors, combine)
+    if strategy in ("sharded", "grid"):
+        out, base = _multi_device("krao", strategy, rows, vals, kr, None,
+                                  n_rows, layout, vals_e, kr_e, mesh,
+                                  local_strategy, pi_gather, factors,
+                                  combine)
         if base is None:
             return out
         return krao_reduce_rows(rows, vals, kr, n_rows,

@@ -22,8 +22,10 @@ Three layers, consumed by :mod:`repro_torch.core.cpapr` (and, lighter,
   demotes the shard-local ``cuda -> blocked``, then ``sharded ->
   segment``; a stale shard assignment (``"fingerprint"``) the combine
   ``reduce_scatter -> psum``; an OOM halves the shard count and
-  rebalances, down to the single-device local path.  The grid -> 1D
-  rungs belong to ROADMAP A8b.
+  rebalances, down to the single-device local path.  A grid mode
+  demotes its cell-local ``cuda -> blocked``, then ``grid -> sharded``
+  (its ``A``-shard 1-D split; a single-row-shard grid goes to the
+  single-device local path), at once on OOM.
 
 * **Sweep checkpoint/resume** — :func:`save_checkpoint` /
   :func:`load_checkpoint` serialize the solver state in the JAX package's
@@ -145,9 +147,11 @@ def state_ok(a, lam, viol=None) -> bool:
 
 # kernel demotion chain: each rung is strictly more portable.  "dense"
 # demotes straight to the sorted segmented reduce: the blocked rungs need
-# the sorted-stream layout the dense tier never built.
+# the sorted-stream layout the dense tier never built.  "grid" demotes to
+# the 1-D row-sharded family: the column combine is all the rung sheds,
+# the grid's own row-shard layout is reused (the solver rebuilds the mode).
 STRATEGY_DEMOTION = {"cuda": "blocked", "blocked": "segment",
-                     "dense": "segment"}
+                     "dense": "segment", "grid": "sharded"}
 
 _OOM_MARKERS = ("resource_exhausted", "out of memory", "allocation failure")
 _KERNEL_MARKERS = ("mosaic", "pallas", "simulated kernel", "lowering",

@@ -47,8 +47,8 @@ the JAX package's store.  Its staleness metadata is the torch and CUDA
 versions and the card's name (:func:`current_device_kind`).  A sharded
 mode is tuned per shard (:meth:`Autotuner.policy_for_sharded_mode`) under
 keys with the JAX package's ``/shards=``, ``/assign=``
-(:func:`shard_assignment_fragment`) and ``/combine=`` dimensions; the
-``/grid=`` dimension belongs to ROADMAP A8b.
+(:func:`shard_assignment_fragment`), ``/combine=`` and, for a grid
+mode's row shards, ``/grid=AxB`` dimensions.
 
 ``CPAPRConfig(policy="auto")`` and ``cp_als(policy="auto")`` consult
 this per mode (see :mod:`repro_torch.core.cpapr`).
@@ -135,17 +135,15 @@ def policy_key(nnz: int, n_rows: int, rank: int, platform: str,
     is ``"cuda"`` or ``"cpu"``.  ``n_shards`` > 1 appends ``/shards=N``,
     ``assign`` (a :func:`shard_assignment_fragment`) ``/assign=...`` (a
     rebalanced assignment is a different problem), and a non-default
-    ``combine`` (``"reduce_scatter"``) ``/combine=...``.  A ``grid`` with
-    more than one column is the N-D grid, a later slice (ROADMAP A8b).
+    ``combine`` (``"reduce_scatter"``) ``/combine=...``.  A ``grid``
+    (an ``(A, B)`` device-grid shape) with ``B > 1`` appends
+    ``/grid=AxB``: a grid cell revisits rows that the 1-D shard of the
+    same size never splits, so grid and 1-D winners stay apart (``B ==
+    1`` *is* the 1-D split and keeps its keyspace).
     """
     base = f"{platform}/nnz={nnz}/rows={n_rows}/rank={rank}"
     if stats is not None:
         base = f"v2/{base}/{stats.key_fragment()}"
-    if grid is not None and int(grid[1]) > 1:
-        from ..core.resilience import NotPortedError
-
-        raise NotPortedError("the /grid= key dimension is not ported yet: "
-                             "ROADMAP A8b (grid)")
     if n_shards in (None, 1):
         return base
     key = f"{base}/shards={n_shards}"
@@ -153,6 +151,8 @@ def policy_key(nnz: int, n_rows: int, rank: int, platform: str,
         key = f"{key}/assign={assign}"
     if combine not in (None, "psum"):
         key = f"{key}/combine={combine}"
+    if grid is not None and int(grid[1]) > 1:
+        key = f"{key}/grid={int(grid[0])}x{int(grid[1])}"
     return key
 
 
@@ -864,8 +864,10 @@ class Autotuner:
         rebalance) and adds the ``/assign=`` dimension; without it the
         nnz-balanced split keeps the plain ``/shards=`` keyspace.
         ``combine`` adds ``/combine=`` (``"psum"``/None keep the plain
-        keyspace); ``grid`` with more than one column raises
-        :class:`NotPortedError` (ROADMAP A8b).
+        keyspace); ``grid`` (an ``(A, B)`` shape, ``B > 1``) adds
+        ``/grid=AxB`` for a grid mode's row shards, tuned as usual (a
+        cell runs the same local kernels on a slice of its shard) but
+        cached apart from the 1-D winners.
         """
         if pi is None and self.measure:
             raise ValueError("a measuring tuner needs the Pi rows to probe; "

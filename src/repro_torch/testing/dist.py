@@ -7,9 +7,10 @@ raises, or a run that outlives ``timeout``, fails the call, and every
 rank still running is terminated, so a hang costs the caller its timeout
 and nothing more.  The children import this package and ``torch`` only.
 
-:func:`sharded_mesh_checks` is the rank body of the multi-rank tests of
-the row-sharded tier: the same inputs (numpy, from the caller) through
-the mesh path on every rank.
+:func:`sharded_mesh_checks` and :func:`grid_mesh_checks` are the rank
+bodies of the multi-rank tests of the row-sharded and the N-D grid tiers:
+the same inputs (numpy, from the caller) through the mesh path on every
+rank.
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ import warnings
 import numpy as np
 import torch
 
-__all__ = ["idle", "run_ranks", "sharded_mesh_checks"]
+__all__ = ["grid_mesh_checks", "idle", "run_ranks", "sharded_mesh_checks"]
 
 
 def _rank_main(rank: int, world: int, init_file: str, backend: str,
@@ -233,3 +234,103 @@ def _as_numpy_problem(t, kt) -> dict:
             "values": np.asarray(_np(t.values)),
             "lam": np.asarray(_np(kt.lam)),
             "factors": [np.asarray(_np(f)) for f in kt.factors]}
+
+
+def grid_mesh_checks(rank: int, world: int, problems: dict, bn: int,
+                     br: int, rank_r: int, grid_shape: tuple) -> dict:
+    """The multi-rank checks of the N-D grid tier, on one rank of a
+    ``grid_shape`` (A, B) ``("row", "col")`` mesh of ``world = A*B``
+    ranks.  ``problems`` as for :func:`sharded_mesh_checks`.  Returns
+    numpy results keyed by case:
+
+      * ``("phi"|"krao", name, mode)`` and ``("mu", name, mode)`` (B' and
+        the KKT value): the grid entry points over the mesh;
+      * ``("collectives", name, mode)``: the ``(op, group, per-device
+        wire bytes)`` of the collectives one fused step
+        (``phi_mu_grid_owner``) issued, with ``group`` one of ``"col"``,
+        ``"row"`` and ``"world"``;
+      * ``("cpapr", name)``: a grid ``cpapr_mu`` over the mesh;
+      * ``("rung", name)``: the same solve with one injected kernel fault
+        on a blocked grid mode, ladder on (the grid -> sharded rung runs
+        the 1-D path on the mesh's ``"row"`` sub-mesh), and its
+        recoveries;
+      * ``"mesh_error"``: the message of ``make_grid_mesh`` past the
+        world size.
+    """
+    from ..core import cpapr
+    from ..core import distributed as D
+    from ..core.layout import build_blocked_layout, build_grid_layout
+    from ..core.phi import expand_to_grid
+    from ..core.pi import pi_rows
+    from ..core.policy import PhiPolicy
+    from ..core.sparse_tensor import sort_mode
+    from . import faults
+
+    a, b_ax = (int(x) for x in grid_shape)
+    mesh = D.make_grid_mesh(a, b_ax, "cpu")
+    tags = {id(mesh.get_group("col")): "col",
+            id(mesh.get_group("row")): "row", id(None): "world"}
+    out: dict = {}
+    for name, p in problems.items():
+        t, kt = _problem(p)
+        for mode in range(t.ndim):
+            mv = sort_mode(t, mode)
+            pi = pi_rows(mv.sorted_idx, kt.factors, mode)
+            b = kt.factors[mode] * kt.lam[None, :]
+            base = build_blocked_layout(mv.rows.numpy(), mv.n_rows, bn, br)
+            g = build_grid_layout(base, (a, b_ax))
+            vals_cs, pi_cs = expand_to_grid(g, mv.sorted_vals, pi)
+            out[("phi", name, mode)] = _np(D.phi_grid(g, vals_cs, pi_cs, b,
+                                                      mesh=mesh))
+            out[("krao", name, mode)] = _np(D.krao_grid(g, vals_cs, pi_cs,
+                                                        mesh=mesh))
+            b_new, viol = D.phi_mu_grid(g, vals_cs, pi_cs, b, mesh=mesh)
+            out[("mu", name, mode)] = (_np(b_new), float(viol))
+            b_own = D.grid_stack(g, b, mesh)
+            log: list = []
+            wrapped = {}
+            for op in ("_all_gather", "_reduce_scatter", "_all_reduce"):
+                wrapped[op] = getattr(D, op)
+
+                def spy(*args, _op=op, **kw):
+                    group = args[-1] if _op != "_all_reduce" else args[1]
+                    moved = args[1] if _op == "_all_gather" else args[0]
+                    n = torch.distributed.get_world_size(group)
+                    log.append((_op.strip("_"), tags.get(id(group), "?"),
+                                (n - 1) * moved.numel()
+                                * moved.element_size()))
+                    return wrapped[_op](*args, **kw)
+
+                setattr(D, op, spy)
+            try:
+                D.phi_mu_grid_owner(g, vals_cs, pi_cs, b_own, mesh=mesh)
+            finally:
+                for op, fn in wrapped.items():
+                    setattr(D, op, fn)
+            out[("collectives", name, mode)] = log
+        cfg = dict(rank=rank_r, max_outer=3, strategy="grid", mesh=mesh,
+                   grid_shape=(a, b_ax),
+                   policy=PhiPolicy(strategy="blocked", block_nnz=bn,
+                                    block_rows=br))
+        res = cpapr.cpapr_mu(t, rank_r, init=kt, device="cpu",
+                             config=cpapr.CPAPRConfig(**cfg))
+        out[("cpapr", name)] = _solve_result(res)
+        with faults.fail_strategy(strategy="grid", mode=0):
+            res = cpapr.cpapr_mu(t, rank_r, init=kt, device="cpu",
+                                 config=cpapr.CPAPRConfig(max_demotions=4,
+                                                          **cfg))
+        out[("rung", name)] = _solve_result(res)
+    try:
+        D.make_grid_mesh(world + 1, 1, "cpu")
+        out["mesh_error"] = None
+    except ValueError as e:
+        out["mesh_error"] = str(e)
+    return out
+
+
+def _solve_result(res) -> dict:
+    return dict(factors=[_np(f) for f in res.ktensor.factors],
+                lam=_np(res.ktensor.lam), kkt=res.kkt_history,
+                loglik=res.loglik_history, inner=res.inner_iters,
+                recoveries=[(e.kind, e.mode, e.detail.get("action"))
+                            for e in res.recoveries or []])

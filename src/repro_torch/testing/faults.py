@@ -5,15 +5,17 @@ Context managers that register hooks into
 this package) plus file/cache corruption helpers, as in the JAX
 package's ``repro.testing.faults``.  Together they drive the fault x
 strategy x shard-count recovery matrix of ``tests/test_torch_faults.py``
-and phases 11, 12 and 14 of ``chip_smoke.py``:
+and phases 11, 12, 14 and 15 of ``chip_smoke.py``:
 
 * :func:`inject_nan` — poison a chosen mode's update output with a NaN,
   exercising the numerical guard + kappa ladder;
 * :func:`fail_strategy` — raise a simulated kernel failure from a chosen
-  strategy, exercising ``cuda -> blocked -> segment``;
+  strategy, exercising ``cuda -> blocked -> segment`` (``"grid"``
+  matches a grid mode: its ``grid -> sharded`` rung);
 * :func:`fail_oom` — raise a simulated ``RESOURCE_EXHAUSTED`` while a
-  mode runs with at least ``min_shards`` shards, exercising shard-count
-  halving + rebalance;
+  mode runs with at least ``min_shards`` shards (a grid mode counts its
+  ``A*B`` cells), exercising shard-count halving + rebalance and the
+  grid's ``grid -> sharded`` rung;
 * :func:`fail_fingerprint` — raise a simulated owner-partition
   fingerprint mismatch from a sharded mode, exercising the combine
   ``reduce_scatter -> psum``;

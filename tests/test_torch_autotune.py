@@ -1,8 +1,8 @@
 """The port's persistent autotuner against the JAX package's.
 
 Mirrors ``tests/test_autotune_cache.py`` (its single-device cases and
-its sharded ones: the ``/shards=``, ``/assign=`` and ``/combine=`` key
-dimensions equal to the reference's strings, per-shard tuning, the
+its sharded ones: the ``/shards=``, ``/assign=``, ``/combine=`` and
+``/grid=`` key dimensions equal to the reference's strings, per-shard tuning, the
 re-keying of a rebalanced assignment) and the autotune half of
 ``tests/test_fused_autotune.py`` for ``repro_torch.perf.autotune``: the
 store's location (its own file and environment variable, never the JAX
@@ -673,11 +673,8 @@ def test_poisoned_entry_demotes_in_cp_als(port_tensor, tmp_path):
 
 @pytest.mark.parametrize("n_shards", (None, 1, 2, 4))
 def test_sharded_policy_keys_equal_reference(n_shards):
-    """Every combination of /shards=, /assign= and /combine= (and the v2
-    stats prefix) is the reference's string; /grid= waits for ROADMAP
-    A8b and raises."""
-    from repro_torch.core.resilience import NotPortedError
-
+    """Every combination of /shards=, /assign=, /combine= and /grid= (and
+    the v2 stats prefix) is the reference's string."""
     rows = np.repeat(np.arange(50, dtype=np.int32), 20)
     stats, rstats = mode_run_stats(rows, 50), r_mode_run_stats(rows, 50)
     frag = P_at.shard_assignment_fragment([0, 250, 500, 750, 1000])
@@ -686,14 +683,14 @@ def test_sharded_policy_keys_equal_reference(n_shards):
     for st, rst in ((None, None), (stats, rstats)):
         for assign in (None, frag):
             for combine in (None, "psum", "reduce_scatter"):
-                for grid in (None, (n_shards or 1, 1)):
+                for grid in (None, (n_shards or 1, 1), (2, 2), (1, 4)):
                     kw = dict(n_shards=n_shards, assign=assign,
                               combine=combine, grid=grid)
                     assert policy_key(1000, 50, 8, "cuda", stats=st, **kw) \
                         == R_at.policy_key(1000, 50, 8, "cuda", stats=rst,
                                            **kw)
-    with pytest.raises(NotPortedError, match="A8b"):
-        policy_key(1000, 50, 8, "cuda", n_shards=4, grid=(2, 2))
+    assert policy_key(1000, 50, 8, "cuda", n_shards=4, grid=(2, 2)) == \
+        "cuda/nnz=1000/rows=50/rank=8/shards=4/grid=2x2"
 
 
 @pytest.mark.parametrize("combine", (None, "reduce_scatter"))

@@ -10,8 +10,8 @@ be equal, for the port's ``cuda`` (its plain version on the CPU),
 
 Also: import hygiene (``repro_torch`` loads neither ``jax`` nor
 ``repro``), the device default (no CUDA and no ``device="cpu"`` raises),
-the multi-device options raising before the degradation ladder, the
-checkpoint, resume and ``policy="auto"`` options running, input
+the multi-device options (row-sharded and grid) running under an armed
+degradation ladder with checkpoints, the checkpoint, resume and ``policy="auto"`` options running, input
 validation and the guard; and C1, mixed bf16 factors with f32 values,
 end to end against the reference.
 """
@@ -194,16 +194,11 @@ def test_mixed_bf16_factors_solve_like_reference(kind, strategy):
     ("rebalance_every", 1),
 ])
 def test_unported_options_raise(field, value):
-    """Only the grid's option is still unported (ROADMAP A8b).  The
-    row-sharded ones are ported and, as in the JAX package, act only with
-    ``strategy="sharded"``: on the default strategy the solve is the
-    plain one."""
+    """The multi-device options are all ported now, the grid's too, and,
+    as in the JAX package, act only with their strategy (``sharded`` or
+    ``grid``): on the default strategy the solve is the plain one."""
     pt, pkt = port_problem("uniform")
     cfg = P_cpapr.CPAPRConfig(rank=RANK, max_outer=1, **{field: value})
-    if field == "grid_shape":
-        with pytest.raises(NotImplementedError, match="ROADMAP A8b"):
-            P_cpapr.cpapr_mu(pt, RANK, init=pkt, config=cfg, device="cpu")
-        return
     got = P_cpapr.cpapr_mu(pt, RANK, init=pkt, config=cfg, device="cpu")
     plain = P_cpapr.cpapr_mu(pt, RANK, init=pkt, device="cpu",
                              config=P_cpapr.CPAPRConfig(rank=RANK,
@@ -218,30 +213,28 @@ def test_unported_options_raise(field, value):
 ])
 def test_multi_device_options_raise_before_the_ladder(tmp_path, field,
                                                      value):
-    """The grid (ROADMAP A8b) raises before any mode runs, even with the
-    ladder armed (a kernel fault that would be demoted is pending) and
-    with checkpoints on: nothing is demoted and no checkpoint is written.
-    The row-sharded options run under the same armed ladder and write
-    their checkpoints."""
+    """The multi-device options, the grid's too, run under an armed ladder
+    and write their checkpoints; a grid checkpoint records each mode's
+    grid (a 1 x 1 grid at the CPU's one default shard).  An option that
+    is still not ported (ROADMAP A11) is never demoted into a run: its
+    error is unclassified."""
     from repro_torch.core import resilience
-    from repro_torch.testing import faults
 
     pt, pkt = port_problem("uniform")
     ck = tmp_path / "never.ckpt"
     cfg = P_cpapr.CPAPRConfig(rank=RANK, max_outer=2, checkpoint_every=1,
                               checkpoint_path=str(ck), max_demotions=4,
                               **{field: value})
-    if value != "grid":
-        res = P_cpapr.cpapr_mu(pt, RANK, init=pkt, config=cfg, device="cpu")
-        assert res.n_outer == 2 and ck.exists()
-        return
-    with faults.fail_strategy(strategy="segment") as budget:
-        with pytest.raises(resilience.NotPortedError, match="ROADMAP A8b"):
-            P_cpapr.cpapr_mu(pt, RANK, init=pkt, config=cfg, device="cpu")
-    assert budget == [1]  # no mode ran
-    assert not ck.exists()
+    res = P_cpapr.cpapr_mu(pt, RANK, init=pkt, config=cfg, device="cpu")
+    assert res.n_outer == 2 and ck.exists() and res.recoveries is None
+    state = resilience.load_checkpoint(str(ck))
+    if value == "grid":
+        assert state["strategies"] == ["grid"] * 3
+        assert state["mode_grids"] == [[1, 1]] * 3
+    else:
+        assert state["mode_grids"] == [None] * 3
     assert resilience.classify_failure(
-        resilience.NotPortedError("ROADMAP A8b")) is None
+        resilience.NotPortedError("ROADMAP A11")) is None
 
 
 @pytest.mark.parametrize("case", ("checkpoint", "resume", "auto"))

@@ -11,9 +11,10 @@ single-device path, and the combine ``reduce_scatter -> psum``.  On an
 unsharded mode the OOM and fingerprint faults have no rung and
 propagate.  Then the checkpoint contract: a killed and resumed solve is
 bitwise the uninterrupted one (``segment``, ``blocked``, ``dense``,
-``cuda``'s plain version and a rebalanced ``sharded`` solve), and a
-checkpoint, sharded ones with their rebalanced cuts too, resumes across
-the two packages in both directions.
+``cuda``'s plain version and a rebalanced ``sharded`` solve), a grid
+checkpoint resumes, and a checkpoint, sharded ones with their rebalanced
+cuts too, resumes across the two packages in both directions (grid ones:
+``tests/test_torch_grid.py``).
 
 Both packages get the same inputs: the reference's fixture tensor and
 its seeded starting model, handed over as numpy arrays.
@@ -440,21 +441,22 @@ def test_fingerprint_mismatch_rejected(tmp_path):
 
 
 def test_sharded_checkpoint_raises_and_is_not_quarantined(tmp_path):
-    """A sound checkpoint of grid-sharded modes needs the N-D grid tier
-    (ROADMAP A8b): the port says so and leaves the file where it is.
-    (Row-sharded checkpoints resume: ``test_kill_and_resume_is_bitwise``
-    and the cross-package tests.)"""
+    """A sound checkpoint of grid-sharded modes resumes now that the N-D
+    grid tier is ported: it is not quarantined, its ``mode_grids`` rebuild
+    each mode's cell schedule, and the resumed solve ends where the
+    uninterrupted one does.  (Row-sharded checkpoints:
+    ``test_kill_and_resume_is_bitwise`` and the cross-package tests.)"""
     ck = str(tmp_path / "ck.bin")
-    cfg = _ck_cfg(ck, max_outer=2)
-    solve(cfg)
+    grid = dict(strategy="grid", n_shards=4, grid_shape=(2, 2), policy=PB)
+    ref = solve(_ck_cfg(None, checkpoint_every=0, **grid))
+    solve(_ck_cfg(ck, max_outer=2, **grid))
     state = resilience.load_checkpoint(ck)
-    state["mode_shards"] = [2, 1, 1]
-    state["mode_grids"] = [[2, 2], None, None]
-    state["strategies"] = ["grid", "segment", "segment"]
-    resilience.save_checkpoint(ck, state)
-    with pytest.raises(resilience.NotPortedError, match="ROADMAP A8b"):
-        solve(cfg, resume_from=ck)
+    assert state["mode_grids"] == [[2, 2]] * 3
+    assert state["mode_shards"] == [2] * 3
+    res = solve(_ck_cfg(ck, **grid), resume_from=ck)
+    assert [e.kind for e in res.recoveries] == ["resume"]
     assert os.path.exists(ck) and not os.path.exists(ck + ".corrupt")
+    _assert_bitwise(ref, res)
 
 
 def test_resume_after_fault_preserves_recovery_log(tmp_path):

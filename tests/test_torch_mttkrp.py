@@ -253,24 +253,24 @@ def test_cp_als_policy_auto_matches_reference(tmp_path):
 
 @pytest.mark.parametrize("strategy", ("sharded", "grid"))
 def test_unported_strategies_raise(strategy):
-    """``grid`` raises (ROADMAP A8b); ``sharded`` is ported and its
-    default-layout MTTKRP matches the reference's."""
+    """Both multi-device strategies are ported: with their default
+    layouts their MTTKRP matches the reference's, and so does a grid
+    ``cp_als``."""
     ref, port = problem("uniform", 0)
     pmv = port["mv"]
     args = (pmv.rows, pmv.sorted_vals, port["kr"], pmv.n_rows)
-    pt, pkt = port_problem("uniform")
-    if strategy == "grid":
-        with pytest.raises(NotImplementedError, match="ROADMAP A8b"):
-            P_phi.krao_reduce_rows(*args, strategy=strategy, device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP A8b"):
-            P_cpals.cp_als(pt, RANK, n_iters=1, init=pkt, strategy=strategy,
-                           device="cpu")
-        return
     rmv = ref["mv"]
     want = R_phi.krao_reduce_rows(rmv.rows, rmv.sorted_vals, ref["kr"],
                                   rmv.n_rows, strategy=strategy)
     got = P_phi.krao_reduce_rows(*args, strategy=strategy, device="cpu")
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    if strategy == "grid":
+        t, kt = make_fixture("uniform")
+        pt, pkt = port_problem("uniform")
+        _, wf = R_cpals.cp_als(t, RANK, n_iters=1, init=kt, strategy="grid")
+        _, gf = P_cpals.cp_als(pt, RANK, n_iters=1, init=pkt,
+                               strategy="grid", device="cpu")
+        np.testing.assert_allclose(gf, wf, **TOL)
 
 
 def test_cp_als_validates_inputs():

@@ -369,15 +369,12 @@ def test_flop_word_counts_equal(nnz, rank):
 
 @pytest.mark.parametrize("strategy", ("sharded", "grid"))
 def test_later_strategies_raise(strategy):
-    """``grid`` is the next slice (ROADMAP A8b) and raises; ``sharded`` is
-    ported and, with its default layout, matches the reference's."""
+    """The multi-device strategies of the later slices, ``sharded`` and
+    ``grid``, are ported: with their default layouts they match the
+    reference's."""
     ref, port = problem("uniform", 0)
     pmv = port["mv"]
     args = (pmv.rows, pmv.sorted_vals, port["pi"], port["b"], pmv.n_rows)
-    if strategy == "grid":
-        with pytest.raises(NotImplementedError, match="ROADMAP A8b"):
-            P_phi.phi_from_rows(*args, strategy=strategy, device="cpu")
-        return
     rmv = ref["mv"]
     want = R_phi.phi_from_rows(rmv.rows, rmv.sorted_vals, ref["pi"],
                                ref["b"], rmv.n_rows, strategy=strategy)

@@ -303,7 +303,8 @@ CUDA_CASES = {
     "torch-device-assert": (lambda tp, mp: RuntimeError(
         "CUDA error: device-side assert triggered"), None),
     "not-ported": (lambda tp, mp: resilience.NotPortedError(
-        "strategy 'grid' is not ported yet: ROADMAP A8b (grid)"), None),
+        "repro_torch.launch.serve: LM serving is not ported yet: "
+        "ROADMAP A11"), None),
 }
 
 

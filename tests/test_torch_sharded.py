@@ -45,7 +45,7 @@ from repro_torch.core import phi as P_phi
 from repro_torch.core import pi as P_pi
 from repro_torch.core.convert import ktensor_from_numpy, sparse_tensor_from_numpy
 from repro_torch.core.policy import PhiPolicy as PPolicy
-from repro_torch.core.resilience import NotPortedError, ShardAssignmentError
+from repro_torch.core.resilience import ShardAssignmentError
 from repro_torch.core.sparse_tensor import sort_mode as p_sort_mode
 
 from conftest import dense_phi_reference
@@ -723,15 +723,23 @@ def test_effective_mode_combine_agrees_with_reference(kind):
 
 
 def test_grid_still_raises_before_running():
-    """The N-D grid is the next slice: its strategy, its config field and
-    its checkpoint raise NotPortedError naming ROADMAP A8b."""
-    _, (pt, pkt) = tensors("uniform")
-    with pytest.raises(NotPortedError, match="A8b"):
-        P_phi.canonical_strategy("grid")
-    for kw in (dict(strategy="grid"), dict(grid_shape=(2, 2))):
-        with pytest.raises(NotPortedError, match="A8b"):
-            P_cpapr.cpapr_mu(pt, RANK, init=pkt, device="cpu",
-                             config=P_cpapr.CPAPRConfig(rank=RANK, **kw))
-    with pytest.raises(NotPortedError, match="A8b"):
-        P_cpals.cp_als(pt, RANK, n_iters=1, init=pkt, strategy="grid",
-                       device="cpu")
+    """The N-D grid, the slice after this tier, runs now: its strategy
+    and its config field solve as the reference's do, from the same
+    start (``tests/test_torch_grid.py`` holds the grid itself)."""
+    (t, kt), (pt, pkt) = tensors("uniform")
+    assert P_phi.canonical_strategy("grid") == "grid"
+    for kw in (dict(strategy="grid", n_shards=4),
+               dict(grid_shape=(2, 2))):
+        got = P_cpapr.cpapr_mu(pt, RANK, init=pkt, device="cpu",
+                               config=P_cpapr.CPAPRConfig(
+                                   rank=RANK, max_outer=2, **kw))
+        want = R_cpapr.cpapr_mu(t, RANK, init=kt,
+                                config=R_cpapr.CPAPRConfig(
+                                    rank=RANK, max_outer=2, **kw))
+        assert got.inner_iters == want.inner_iters
+        np.testing.assert_allclose(got.loglik_history, want.loglik_history,
+                                   **TOL)
+    gk, gf = P_cpals.cp_als(pt, RANK, n_iters=1, init=pkt, strategy="grid",
+                            device="cpu")
+    wk, wf = R_cpals.cp_als(t, RANK, n_iters=1, init=kt, strategy="grid")
+    np.testing.assert_allclose(gf, wf, **TOL)
