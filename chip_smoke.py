@@ -178,6 +178,34 @@ Phases (any failure exits nonzero before the last line):
     LOGLIK_RTOL of the clean 2 x 2 solve; a 1 x 4 solve killed and
     resumed ends within LOGLIK_RTOL of the uninterrupted one with equal
     counts and its checkpoint's ``mode_grids``.
+16. LM serving (run after phase 15): the LM stack's serving path, which
+    reaches no kernel of this port (the reference computes it with plain
+    einsums, so the port does too; TF32 stays off).  (1) Every one of
+    the ten architectures at full width in bf16, served through
+    ``Engine.generate`` (greedy) with the reference launcher's defaults:
+    batch LM_BATCH, prompt LM_PROMPT positions (pixtral's 1024 stub
+    patches come before its LM_PROMPT text tokens), LM_NEW new tokens,
+    weights and batch drawn from ``--seed``.  Full depth, except the two
+    MoE giants at LM_DEPTH_CUT layers (qwen3: two MoE layers, 10 GiB of
+    experts; llama4: one dense + one MoE sublayer, 32 GiB of experts).
+    Checks: tokens (LM_BATCH, LM_NEW) in [0, vocab_pad), every prefill
+    and decode logit finite, exactly LM_NEW - 1 ``decode_step`` calls
+    (counted by a wrapper).  Printed: prefill ms and decode ms per step
+    (CUDA events, median), tokens/s of a warm ``generate``, weight and
+    cache bytes, peak memory and the decode step's byte bound (the
+    weights it reads plus every cache byte, over HBM_BYTES_PER_S).
+    (2) Decode against teacher forcing at full width in f32 for the four
+    cache families (TF_ARCHS): prefill 8, decode 4 against the
+    ``forward`` logits at TF_RTOL/TF_ATOL, as the reference's test.
+    (3) The card against the CPU: the ten reduced f32 configs with the
+    same weights on both, prefill plus three decode steps fed the CPU's
+    greedy tokens, at CPU_RTOL/CPU_ATOL; and olmo-1b's first-token
+    logits in bf16 against f32 of the same weights, within BF16_FRAC of
+    the largest |logit|.  (4) ``repro_torch.launch.serve.main(["--arch",
+    "olmo-1b", "--full"])`` returns 0.  No kernel's launch count moves
+    in phase 16.  (5) Last, where olmo-1b's decode step goes: wall ms
+    per step beside the device-busy ms torch.profiler records (the idle
+    share) and the device kernels per step.
 10. One launch per fused dense step: the device kernels of one
     ``phi_mu_dense`` call on the near-dense tensor's mode 0, counted with
     torch.profiler (last, so that no timed phase runs under its set-up):
@@ -186,7 +214,7 @@ Phases (any failure exits nonzero before the last line):
 The counted main-path solves of phases 3, 5 and 6 fail on any demotion
 (``recoveries`` must be empty): a ladder that quietly ran a plain
 strategy would otherwise pass as the kernel; so do phases 13's, 14's
-and 15's.  Phases 7-9 and 11-15 print their own times.  The line before
+and 15's.  Phases 7-9 and 11-16 print their own times.  The line before
 the last is the per-kernel JSON record (``launches`` from the counted
 runs of phases 3-7, ``service_launches`` from phase 13's,
 ``sharded_launches`` from phase 14's, ``grid_launches`` from phase
@@ -268,6 +296,17 @@ APPEND_FRAC = 0.1  # the large tenant's append, a share of its nonzeros
 # the near-dense shape: a base drawing 150/1920 of the cells from a
 # low-rank model, then 900/1920 of them uniformly at random
 DENSE_CUT_BASE, DENSE_CUT_APPEND = 150 / 1920, 900 / 1920
+# Phase 16, LM serving: the reference launcher's defaults
+LM_BATCH, LM_PROMPT, LM_NEW = 4, 64, 32
+# the two MoE giants at full width but cut depth (one card holds neither)
+LM_DEPTH_CUT = {"qwen3-moe-235b-a22b": 2, "llama4-maverick-400b-a17b": 2}
+# 16.2: the reference's teacher-forcing test and its tolerance
+TF_ARCHS = ("olmo-1b", "mamba2-1.3b", "recurrentgemma-9b", "h2o-danube-1.8b")
+TF_RTOL = TF_ATOL = 2e-2
+# 16.3: reduced f32 configs, the card's ops against the CPU's; bf16
+# against f32 of the same weights, as a share of the largest |logit|
+CPU_RTOL, CPU_ATOL = 1e-4, 1e-5
+BF16_FRAC = 3e-2
 CSRC = "src/repro_torch/kernels/csrc"
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "phi_blocked": ("phi.cu", "src/repro/kernels/phi/kernel.py:139"),
@@ -2543,6 +2582,379 @@ def grid_phase(t, init, mvs, layouts, res, ref, sh, dev,
     return launches
 
 
+class CountingLM:
+    """A model's serving surface for ``Engine``: counts ``decode_step``
+    calls and keeps one device flag for "every logit so far is finite"
+    (read once, after the run)."""
+
+    def __init__(self, model):
+        self.model = model
+        self.decode_calls = 0
+        self.finite = None
+
+    def _seen(self, logits):
+        import torch
+
+        ok = torch.isfinite(logits).all()
+        self.finite = ok if self.finite is None else self.finite & ok
+
+    def prefill(self, params, batch, cache_len=None):
+        logits, caches = self.model.prefill(params, batch,
+                                            cache_len=cache_len)
+        self._seen(logits)
+        return logits, caches
+
+    def decode_step(self, params, caches, tokens):
+        self.decode_calls += 1
+        logits, caches = self.model.decode_step(params, caches, tokens)
+        self._seen(logits)
+        return logits, caches
+
+
+def event_ms(fn, reps: int) -> list:
+    """Device ms of ``reps`` calls of ``fn`` (CUDA events around each)."""
+    import torch
+    out = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        out.append(a.elapsed_time(b))
+    return out
+
+
+def tree_bytes(tree) -> int:
+    from repro_torch.models.params import tree_leaves
+
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def decode_weight_bytes(cfg, params) -> int:
+    """Weight bytes one decode step reads: all but an untied input
+    embedding table (4 rows of it are gathered), Whisper's encoder, and
+    the dense FFN of a MoE sublayer (its weights exist but go unused)."""
+    skip = {"encdec": ("enc_blocks", "enc_final", "enc_final_b")}.get(
+        cfg.family, () if cfg.tie_embeddings else ("embed",))
+    n = sum(tree_bytes(v) for k, v in params.items() if k not in skip)
+    if cfg.n_experts and cfg.moe_every > 1:
+        n -= sum(tree_bytes(params["blocks"][k]) // cfg.moe_every
+                 for k in ("wi_gate", "wi_up", "wi", "wo_mlp")
+                 if k in params["blocks"])
+    return n
+
+
+def lm_serve_one(cfg, dev, seed: int) -> dict:
+    """16.1 for one config: serve LM_BATCH prompts, check and time."""
+    import gc
+    import statistics
+
+    import torch
+    from repro_torch.config import ShapeConfig
+    from repro_torch.models.api import build_model
+    from repro_torch.serve.engine import Engine, ServeConfig
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(seed, device=dev)
+    torch.cuda.synchronize(dev)
+    init_s = time.perf_counter() - t0
+    shape = ShapeConfig("serve", LM_PROMPT + cfg.n_patches, LM_BATCH,
+                        "prefill")
+    batch = model.make_batch(seed + 1, shape, device=dev)
+    counting = CountingLM(model)
+    eng = Engine(counting, params, ServeConfig(max_new_tokens=LM_NEW),
+                 device=dev)
+    t0 = time.perf_counter()
+    out = eng.generate(batch, seed=seed + 2)
+    torch.cuda.synchronize(dev)
+    first_s = time.perf_counter() - t0
+    check(counting.decode_calls == LM_NEW - 1,
+          f"{cfg.name}: {counting.decode_calls} decode_step calls, "
+          f"expected {LM_NEW - 1}")
+    check(tuple(out.shape) == (LM_BATCH, LM_NEW),
+          f"{cfg.name}: tokens of shape {tuple(out.shape)}")
+    check(bool(((out >= 0) & (out < cfg.vocab_pad)).all()),
+          f"{cfg.name}: token ids outside [0, {cfg.vocab_pad})")
+    check(bool(counting.finite), f"{cfg.name}: a non-finite logit")
+    t0 = time.perf_counter()
+    again = eng.generate(batch, seed=seed + 2)
+    torch.cuda.synchronize(dev)
+    warm_s = time.perf_counter() - t0
+    check(torch.equal(again, out), f"{cfg.name}: greedy tokens changed "
+          f"between two runs")
+    cache_len = LM_PROMPT + cfg.n_patches + LM_NEW
+    prefill_ms = statistics.median(event_ms(
+        lambda: model.prefill(params, batch, cache_len=cache_len), 3))
+    logits, caches = model.prefill(params, batch, cache_len=cache_len)
+    tok = torch.argmax(logits, dim=-1)[:, None]
+
+    def step():
+        nonlocal tok
+        lg, _ = model.decode_step(params, caches, tok)
+        tok = torch.argmax(lg, dim=-1)[:, None]
+
+    decode_ms = statistics.median(event_ms(step, LM_NEW - 1))
+    w_bytes, c_bytes = tree_bytes(params), tree_bytes(caches)
+    read = decode_weight_bytes(cfg, params) + c_bytes
+    bound_ms = 1e3 * read / HBM_BYTES_PER_S
+    rec = {"arch": cfg.name, "layers": cfg.n_layers,
+           "weight_bytes": w_bytes, "cache_bytes": c_bytes,
+           "decode_read_bytes": read, "init_s": init_s,
+           "first_generate_s": first_s, "prefill_ms": prefill_ms,
+           "decode_ms": decode_ms, "decode_bound_ms": bound_ms,
+           "decode_over_bound": decode_ms / bound_ms,
+           "tokens_per_s": LM_BATCH * LM_NEW / warm_s,
+           "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30}
+    del params, caches, logits, eng, counting, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def lm_teacher_forcing(name: str, dev, seed: int) -> float:
+    """16.2: prefill 8 + decode 4 against forward logits, full width, f32.
+    Returns the largest error over the allowance's scale."""
+    import gc
+
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models.api import build_model
+    from repro_torch.models.layers import matmul_f32
+
+    cfg = dataclasses.replace(get_arch(name), dtype="float32")
+    model = build_model(cfg)
+    params = model.init(seed, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 4)
+    tokens = torch.randint(0, cfg.vocab, (2, 12), generator=gen, device=dev,
+                           dtype=torch.int32)
+    with torch.inference_mode():
+        hidden = model.forward(params, {"tokens": torch.nn.functional.pad(
+            tokens, (0, 1))})
+        tf = matmul_f32(hidden, params["embed"].T)
+    worst = 0.0
+    logits, caches = model.prefill(params, {"tokens": tokens[:, :8]},
+                                   cache_len=12)
+    pairs = [(logits, tf[:, 7])]
+    for i in range(8, 12):
+        logits, caches = model.decode_step(params, caches,
+                                           tokens[:, i:i + 1])
+        pairs.append((logits, tf[:, i]))
+    for got, want in pairs:
+        d = (got - want).abs()
+        worst = max(worst, float((d / (TF_ATOL + TF_RTOL * want.abs()))
+                                 .max()))
+    print(f"16.2 {name} f32 full width: decode vs teacher forcing, worst "
+          f"|err| / (atol + rtol |ref|) = {worst:.3e} (rtol {TF_RTOL}, "
+          f"atol {TF_ATOL}), max |logit| {float(tf.abs().max()):.3e}")
+    check(worst <= 1.0, f"{name}: decode disagrees with teacher forcing")
+    del params, caches, hidden, tf
+    gc.collect()
+    torch.cuda.empty_cache()
+    return worst
+
+
+def lm_card_vs_cpu(name: str, dev, seed: int) -> float:
+    """16.3: a reduced f32 config, the same weights on the CPU and the
+    card, prefill + 3 decode steps fed the CPU's greedy tokens."""
+    import torch
+    from repro_torch.config import ShapeConfig
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.models.api import build_model
+    from repro_torch.models.params import tree_map
+
+    cfg = reduced(get_arch(name))
+    model = build_model(cfg)
+    cpu = torch.device("cpu")
+    p_cpu = model.init(seed, device=cpu)
+    b_cpu = model.make_batch(seed + 1, ShapeConfig("p", 24, 2, "prefill"),
+                             device=cpu)
+    p_dev = tree_map(lambda t: t.to(dev), p_cpu)
+    b_dev = {k: v.to(dev) for k, v in b_cpu.items()}
+    cache_len = 24 + cfg.n_patches + 3
+    lc, cc = model.prefill(p_cpu, b_cpu, cache_len=cache_len)
+    ld, cd = model.prefill(p_dev, b_dev, cache_len=cache_len)
+    worst = 0.0
+    for i in range(4):
+        d = (ld.cpu() - lc).abs()
+        worst = max(worst, float((d / (CPU_ATOL + CPU_RTOL * lc.abs()))
+                                 .max()))
+        if i == 3:
+            break
+        tok = torch.argmax(lc, dim=-1)[:, None]
+        lc, cc = model.decode_step(p_cpu, cc, tok)
+        ld, cd = model.decode_step(p_dev, cd, tok.to(dev))
+    print(f"16.3 {cfg.name}: card vs CPU, prefill + 3 decode steps, worst "
+          f"|err| / (atol + rtol |cpu|) = {worst:.3e} (rtol {CPU_RTOL}, "
+          f"atol {CPU_ATOL})")
+    check(worst <= 1.0, f"{cfg.name}: the card disagrees with the CPU")
+    return worst
+
+
+def lm_bf16_vs_f32(dev, seed: int) -> float:
+    """16.3: olmo-1b's first-token logits, bf16 against f32 of the same
+    weights, as a share of the largest f32 |logit|."""
+    import gc
+
+    import torch
+    from repro_torch.config import ShapeConfig
+    from repro_torch.configs import get_arch
+    from repro_torch.models.api import build_model
+    from repro_torch.models.params import tree_map
+
+    cfg = get_arch("olmo-1b")
+    m16 = build_model(cfg)
+    m32 = build_model(dataclasses.replace(cfg, dtype="float32"))
+    p16 = m16.init(seed, device=dev)
+    with torch.inference_mode():
+        p32 = tree_map(lambda t: t.float(), p16)
+    batch = m16.make_batch(seed + 1, ShapeConfig(
+        "serve", LM_PROMPT, LM_BATCH, "prefill"), device=dev)
+    l16, _ = m16.prefill(p16, batch)
+    l32, _ = m32.prefill(p32, batch)
+    frac = float((l16 - l32).abs().max() / l32.abs().max())
+    print(f"16.3 olmo-1b first-token logits, bf16 vs f32 of the same "
+          f"weights: max |diff| / max |f32 logit| = {frac:.3e} (limit "
+          f"{BF16_FRAC}), max |logit| {float(l32.abs().max()):.3e}")
+    check(frac <= BF16_FRAC, "olmo-1b bf16 logits stray from f32")
+    del p16, p32
+    gc.collect()
+    torch.cuda.empty_cache()
+    return frac
+
+
+def lm_decode_trace(dev, seed: int, steps: int = 8) -> dict:
+    """16.5: where one olmo-1b decode step's time goes (bf16, batch
+    LM_BATCH, after a LM_PROMPT prefill): wall ms per step (CUDA events,
+    median), device-busy ms per step (the union of the device intervals
+    torch.profiler records over ``steps`` steps), device kernels per step
+    and the five largest by device time."""
+    import gc
+    import statistics
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.config import ShapeConfig
+    from repro_torch.configs import get_arch
+    from repro_torch.models.api import build_model
+    from repro_torch.perf.trace import busy_us
+
+    cfg = get_arch("olmo-1b")
+    model = build_model(cfg)
+    params = model.init(seed, device=dev)
+    batch = model.make_batch(seed + 1, ShapeConfig(
+        "serve", LM_PROMPT, LM_BATCH, "prefill"), device=dev)
+    logits, caches = model.prefill(params, batch,
+                                   cache_len=LM_PROMPT + 4 * steps)
+    tok = torch.argmax(logits, dim=-1)[:, None]
+
+    def step():
+        nonlocal tok
+        lg, _ = model.decode_step(params, caches, tok)
+        tok = torch.argmax(lg, dim=-1)[:, None]
+
+    wall_ms = statistics.median(event_ms(step, steps))
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize(dev)
+    on_dev = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = busy_us([(e.time_range.start, e.time_range.end)
+                       for e in on_dev]) / 1e3 / steps
+    by_name: dict = {}
+    for e in on_dev:
+        by_name[e.name] = by_name.get(e.name, 0.0) + \
+            e.time_range.elapsed_us() / 1e3 / steps
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    rec = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+           "device_idle_share": 1.0 - busy_ms / wall_ms,
+           "device_kernels_per_step": len(on_dev) / steps,
+           "top_kernels_ms": [(n[:80], ms) for n, ms in top]}
+    print(f"16.5 olmo-1b decode step: wall {wall_ms:.3f} ms, device busy "
+          f"{busy_ms:.3f} ms (idle share {rec['device_idle_share']:.3f}), "
+          f"{rec['device_kernels_per_step']:.1f} device kernels per step; "
+          f"top by device ms: " + "; ".join(
+              f"{n} {ms:.3f}" for n, ms in rec["top_kernels_ms"]))
+    check(len(on_dev) > 0, "the profiler saw no device work in decode")
+    del params, caches, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def kernel_launch_counts() -> dict:
+    """Every kernel wrapper's launch count (the ten of the record)."""
+    from repro_torch.kernels.dense import ops as dense_ops
+    from repro_torch.kernels.mttkrp import ops as mttkrp_ops
+    from repro_torch.kernels.phi import ops as phi_ops
+    from repro_torch.kernels.stream import ops as stream_ops
+
+    return {**phi_ops.launch_counts, **mttkrp_ops.launch_counts,
+            **dense_ops.launch_counts, **stream_ops.launch_counts}
+
+
+def lm_phase(dev, seed: int) -> list:
+    """Phase 16: LM serving on the card (16.1-16.4).  The LM path reaches
+    none of the port's kernels: their launch counts must not move."""
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import serve as serve_launch
+
+    before = kernel_launch_counts()
+    t0 = time.perf_counter()
+    recs = []
+    for name, cfg in ARCHS.items():
+        cut = LM_DEPTH_CUT.get(name)
+        if cut:
+            cfg = dataclasses.replace(cfg, n_layers=cut)
+        rec = lm_serve_one(cfg, dev, seed)
+        depth = (f"depth cut {ARCHS[name].n_layers} -> {cut} layers"
+                 if cut else f"full depth {cfg.n_layers} layers")
+        print(f"16.1 {name} ({depth}), bf16, batch {LM_BATCH}, prompt "
+              f"{LM_PROMPT}{' + 1024 patches' if cfg.n_patches else ''}, "
+              f"{LM_NEW} new: prefill {rec['prefill_ms']:.3f} ms, decode "
+              f"{rec['decode_ms']:.3f} ms/step (bound "
+              f"{rec['decode_bound_ms']:.4f} ms, x"
+              f"{rec['decode_over_bound']:.1f}), "
+              f"{rec['tokens_per_s']:.1f} tok/s; weights "
+              f"{rec['weight_bytes'] / 2 ** 30:.2f} GiB, cache "
+              f"{rec['cache_bytes'] / 2 ** 20:.1f} MiB, peak "
+              f"{rec['peak_gib']:.2f} GiB")
+        recs.append(rec)
+    print("16.1 records: " + json.dumps(recs))
+    print(f"16.1 serve every config: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    for name in TF_ARCHS:
+        lm_teacher_forcing(name, dev, seed)
+    print(f"16.2 teacher forcing: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    for name in ARCHS:
+        lm_card_vs_cpu(name, dev, seed)
+    lm_bf16_vs_f32(dev, seed)
+    print(f"16.3 card vs CPU: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    rc = serve_launch.main(["--arch", "olmo-1b", "--full"])
+    check(rc == 0, f"the --arch launcher returned {rc}")
+    torch.cuda.empty_cache()
+    print(f"16.4 --arch olmo-1b --full: {time.perf_counter() - t0:.1f} s")
+    check(kernel_launch_counts() == before,
+          "the LM path launched one of the port's kernels")
+    print(f"phase 16 launched none of the {len(before)} kernels")
+    t0 = time.perf_counter()
+    lm_decode_trace(dev, seed)  # last: the profiler's set-up slows the host
+    print(f"16.5 decode-step trace: {time.perf_counter() - t0:.1f} s")
+    return recs
+
+
 def monotone(ll: list) -> bool:
     return all(b >= a - MONOTONE_SLACK * abs(a) for a, b in zip(ll, ll[1:]))
 
@@ -2724,6 +3136,11 @@ def main(argv=None) -> int:
     grid_launches = grid_phase(t, init, mvs, layouts, res, ref, sh, dev,
                                TIMING_ITERS)
     print(f"phase 15 (grid tier): {time.perf_counter() - t0:.1f} s")
+
+    # --- phase 16: LM serving ----------------------------------------------
+    t0 = time.perf_counter()
+    lm_phase(dev, args.seed)
+    print(f"phase 16 (LM serving): {time.perf_counter() - t0:.1f} s")
 
     # --- phase 10: one launch per fused dense step ------------------------
     one_launch_phase(*dense_first)

@@ -15,6 +15,10 @@ CP-APR checkpoints and resume) and take ``policy="auto"``, the persistent
 autotuner (:mod:`repro_torch.perf.autotune`).  The multi-tenant
 decomposition service (:mod:`repro_torch.serve`) drives CP-APR for many
 tenants: batched cold jobs, appends with warm starts, one shared tuner.
+The LM stack's serving path (:mod:`repro_torch.models`, the ten
+architectures of :mod:`repro_torch.configs`, and
+:class:`repro_torch.serve.engine.Engine`) serves batched prefill and
+decode in plain PyTorch; it reaches none of the CUDA kernels.
 """
 from . import core
 from .core import CPAPRConfig, CPAPRResult, cp_als, cpapr_mu

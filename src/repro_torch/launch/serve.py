@@ -1,4 +1,18 @@
-"""Serving drivers: the decomposition service's ``decomp`` subcommand.
+"""Serving entry points: LM serving (``--arch``) and the decomposition
+service's ``decomp`` subcommand.
+
+LM serving, batched prefill + decode on one device:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo-1b --full
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo-1b \\
+      --device cpu            # the reduced config, on the CPU
+
+Builds the model (``--full``: the published config in bf16; else its
+``reduced`` f32 form), draws its weights and a prompt batch from
+``--seed``, generates ``--new-tokens`` tokens for ``--batch`` prompts of
+``--prompt-len`` positions and prints the time and the first sequence.
+
+The decomposition service:
 
   PYTHONPATH=src python -m repro_torch.launch.serve decomp
   PYTHONPATH=src python -m repro_torch.launch.serve decomp --jobs 3 \\
@@ -12,9 +26,6 @@ package driver's: ``cpapr_mu`` of the merged tensor at its default
 strategy (``segment``) from a fresh seeded start.  It exits nonzero if
 the warm solve fails to converge where the cold one converges, or takes
 more sweeps than the cold one.
-
-The JAX package's LM serving driver (``--arch ...``) is ROADMAP A11 and
-raises :class:`~repro_torch.core.resilience.NotPortedError`.
 """
 from __future__ import annotations
 
@@ -24,11 +35,16 @@ import sys
 import tempfile
 import time
 
+import torch
+
+from ..config import ShapeConfig
+from ..configs import get_arch, reduced
 from ..core.cpapr import CPAPRConfig, cpapr_mu
-from ..core.resilience import NotPortedError
 from ..core.sparse_tensor import random_poisson_tensor
 from ..device import resolve_device
+from ..models.api import build_model
 from ..serve.decomp import DecompJob, DecompService
+from ..serve.engine import Engine, ServeConfig
 
 __all__ = ["main", "main_decomp"]
 
@@ -51,13 +67,7 @@ def main_decomp(argv=None) -> int:
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
-    if dev.type == "cuda":
-        import torch
-
-        where = torch.cuda.get_device_name(dev)
-    else:
-        where = "host"
-    print(f"[decomp] device={dev} ({where})")
+    print(f"[decomp] device={dev} ({_where(dev)})")
     with tempfile.TemporaryDirectory(prefix="repro-torch-serve-") as tmp:
         cache = args.autotune_cache or os.path.join(tmp, "autotune.json")
         return _drive(args, dev, cache)
@@ -111,13 +121,47 @@ def _drive(args, dev, cache: str) -> int:
     return 0
 
 
+def _where(dev) -> str:
+    return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "host"
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
     if argv and argv[0] == "decomp":
         return main_decomp(argv[1:])
-    raise NotPortedError("repro_torch.launch.serve: LM serving is not "
-                         "ported yet: ROADMAP A11 (LM stack); use the "
-                         "'decomp' subcommand")
+    ap = argparse.ArgumentParser(prog="repro_torch.launch.serve")
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=64)
+    ap.add_argument("--new-tokens", type=int, default=32)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--full", action="store_true")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+
+    dev = resolve_device(args.device)
+    cfg = get_arch(args.arch)
+    if not args.full:
+        cfg = reduced(cfg)
+    model = build_model(cfg)
+    params = model.init(args.seed, device=dev)
+    shape = ShapeConfig("serve", args.prompt_len, args.batch, "prefill")
+    batch = model.make_batch(args.seed + 1, shape, device=dev)
+    engine = Engine(model, params, ServeConfig(
+        max_new_tokens=args.new_tokens, temperature=args.temperature),
+        device=dev)
+    t0 = time.perf_counter()
+    out = engine.generate(batch, seed=args.seed + 2)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    dt = time.perf_counter() - t0
+    toks = args.batch * args.new_tokens
+    print(f"[serve] arch={cfg.name} device={dev} ({_where(dev)}) generated "
+          f"{tuple(out.shape)} tokens in {dt:.2f}s ({toks / dt:.1f} tok/s, "
+          f"eager: no compile)")
+    print("[serve] first sequence:", out[0, :16].tolist(), "...")
+    return 0
 
 
 if __name__ == "__main__":

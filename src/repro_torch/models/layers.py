@@ -1,0 +1,328 @@
+"""Shared model layers: norms, RoPE, chunked GQA/SWA attention, MLP, MoE.
+
+The JAX package's ``models/layers.py`` in plain PyTorch, function for
+function:
+
+  * Attention is query-chunked with masking from absolute positions, so
+    the same code serves forward (causal), SWA, prefill and decode (Sq=1
+    against a cache).  Scores for one chunk are (q_chunk x Skv).
+  * MoE ``moe`` is the sort-free capacity scatter (position-in-expert by
+    cumsum, ``index_put_(accumulate=True)`` into (E, C, d) buffers);
+    ``moe_grouped`` is the group-local one-hot dispatch.
+  * Where the reference asks for f32 results from bf16 operands
+    (``preferred_element_type=f32``), :func:`matmul_f32` asks cuBLAS for
+    an f32 output (``out_dtype``); the other products return the operand
+    dtype, as ``jnp.matmul`` does.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+__all__ = [
+    "NEG_INF",
+    "attention",
+    "causal_conv1d",
+    "gelu",
+    "matmul_f32",
+    "mlp",
+    "moe",
+    "moe_grouped",
+    "norm",
+    "rope",
+]
+
+NEG_INF = -1e30
+
+
+def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.matmul(a, b)`` with an f32 result.
+
+    f32 operands multiply as they are.  Mixed dtypes promote to f32 (as
+    in JAX).  bf16 operands on the card keep bf16 inputs and accumulate
+    into an f32 output (``torch.mm``/``torch.bmm`` with ``out_dtype``), so
+    no f32 copy of a weight is made; the CPU build has no such kernel,
+    and there the operands are upcast.
+    """
+    if a.dtype == b.dtype == torch.float32:
+        return torch.matmul(a, b)
+    if a.dtype != b.dtype or not a.is_cuda:
+        return torch.matmul(a.float(), b.float())
+    if b.dim() == 2:
+        out = torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=torch.float32)
+        return out.reshape(*a.shape[:-1], b.shape[-1])
+    batch = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
+    a3 = a.expand(*batch, *a.shape[-2:]).reshape(-1, *a.shape[-2:])
+    b3 = b.expand(*batch, *b.shape[-2:]).reshape(-1, *b.shape[-2:])
+    out = torch.bmm(a3, b3, out_dtype=torch.float32)
+    return out.reshape(*batch, a.shape[-2], b.shape[-1])
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default: the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+
+def norm(x, scale=None, bias=None, kind: str = "rmsnorm", eps: float = 1e-6):
+    """rmsnorm | layernorm | nonparametric (OLMo: LN without params)."""
+    xf = x.float()
+    if kind == "rmsnorm":
+        y = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    else:  # layernorm / nonparametric
+        mu = torch.mean(xf, dim=-1, keepdim=True)
+        var = torch.mean((xf - mu) ** 2, dim=-1, keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + eps)
+    if scale is not None:
+        y = y * scale.float()
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+
+def rope(x, positions, theta: float = 10_000.0):
+    """Rotary embedding.  x: (..., S, H, D); positions: (S,) or (B, S)."""
+    d = x.shape[-1]
+    half = d // 2
+    freq = torch.exp(-math.log(theta) * torch.arange(
+        0, half, dtype=torch.float32, device=x.device) / half)
+    ang = positions.float()[..., None] * freq  # (..., S, half)
+    sin, cos = torch.sin(ang)[..., None, :], torch.cos(ang)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention (GQA + causal/SWA masks + q-chunking)
+# ---------------------------------------------------------------------------
+
+
+def _attn_block(q, k, v, q_pos, kv_pos, kv_valid, causal, window):
+    """q: (B, Sq, Hkv, rep, D); k/v: (B, Skv, Hkv, D)."""
+    b, sq, hkv, rep, d = q.shape
+    skv = k.shape[1]
+    scale = 1.0 / math.sqrt(d)
+    # scores (B, Hkv, rep, Sq, Skv) = einsum("bqhrd,bkhd->bhrqk") in f32
+    qh = q.permute(0, 2, 3, 1, 4).reshape(b, hkv, rep * sq, d)
+    scores = matmul_f32(qh, k.permute(0, 2, 3, 1))
+    scores = scores.reshape(b, hkv, rep, sq, skv) * scale
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= q_pos[:, None] >= kv_pos[None, :]
+    if window is not None:
+        mask &= q_pos[:, None] - kv_pos[None, :] < window
+    if kv_valid is not None:  # (B, Skv) cache-slot validity
+        mask = (mask[None] & kv_valid[:, None, :])[:, None, None]
+    scores = torch.where(mask, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.matmul(probs.reshape(b, hkv, rep * sq, skv),
+                       v.permute(0, 2, 1, 3))  # (B, Hkv, rep*Sq, D)
+    return out.reshape(b, hkv, rep, sq, d).permute(0, 3, 1, 2, 4)
+
+
+def attention(
+    q,
+    k,
+    v,
+    q_pos,
+    kv_pos,
+    kv_valid=None,
+    causal: bool = True,
+    window: Optional[int] = None,
+    q_chunk: int = 1024,
+):
+    """Chunked multi-query attention.
+
+    q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D); Hq % Hkv == 0.
+    q_pos: (Sq,), kv_pos: (Skv,) absolute positions; kv_valid: (B, Skv).
+    Queries are cut into chunks of ``q_chunk``; the last chunk is padded
+    with rows at position -1 (masked everywhere), which are sliced off.
+    """
+    b, sq, hq, d = q.shape
+    hkv = k.shape[2]
+    rep = hq // hkv
+    qg = q.reshape(b, sq, hkv, rep, d)
+    if sq <= q_chunk:
+        out = _attn_block(qg, k, v, q_pos, kv_pos, kv_valid, causal, window)
+        return out.reshape(b, sq, hq, d)
+    pad = (-sq) % q_chunk
+    if pad:
+        qg = F.pad(qg, (0, 0, 0, 0, 0, 0, 0, pad))
+        q_pos = F.pad(q_pos, (0, pad), value=-1)
+    outs = [
+        _attn_block(qg[:, i:i + q_chunk], k, v, q_pos[i:i + q_chunk], kv_pos,
+                    kv_valid, causal, window)
+        for i in range(0, sq + pad, q_chunk)
+    ]
+    return torch.cat(outs, dim=1).reshape(b, sq + pad, hq, d)[:, :sq]
+
+
+# ---------------------------------------------------------------------------
+# MLP / MoE
+# ---------------------------------------------------------------------------
+
+
+def mlp(x, p, act: str = "silu_glu"):
+    """Dense FFN.  p: dict with wi_gate/wi_up/wo (glu) or wi/wo (gelu)."""
+    if act == "silu_glu":
+        g = torch.matmul(x, p["wi_gate"])
+        u = torch.matmul(x, p["wi_up"])
+        return torch.matmul(F.silu(g) * u, p["wo"])
+    return torch.matmul(gelu(torch.matmul(x, p["wi"])), p["wo"])
+
+
+def _route(xt, router, top_k: int):
+    """Router softmax (f32) and its renormalised top-k gates."""
+    probs = torch.softmax(matmul_f32(xt, router), dim=-1)
+    gate_vals, gate_idx = torch.topk(probs, top_k, dim=-1)  # (T, k)
+    gate_vals = gate_vals / torch.clamp(
+        gate_vals.sum(dim=-1, keepdim=True), min=1e-9)
+    return probs, gate_vals, gate_idx
+
+
+def _expert_ffn(buf, p, dtype):
+    """Grouped expert FFN on (E, C, d) -> f32 (E, C, d)."""
+    g = matmul_f32(buf, p["wi_gate"])
+    u = matmul_f32(buf, p["wi_up"])
+    h = (F.silu(g) * u).to(dtype)
+    return matmul_f32(h, p["wo"])
+
+
+def moe(x, p, n_experts: int, top_k: int, capacity_factor: float = 1.25):
+    """Top-k MoE with capacity-bounded scatter dispatch.
+
+    x: (B, S, d) -> ((B, S, d), router probs (T, E)).  p: router (d, E),
+    wi_gate/wi_up (E, d, f), wo (E, f, d).  A token past its expert's
+    capacity is dropped: it adds 0 into slot ``cap - 1``.
+    """
+    b, s, d = x.shape
+    t = b * s
+    xt = x.reshape(t, d)
+    probs, gate_vals, gate_idx = _route(xt, p["router"], top_k)
+
+    cap = max(int(capacity_factor * top_k * t / n_experts), 4)
+    buf = torch.zeros((n_experts, cap, d), dtype=x.dtype, device=x.device)
+    slot_of = []
+    prev_total = None
+    for kk in range(top_k):
+        e = gate_idx[:, kk]  # (T,)
+        onehot = F.one_hot(e, n_experts).to(torch.int32)  # (T, E)
+        pos_all = torch.cumsum(onehot, dim=0) - 1
+        pos = pos_all.gather(1, e[:, None])[:, 0]
+        # offset by tokens already scattered in earlier k-slots
+        if prev_total is not None:
+            pos = pos + prev_total[e]
+            prev_total = prev_total + onehot.sum(dim=0)
+        else:
+            prev_total = onehot.sum(dim=0)
+        keep = pos < cap
+        pos_c = torch.where(keep, pos, cap - 1).long()
+        buf.index_put_((e, pos_c), torch.where(keep[:, None], xt, 0).to(
+            x.dtype), accumulate=True)
+        slot_of.append((e, pos_c, keep))
+
+    out_buf = _expert_ffn(buf, p, x.dtype)
+    yt = torch.zeros((t, d), dtype=torch.float32, device=x.device)
+    for kk in range(top_k):
+        e, pos_c, keep = slot_of[kk]
+        w = gate_vals[:, kk] * keep
+        yt = yt + w[:, None] * out_buf[e, pos_c]
+    return yt.to(x.dtype).reshape(b, s, d), probs
+
+
+def moe_grouped(x, p, n_experts: int, top_k: int,
+                capacity_factor: float = 1.25, group_size: int = 512,
+                group_chunk: int = 1):
+    """Top-k MoE with group-local one-hot dispatch (GShard-style).
+
+    Tokens are split into groups of ``group_size`` (halved until it
+    divides the token count); dispatch and combine are one-hot products
+    within each group over the (E * cap) slot space, accumulated per
+    k-slot.  Groups run ``group_chunk`` at a time (a Python loop where the
+    reference scans).  x: (B, S, d) -> ((B, S, d), router probs (T, E)).
+    """
+    b, s, d = x.shape
+    t = b * s
+    xt = x.reshape(t, d)
+    probs, gate_vals, gate_idx = _route(xt, p["router"], top_k)
+
+    gs = min(group_size, t)
+    while t % gs:
+        gs //= 2
+    ng = t // gs
+    cap = max(int(capacity_factor * top_k * gs / n_experts), 4)
+
+    e_g = gate_idx.reshape(ng, gs, top_k)
+    w_g = gate_vals.reshape(ng, gs, top_k).float()
+    # rank of each (token, slot) within its expert, per group, slot-major
+    onehot_i = F.one_hot(e_g, n_experts).to(torch.int32)  # (ng, gs, k, E)
+    flat = onehot_i.permute(0, 2, 1, 3).reshape(ng, top_k * gs, n_experts)
+    pos_flat = torch.cumsum(flat, dim=1) - 1
+    pos = pos_flat.reshape(ng, top_k, gs, n_experts).permute(0, 2, 1, 3)
+    pos = torch.sum(pos * onehot_i, dim=-1)  # (ng, gs, k)
+    keep = pos < cap
+    w_g = w_g * keep  # dropped tokens contribute nothing
+
+    ec = n_experts * cap
+    xg = xt.reshape(ng, gs, d)
+    gc = (ng if group_chunk <= 1 else
+          max(g for g in range(1, min(group_chunk, ng) + 1) if ng % g == 0))
+    iota = torch.arange(ec, device=x.device).reshape(1, 1, ec)
+    ys = []
+    for c0 in range(0, ng, gc):
+        sl = slice(c0, c0 + gc)
+        e_c, w_c, keep_c, pos_c, x_c = (e_g[sl], w_g[sl], keep[sl],
+                                        pos[sl], xg[sl])
+        disp = torch.zeros((gc, gs, ec), dtype=x.dtype, device=x.device)
+        comb = torch.zeros((gc, gs, ec), dtype=x.dtype, device=x.device)
+        for kk in range(top_k):
+            slot = torch.where(keep_c[..., kk],
+                               e_c[..., kk] * cap + pos_c[..., kk], ec)
+            hit = (slot[..., None] == iota).to(x.dtype)  # (gc, gs, ec)
+            disp = disp + hit
+            comb = comb + w_c[..., kk:kk + 1].to(x.dtype) * hit
+        # buf (gc, E, cap, d) = einsum("gsec,gsd->gecd", disp, x_c), f32 acc
+        buf = matmul_f32(disp.transpose(1, 2), x_c).to(x.dtype)
+        buf = buf.reshape(gc, n_experts, cap, d)
+        # expert FFN over (E, gc*cap, d)
+        eb = buf.permute(1, 0, 2, 3).reshape(n_experts, gc * cap, d)
+        out_buf = _expert_ffn(eb, p, x.dtype)  # (E, gc*cap, d) f32
+        out_buf = out_buf.reshape(n_experts, gc, cap, d).permute(1, 0, 2, 3)
+        # y (gc, gs, d) = einsum("gsec,gecd->gsd", comb, out_buf) in f32
+        y_c = torch.matmul(comb.float(), out_buf.reshape(gc, ec, d))
+        ys.append(y_c.to(x.dtype))
+    yt = torch.cat(ys, dim=0)
+    return yt.reshape(b, s, d), probs
+
+
+def causal_conv1d(x, w, state=None):
+    """Depthwise causal conv.  x: (B, S, C); w: (C, K).
+
+    If ``state`` is given ((B, K-1, C), decode path with S small), the
+    conv runs over [state; x] and the new state is returned.
+    """
+    k = w.shape[1]
+    if state is not None:
+        xin = torch.cat([state, x], dim=1)
+        new_state = xin[:, -(k - 1):, :] if k > 1 else state
+    else:
+        xin = F.pad(x, (0, 0, k - 1, 0))
+        new_state = xin[:, -(k - 1):, :] if k > 1 else None
+    s_out = x.shape[1]
+    y = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for tap in range(k):
+        y = y + xin[:, tap:tap + s_out, :].float() * w[:, tap].float()
+    return y.to(x.dtype), new_state

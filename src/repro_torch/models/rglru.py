@@ -1,0 +1,339 @@
+"""RecurrentGemma / Griffin hybrid: RG-LRU recurrent blocks + local attention,
+in a (rec, rec, local-attn) repeating pattern — arXiv:2402.19427.
+
+Temporal mix per layer:
+  * recurrent block: two branches — gate = gelu(W_gate x); rec = RG-LRU(
+    conv1d(W_rec x)); y = W_out (gate * rec)
+  * local-attn block: GQA/MQA with a sliding window (bounded ring cache)
+Each layer is followed by a GLU MLP; pre-RMSNorm residuals throughout.
+
+The RG-LRU diagonal recurrence
+  r_t = sigmoid(W_a x_t + b_a);  i_t = sigmoid(W_x x_t + b_x)
+  a_t = exp(-c * softplus(Lambda) * r_t)          (c = 8)
+  h_t = a_t h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t)
+runs as a sequential loop over time in forward/prefill (the reference's
+``lax.associative_scan`` has no PyTorch counterpart) and as an O(1)
+update in decode.
+
+Parameters are stacked over super-blocks of ``hybrid_period`` sublayers;
+the layers past the last whole period are trailing recurrent layers
+(recurrentgemma-9b: 12 super-blocks + 2).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from ..config import ArchConfig
+from .layers import attention, causal_conv1d, gelu, matmul_f32, mlp, norm
+from .params import ParamSpec, empty_caches, tree_map
+from .transformer import _qkv, act_dtype, write_ring
+
+__all__ = [
+    "param_specs",
+    "forward",
+    "prefill",
+    "decode_step",
+    "cache_specs",
+    "rg_lru",
+    "rg_lru_ref",
+]
+
+_C = 8.0  # Griffin's fixed gate sharpness
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU core
+# ---------------------------------------------------------------------------
+
+
+def _lru_coeffs(x, p):
+    """a (decay) and b (input) coefficient streams.  x: (B, S, W)."""
+    xf = x.float()
+    r = torch.sigmoid(xf @ p["w_a"].float() + p["b_a"])
+    i = torch.sigmoid(xf @ p["w_x"].float() + p["b_x"])
+    log_a = -_C * F.softplus(p["lam"]) * r  # (B, S, W)
+    a = torch.exp(log_a)
+    # multiplier sqrt(1 - a^2), computed stably via expm1
+    mult = torch.sqrt(-torch.expm1(2.0 * log_a))
+    return a, mult * (i * xf)
+
+
+def rg_lru(x, p, h0=None):
+    """RG-LRU over a sequence.  x: (B, S, W).  Returns (y (B, S, W) f32,
+    h_last (B, W) f32)."""
+    a, b = _lru_coeffs(x, p)
+    h = (torch.zeros_like(b[:, 0]) if h0 is None else h0.float())
+    ys = torch.empty_like(b)
+    for t in range(x.shape[1]):
+        h = a[:, t] * h + b[:, t]
+        ys[:, t] = h
+    return ys, h
+
+
+def rg_lru_ref(x, p, h0=None):
+    """Sequential oracle for rg_lru (the reference's own, step by step)."""
+    a, b = _lru_coeffs(x, p)
+    bsz, s, w = x.shape
+    h = (torch.zeros((bsz, w), dtype=torch.float32, device=x.device)
+         if h0 is None else h0.float())
+    ys = []
+    for t in range(s):
+        h = a[:, t] * h + b[:, t]
+        ys.append(h)
+    return torch.stack(ys, dim=1), h
+
+
+def _rg_lru_step(x1, p, h0):
+    """O(1) decode update.  x1: (B, 1, W); h0: (B, W)."""
+    a, b = _lru_coeffs(x1, p)
+    h = a[:, 0] * h0.float() + b[:, 0]
+    return h[:, None], h
+
+
+# ---------------------------------------------------------------------------
+# Parameter specs
+# ---------------------------------------------------------------------------
+
+
+def _rec_specs(cfg: ArchConfig, lead, la) -> dict:
+    d, w = cfg.d_model, cfg.lru_width or cfg.d_model
+    f32 = torch.float32
+    return {
+        "ln1": ParamSpec(lead + (d,), la + ("embed",), dtype=f32, init="ones"),
+        "w_gate_in": ParamSpec(lead + (d, w), la + ("embed", "heads")),
+        "w_rec_in": ParamSpec(lead + (d, w), la + ("embed", "heads")),
+        "conv_w": ParamSpec(lead + (w, cfg.d_conv), la + ("heads", None)),
+        "conv_b": ParamSpec(lead + (w,), la + ("heads",), init="zeros"),
+        "w_a": ParamSpec(lead + (w, w), la + ("heads", None), dtype=f32,
+                         scale=0.1),
+        "b_a": ParamSpec(lead + (w,), la + (None,), dtype=f32, init="zeros"),
+        "w_x": ParamSpec(lead + (w, w), la + ("heads", None), dtype=f32,
+                         scale=0.1),
+        "b_x": ParamSpec(lead + (w,), la + (None,), dtype=f32, init="zeros"),
+        "lam": ParamSpec(lead + (w,), la + (None,), dtype=f32, init="ones"),
+        "w_rec_out": ParamSpec(lead + (w, d), la + ("heads", "embed")),
+    }
+
+
+def _attn_specs(cfg: ArchConfig, lead, la) -> dict:
+    d, (qd, kvd) = cfg.d_model, cfg.qkv_dims
+    return {
+        "ln1": ParamSpec(lead + (d,), la + ("embed",), dtype=torch.float32,
+                         init="ones"),
+        "wq": ParamSpec(lead + (d, qd), la + ("embed", "heads")),
+        "wk": ParamSpec(lead + (d, kvd), la + ("embed", "kv")),
+        "wv": ParamSpec(lead + (d, kvd), la + ("embed", "kv")),
+        "wo": ParamSpec(lead + (qd, d), la + ("heads", "embed")),
+    }
+
+
+def _mlp_specs(cfg: ArchConfig, lead, la) -> dict:
+    d, f = cfg.d_model, cfg.d_ff
+    return {
+        "ln2": ParamSpec(lead + (d,), la + ("embed",), dtype=torch.float32,
+                         init="ones"),
+        "wi_gate": ParamSpec(lead + (d, f), la + ("embed", "mlp")),
+        "wi_up": ParamSpec(lead + (d, f), la + ("embed", "mlp")),
+        "wo_mlp": ParamSpec(lead + (f, d), la + ("mlp", "embed")),
+    }
+
+
+def _layout(cfg: ArchConfig):
+    """(n_super, trailing): whole periods + trailing recurrent layers."""
+    period = cfg.hybrid_period or 3
+    return cfg.n_layers // period, cfg.n_layers % period
+
+
+def _restack(specs: dict, lead: tuple) -> dict:
+    """Specs with their one leading layer dim replaced by ``lead``."""
+    return {k: ParamSpec(lead + s.shape[1:],
+                         ("layers",) + (None,) * (len(lead) - 1) + s.axes[1:],
+                         dtype=s.dtype, init=s.init, scale=s.scale)
+            for k, s in specs.items()}
+
+
+def param_specs(cfg: ArchConfig) -> dict:
+    period = cfg.hybrid_period or 3
+    n_super, trailing = _layout(cfg)
+    lead, la = (n_super,), ("layers",)
+    # super-block: (period-1) recurrent sub-layers + 1 local-attn
+    # sub-layer, each followed by an MLP
+    specs = {
+        "embed": ParamSpec((cfg.vocab_pad, cfg.d_model), ("vocab", "embed")),
+        "blocks": {
+            "rec": _restack(_rec_specs(cfg, lead, la), (n_super, period - 1)),
+            "attn": _attn_specs(cfg, lead, la),
+            "mlp": _restack(_mlp_specs(cfg, lead, la), (n_super, period)),
+        },
+        "final_norm": ParamSpec((cfg.d_model,), ("embed",),
+                                dtype=torch.float32, init="ones"),
+    }
+    if trailing:
+        specs["trailing"] = {
+            "rec": _restack(_rec_specs(cfg, lead, la), (trailing,)),
+            "mlp": _restack(_mlp_specs(cfg, lead, la), (trailing,)),
+        }
+    return specs
+
+
+# ---------------------------------------------------------------------------
+# Sub-layer application
+# ---------------------------------------------------------------------------
+
+
+def _rec_sublayer(x, p, cfg: ArchConfig, cache=None):
+    """Recurrent temporal mix.  cache: {'h': (B, W), 'conv': (B, K-1, W)},
+    written in place, or None."""
+    h_in = norm(x, p["ln1"], kind=cfg.norm)
+    gate = gelu(matmul_f32(h_in, p["w_gate_in"]))
+    rec = matmul_f32(h_in, p["w_rec_in"]).to(x.dtype)
+    rec, new_conv = causal_conv1d(
+        rec, p["conv_w"], state=None if cache is None else cache["conv"])
+    rec = rec + p["conv_b"].to(rec.dtype)
+    if cache is not None and x.shape[1] == 1:
+        y, new_h = _rg_lru_step(rec, p, cache["h"])
+    else:
+        y, new_h = rg_lru(rec, p, h0=None if cache is None else cache["h"])
+    out = matmul_f32((y * gate).to(x.dtype), p["w_rec_out"]).to(x.dtype)
+    if cache is not None:
+        cache["h"].copy_(new_h)
+        cache["conv"].copy_(new_conv)
+    return x + out
+
+
+def _attn_sublayer(x, p, cfg: ArchConfig, q_pos, cache=None):
+    """Local (sliding-window) attention with a ring cache written in
+    place."""
+    b, s, _ = x.shape
+    window = cfg.window or 2048
+    h = norm(x, p["ln1"], kind=cfg.norm)
+    q, k, v = _qkv(h, p, cfg, q_pos)
+    if cache is None or s > 1:
+        if cache is not None:
+            write_ring(cache, k, v, q_pos, prefill=True)
+        o = attention(q, k, v, q_pos, q_pos, causal=True, window=window,
+                      q_chunk=cfg.attn_q_chunk)
+    else:
+        write_ring(cache, k, v, q_pos, prefill=False)
+        kv_valid = (cache["kv_pos"] >= 0)[None, :].expand(b, -1)
+        o = attention(q, cache["k"], cache["v"], q_pos, cache["kv_pos"],
+                      kv_valid=kv_valid, causal=True, window=window,
+                      q_chunk=cfg.attn_q_chunk)
+    o = torch.matmul(o.reshape(b, s, -1), p["wo"])
+    return x + o.to(x.dtype)
+
+
+def _mlp_sublayer(x, p, cfg: ArchConfig):
+    h = norm(x, p["ln2"], kind=cfg.norm)
+    y = mlp(h, {"wi_gate": p["wi_gate"], "wi_up": p["wi_up"],
+                "wo": p["wo_mlp"]}, act="silu_glu")
+    return x + y.to(x.dtype)
+
+
+def _pick(tree, *idx):
+    return tree_map(lambda a: a[idx], tree)
+
+
+def _run(params, x, cfg: ArchConfig, q_pos, caches=None):
+    """Super-blocks, then the trailing recurrent layers; ``caches`` are
+    written in place."""
+    period = cfg.hybrid_period or 3
+    blocks = params["blocks"]
+    n_super = blocks["attn"]["wq"].shape[0]
+    for i in range(n_super):
+        for j in range(period - 1):
+            c = None if caches is None else _pick(caches["scan"]["rec"], i, j)
+            x = _rec_sublayer(x, _pick(blocks["rec"], i, j), cfg, c)
+            x = _mlp_sublayer(x, _pick(blocks["mlp"], i, j), cfg)
+        c = None if caches is None else {
+            n: caches["scan"]["attn"][n][i] for n in ("k", "v", "kv_pos")}
+        x = _attn_sublayer(x, _pick(blocks["attn"], i), cfg, q_pos, c)
+        x = _mlp_sublayer(x, _pick(blocks["mlp"], i, period - 1), cfg)
+    if "trailing" in params:
+        tr = params["trailing"]
+        for j in range(tr["rec"]["w_a"].shape[0]):
+            c = None if caches is None else _pick(caches["trailing"], j)
+            x = _rec_sublayer(x, _pick(tr["rec"], j), cfg, c)
+            x = _mlp_sublayer(x, _pick(tr["mlp"], j), cfg)
+    if caches is not None:
+        caches["scan"]["attn"]["pos"] += x.shape[1]
+        caches["pos"] += x.shape[1]
+    return x
+
+
+# ---------------------------------------------------------------------------
+# Public API
+# ---------------------------------------------------------------------------
+
+
+def _embed(params, tokens, cfg):
+    return params["embed"][tokens.long()].to(act_dtype(cfg))
+
+
+def forward(params, tokens, cfg: ArchConfig):
+    x = _embed(params, tokens, cfg)
+    q_pos = torch.arange(x.shape[1], device=x.device)
+    x = _run(params, x, cfg, q_pos, None)
+    return norm(x, params["final_norm"], kind=cfg.norm)
+
+
+def _logits(params, hidden):
+    return matmul_f32(hidden, params["embed"].T)
+
+
+def cache_specs(cfg: ArchConfig, batch: int, cache_len: int) -> dict:
+    period = cfg.hybrid_period or 3
+    n_super, trailing = _layout(cfg)
+    w = cfg.lru_width or cfg.d_model
+    skv = min(cache_len, cfg.window or 2048)
+    hkv, dh = cfg.n_kv_heads, cfg.d_head
+    dt = act_dtype(cfg)
+
+    def rec_cache(lead, la):
+        return {
+            "h": ParamSpec(lead + (batch, w), la + ("batch", "heads"),
+                           dtype=torch.float32, init="zeros"),
+            "conv": ParamSpec(lead + (batch, cfg.d_conv - 1, w),
+                              la + ("batch", None, "heads"), dtype=dt,
+                              init="zeros"),
+        }
+
+    kv_axes = ("layers", "batch", "kv_seq", "kv", None)
+    specs = {
+        "scan": {
+            "rec": rec_cache((n_super, period - 1), ("layers", None)),
+            "attn": {
+                "k": ParamSpec((n_super, batch, skv, hkv, dh), kv_axes,
+                               dtype=dt, init="zeros"),
+                "v": ParamSpec((n_super, batch, skv, hkv, dh), kv_axes,
+                               dtype=dt, init="zeros"),
+                "kv_pos": ParamSpec((n_super, skv), ("layers", "kv_seq"),
+                                    dtype=torch.int32, init="zeros"),
+                "pos": ParamSpec((n_super,), ("layers",), dtype=torch.int32,
+                                 init="zeros"),
+            },
+        },
+        "pos": ParamSpec((), (), dtype=torch.int32, init="zeros"),
+    }
+    if trailing:
+        specs["trailing"] = rec_cache((trailing,), ("layers",))
+    return specs
+
+
+def prefill(params, tokens, cfg: ArchConfig, cache_len: int | None = None):
+    bsz, s = tokens.shape
+    cache_len = max(cache_len or s, s)
+    x = _embed(params, tokens, cfg)
+    caches = empty_caches(cache_specs(cfg, bsz, cache_len), x.device)
+    x = _run(params, x, cfg, torch.arange(s, device=x.device), caches)
+    h_last = norm(x[:, -1], params["final_norm"], kind=cfg.norm)
+    return _logits(params, h_last), caches
+
+
+def decode_step(params, caches, tokens, cfg: ArchConfig):
+    x = _embed(params, tokens, cfg)
+    q_pos = caches["pos"].reshape(1).long()
+    x = _run(params, x, cfg, q_pos, caches)
+    h = norm(x[:, 0], params["final_norm"], kind=cfg.norm)
+    return _logits(params, h), caches

@@ -329,7 +329,9 @@ def test_import_hygiene():
         "import repro_torch.kernels.phi.ops, repro_torch.kernels.phi.kernel\n"
         "import repro_torch.kernels._build, repro_torch.data.tensors\n"
         "import repro_torch.perf.timing, repro_torch.perf.trace\n"
-        "import repro_torch.launch.decompose\n"
+        "import repro_torch.launch.decompose, repro_torch.launch.serve\n"
+        "import repro_torch.models, repro_torch.models.api\n"
+        "import repro_torch.serve.engine, repro_torch.configs\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "print('BAD', bad)\n"
@@ -358,15 +360,23 @@ def no_card():
 
 @pytest.mark.parametrize("entry", ("cpapr_mu", "make_tensor", "phi_from_rows",
                                    "phi_mu_step", "decompose",
-                                   "random_poisson_tensor"))
+                                   "random_poisson_tensor", "model_init",
+                                   "make_batch", "init_caches", "engine",
+                                   "serve_arch"))
 def test_entry_points_default_to_cuda_and_raise(no_card, entry):
+    from repro_torch.config import ShapeConfig
+    from repro_torch.configs import ARCHS, reduced
     from repro_torch.core import phi as P_phi
     from repro_torch.core.sparse_tensor import random_poisson_tensor
     from repro_torch.data.tensors import make_tensor
+    from repro_torch.launch import serve as P_serve
     from repro_torch.launch.decompose import decompose
+    from repro_torch.models.api import build_model
+    from repro_torch.serve.engine import Engine
 
     pt, _ = port_problem("uniform")
     x = torch.zeros(3)
+    model = build_model(reduced(ARCHS["olmo-1b"]))
     calls = {
         "cpapr_mu": lambda: P_cpapr.cpapr_mu(pt, RANK),
         "make_tensor": lambda: make_tensor("uber", scale=0.0),
@@ -376,6 +386,12 @@ def test_entry_points_default_to_cuda_and_raise(no_card, entry):
             x.long(), x, x[:, None], x[:, None], 3),
         "decompose": lambda: decompose("uber", scale=0.0),
         "random_poisson_tensor": lambda: random_poisson_tensor((3, 3), 5),
+        "model_init": lambda: model.init(0),
+        "make_batch": lambda: model.make_batch(
+            0, ShapeConfig("p", 8, 1, "prefill")),
+        "init_caches": lambda: model.init_caches(1, 8),
+        "engine": lambda: Engine(model, None),
+        "serve_arch": lambda: P_serve.main(["--arch", "olmo-1b"]),
     }
     with pytest.raises(RuntimeError, match="cuda"):
         calls[entry]()

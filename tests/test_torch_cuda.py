@@ -7,7 +7,10 @@ CP-ALS ``cuda`` and ``dense``) with their launch counts, against the
 ``segment`` solves on the CPU.  The STREAM kernel (``stream.cu``) is held
 bitwise to its plain version on the card.  The row-sharded and N-D grid
 tiers run B2/B3 once per shard and once per grid cell, counted, against
-their plain blocked schedules.
+their plain blocked schedules.  The LM serving path (plain PyTorch, no
+kernel of the port) runs its ten reduced configs on the card against
+the CPU, crosses the ring cache's window and counts the engine's decode
+steps.
 
 Everything here needs an NVIDIA GPU and skips with a reason without one.
 The file imports neither jax nor the JAX package, so it also runs on a
@@ -1238,3 +1241,116 @@ def test_grid_solves_on_the_card(card):
     want = P_cpals.cp_als(t, RANK, n_iters=2, init=kt, strategy="grid",
                           n_shards=4, policy=blocked, device="cpu")[1]
     np.testing.assert_allclose(fits, want, rtol=1e-5, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# LM serving: the card against the CPU (plain PyTorch ops, no kernel here)
+# ---------------------------------------------------------------------------
+
+LM_RTOL, LM_ATOL = 1e-4, 1e-5  # reduced f32 configs, card vs CPU
+
+
+def _lm(name):
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.models.api import build_model
+
+    cfg = reduced(ARCHS[name])
+    return cfg, build_model(cfg)
+
+
+def _lm_on(dev, params, batch):
+    from repro_torch.models.params import tree_map
+
+    return (tree_map(lambda t: t.to(dev), params),
+            {k: v.to(dev) for k, v in batch.items()})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ("granite-8b", "h2o-danube-1.8b",
+                                  "llama4-maverick-400b-a17b", "mamba2-1.3b",
+                                  "olmo-1b", "pixtral-12b",
+                                  "qwen3-moe-235b-a22b", "recurrentgemma-9b",
+                                  "stablelm-3b", "whisper-medium"))
+def test_lm_prefill_and_decode_card_against_cpu(card, name):
+    """The same weights and prompt on both devices: prefill and three
+    decode steps fed the CPU's greedy tokens, logits and caches within
+    LM_RTOL/LM_ATOL (TF32 is off by default for matmuls)."""
+    from repro_torch.config import ShapeConfig
+    from repro_torch.models.params import tree_leaves
+
+    cfg, model = _lm(name)
+    params = model.init(0, device="cpu")
+    batch = model.make_batch(1, ShapeConfig("p", 24, 2, "prefill"),
+                             device="cpu")
+    p_dev, b_dev = _lm_on(card, params, batch)
+    cache_len = 24 + cfg.n_patches + 3
+    lc, cc = model.prefill(params, batch, cache_len=cache_len)
+    ld, cd = model.prefill(p_dev, b_dev, cache_len=cache_len)
+    for step in range(4):
+        np.testing.assert_allclose(ld.cpu().numpy(), lc.numpy(),
+                                   rtol=LM_RTOL, atol=LM_ATOL,
+                                   err_msg=f"step {step}")
+        for a, b in zip(tree_leaves(cd), tree_leaves(cc)):
+            np.testing.assert_allclose(a.cpu().float().numpy(),
+                                       b.float().numpy(), rtol=LM_RTOL,
+                                       atol=LM_ATOL)
+        if step < 3:
+            tok = torch.argmax(lc, dim=-1)[:, None]
+            lc, cc = model.decode_step(params, cc, tok)
+            ld, cd = model.decode_step(p_dev, cd, tok.to(card))
+
+
+@pytest.mark.cuda
+def test_lm_ring_cache_crosses_the_window_on_the_card(card):
+    """Reduced h2o-danube (window 16), prompt 24: the card's ring keeps
+    the last 16 positions at slot pos % 16, and each decode step writes
+    the next slot."""
+    from repro_torch.config import ShapeConfig
+
+    _, model = _lm("h2o-danube-1.8b")
+    params = model.init(0, device=card)
+    batch = model.make_batch(1, ShapeConfig("p", 24, 2, "prefill"),
+                             device=card)
+    _, caches = model.prefill(params, batch, cache_len=30)
+    want = np.arange(8, 24)
+    want = want[np.argsort(want % 16)]
+    for row in caches["kv_pos"].reshape(-1, 16).cpu().numpy():
+        np.testing.assert_array_equal(row, want)
+    tok = batch["tokens"][:, -1:]
+    for pos in (24, 25):
+        _, caches = model.decode_step(params, caches, tok)
+        assert bool((caches["kv_pos"][..., pos % 16] == pos).all())
+        assert bool((caches["pos"] == pos + 1).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ("olmo-1b", "mamba2-1.3b",
+                                  "recurrentgemma-9b", "whisper-medium"))
+def test_lm_engine_decode_steps_on_the_card(card, name):
+    """n new tokens cost exactly n-1 decode steps on the card, and the
+    greedy tokens equal the CPU engine's on the same weights."""
+    from repro_torch.config import ShapeConfig
+    from repro_torch.serve.engine import Engine, ServeConfig
+
+    cfg, model = _lm(name)
+
+    class Counting:
+        calls = 0
+
+        def prefill(self, *a, **k):
+            return model.prefill(*a, **k)
+
+        def decode_step(self, *a):
+            Counting.calls += 1
+            return model.decode_step(*a)
+
+    params = model.init(0, device="cpu")
+    batch = model.make_batch(1, ShapeConfig("p", 16, 2, "prefill"),
+                             device="cpu")
+    p_dev, b_dev = _lm_on(card, params, batch)
+    got = Engine(Counting(), p_dev, ServeConfig(max_new_tokens=6),
+                 device=card).generate(b_dev)
+    assert Counting.calls == 5 and got.device.type == "cuda"
+    want = Engine(model, params, ServeConfig(max_new_tokens=6),
+                  device="cpu").generate(batch)
+    assert torch.equal(got.cpu(), want)
