@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's CP-APR and CP-ALS paths on one NVIDIA card.
+"""Drive the PyTorch port's CP-APR, CP-ALS and LM paths on one NVIDIA card.
 
   python3 chip_smoke.py                      # uber, scale 1.0, rank 16
   python3 chip_smoke.py --tensor nell2       # the 77M-nonzero tensor
@@ -203,9 +203,35 @@ Phases (any failure exits nonzero before the last line):
     logits in bf16 against f32 of the same weights, within BF16_FRAC of
     the largest |logit|.  (4) ``repro_torch.launch.serve.main(["--arch",
     "olmo-1b", "--full"])`` returns 0.  No kernel's launch count moves
-    in phase 16.  (5) Last, where olmo-1b's decode step goes: wall ms
-    per step beside the device-busy ms torch.profiler records (the idle
-    share) and the device kernels per step.
+    in phase 16.  (5) Where olmo-1b's decode step goes: wall ms per step
+    beside the device-busy ms torch.profiler records (the idle share)
+    and the device kernels per step; it runs after phase 17, with 17.3.
+17. LM training on one device (run after phase 16), which reaches no
+    kernel of this port either (TF32 off).  (1) ``launch.train.main``
+    at full width: olmo-1b, bf16, AdamW, 6 steps with a checkpoint every
+    3, then the same command with ``--steps 8``, which resumes at step 6
+    and ends at step 8 (the checkpoints, ~11 GiB each, go under
+    ``build/chip_smoke/`` and are removed).  (2) The timed step: olmo-1b
+    at full width, bf16, AdamW, batch TRAIN_BATCH x seq TRAIN_SEQ, remat
+    per layer as its config says; after TRAIN_WARMUP steps, the median of
+    TRAIN_TIMED by CUDA events and by the host clock, the loss and its
+    gradient alone, tokens/s, peak memory, state bytes and MFU: 6 N T
+    over the step's seconds times BF16_TENSOR_FLOPS (remat's recomputed
+    forward is not counted: MFU counts the model's FLOPs).  (3) Last,
+    with 16.5, where that step goes: wall ms beside torch.profiler's
+    device-busy ms, the idle share and the device kernels per step.
+    (4) One full-width bf16 step each of mamba2-1.3b and whisper-medium
+    (ms, loss finite, peak); the others' state bytes (parameters,
+    optimizer state, f32 gradients) against the card's 80 GiB.  (5) The
+    ten reduced f32 configs on the card: the same batch stepped twice
+    lowers a finite loss; one step against the CPU's from the same
+    weights and batch, loss, grad norm and every state leaf within
+    CPU_RTOL/CPU_ATOL (the rounding-sensitive update entries, where the
+    gradient's own scale is below 1e-6, at their update bound; llama4's
+    top-1 router, whose gradient is rounding noise, as a listed noise
+    leaf); olmo-1b at full width, a bf16 step against an f32 step of the
+    same weights: loss and grad norm within TRAIN_BF16_REL.  No kernel's
+    launch count moves in phase 17.
 10. One launch per fused dense step: the device kernels of one
     ``phi_mu_dense`` call on the near-dense tensor's mode 0, counted with
     torch.profiler (last, so that no timed phase runs under its set-up):
@@ -214,7 +240,7 @@ Phases (any failure exits nonzero before the last line):
 The counted main-path solves of phases 3, 5 and 6 fail on any demotion
 (``recoveries`` must be empty): a ladder that quietly ran a plain
 strategy would otherwise pass as the kernel; so do phases 13's, 14's
-and 15's.  Phases 7-9 and 11-16 print their own times.  The line before
+and 15's.  Phases 7-9 and 11-17 print their own times.  The line before
 the last is the per-kernel JSON record (``launches`` from the counted
 runs of phases 3-7, ``service_launches`` from phase 13's,
 ``sharded_launches`` from phase 14's, ``grid_launches`` from phase
@@ -307,6 +333,19 @@ TF_RTOL = TF_ATOL = 2e-2
 # against f32 of the same weights, as a share of the largest |logit|
 CPU_RTOL, CPU_ATOL = 1e-4, 1e-5
 BF16_FRAC = 3e-2
+# Phase 17, LM training: the reference launcher's defaults (batch 8 x seq
+# 128 = 1024 tokens per step, lr 3e-4)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 8, 128, 3e-4
+TRAIN_WARMUP, TRAIN_TIMED = 2, 5  # olmo-1b: untimed, then timed steps
+TRAIN_FULL_ONE = ("mamba2-1.3b", "whisper-medium")  # one full-width step
+# 17.5: card vs CPU on reduced f32 steps (as 16.3, lr 1e-3 as the CPU
+# tests); bf16 against f32 of the same weights: loss and grad norm
+TRAIN_CMP_LR = 1e-3
+TRAIN_BF16_REL = 3e-2
+# dense bf16 tensor-core peak of an H100 SXM, published (NVIDIA H100
+# datasheet, without sparsity): the bound of a bf16 train step's matmuls
+BF16_TENSOR_FLOPS = 989.4e12
+CARD_BYTES = 80 * 2 ** 30  # an H100 SXM's HBM3
 CSRC = "src/repro_torch/kernels/csrc"
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "phi_blocked": ("phi.cu", "src/repro/kernels/phi/kernel.py:139"),
@@ -2949,10 +2988,366 @@ def lm_phase(dev, seed: int) -> list:
     check(kernel_launch_counts() == before,
           "the LM path launched one of the port's kernels")
     print(f"phase 16 launched none of the {len(before)} kernels")
-    t0 = time.perf_counter()
-    lm_decode_trace(dev, seed)  # last: the profiler's set-up slows the host
-    print(f"16.5 decode-step trace: {time.perf_counter() - t0:.1f} s")
     return recs
+
+
+# ---------------------------------------------------------------------------
+# Phase 17: LM training on one device
+# ---------------------------------------------------------------------------
+
+
+def train_state_bytes(cfg) -> dict:
+    """Bytes of one train step's state at ``cfg``'s size, from its specs
+    (no allocation): parameters, the optimizer state of ``cfg.optimizer``
+    and the f32 gradients."""
+    from repro_torch.models.api import build_model
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.train.optimizer import opt_state_specs
+
+    def nbytes(tree):
+        return sum(math.prod(s.shape) * s.dtype.itemsize
+                   for s in tree_leaves(tree))
+
+    specs = build_model(cfg).param_specs()
+    n = sum(math.prod(s.shape) for s in tree_leaves(specs))
+    out = {"params": nbytes(specs),
+           "opt": nbytes(opt_state_specs(cfg.optimizer, specs)),
+           "grads_f32": 4 * n}
+    out["total"] = sum(out.values())
+    return out
+
+
+def _train_setup(cfg, dev, seed: int, lr: float = TRAIN_LR, batch=None):
+    from repro_torch.config import ShapeConfig
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models.api import build_model
+    from repro_torch.train.optimizer import make_optimizer
+    from repro_torch.train.step import init_state, make_train_step
+
+    model = build_model(cfg)
+    opt = make_optimizer(cfg.optimizer, lr=lr)
+    state = init_state(model, opt, seed, device=dev)
+    shape = ShapeConfig("train", TRAIN_SEQ, batch or TRAIN_BATCH, "train")
+    pipe = TokenPipeline(cfg, shape, seed=seed, device=dev)
+    return model, make_train_step(model, opt), state, pipe
+
+
+def lm_train_launcher(dev, seed: int) -> None:
+    """17.1: ``launch.train.main`` at full width (olmo-1b, bf16), 6 steps
+    with a checkpoint every 3, then the same command with ``--steps 8``,
+    which must resume at step 6 and end at step 8."""
+    import contextlib
+    import io
+    import shutil
+
+    import torch
+    from repro_torch.launch import train as train_launch
+    from repro_torch.train.checkpoint import latest_step
+
+    ck = os.path.join(HERE, "build", "chip_smoke", "train_ckpt")
+    shutil.rmtree(ck, ignore_errors=True)
+    argv = ["--arch", "olmo-1b", "--full", "--ckpt-every", "3",
+            "--ckpt-dir", ck, "--seed", str(seed)]
+    try:
+        for steps, start in ((6, 0), (8, 6)):
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rc = train_launch.main(argv + ["--steps", str(steps)])
+            secs = time.perf_counter() - t0
+            lines = out.getvalue().splitlines()
+            for ln in lines:
+                print(f"17.1   {ln}")
+            check(rc == 0, f"launch.train returned {rc}")
+            check(f"start_step={start}" in lines[0],
+                  f"--steps {steps}: expected start_step={start}: {lines[0]}")
+            check(lines[-1].startswith(f"[train] done at step {steps}"),
+                  f"--steps {steps}: {lines[-1]}")
+            check(latest_step(ck) == steps, f"LATEST is {latest_step(ck)}")
+            n = sum(ln.startswith("[train] step") for ln in lines)
+            check(n == steps - start, f"{n} step lines, expected "
+                  f"{steps - start}")
+            ckpt_mb = sum(os.path.getsize(os.path.join(ck, f))
+                          for f in os.listdir(ck)) / 2 ** 20
+            print(f"17.1 launch.train --arch olmo-1b --full --steps {steps} "
+                  f"--ckpt-every 3: start {start}, {secs:.1f} s (init or "
+                  f"restore, steps, checkpoints), {ckpt_mb:.0f} MiB on disk")
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+
+
+def lm_train_timed(dev, seed: int) -> dict:
+    """17.2: full-width olmo-1b, bf16, AdamW, batch TRAIN_BATCH x seq
+    TRAIN_SEQ, remat as the config says (per layer), TF32 off.  Per step:
+    median ms by CUDA events and by the host clock (the step ends on a
+    host read of its loss), tokens/s, peak memory, state bytes and MFU."""
+    import gc
+    import statistics
+
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models.params import count_params
+    from repro_torch.train.step import _value_and_grad
+
+    cfg = get_arch("olmo-1b")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    model, step, state, pipe = _train_setup(cfg, dev, seed)
+    batch = pipe.make_batch(0)
+    losses, dev_ms, host_ms = [], [], []
+    for i in range(TRAIN_WARMUP + TRAIN_TIMED):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        state, m = step(state, batch)
+        b.record()
+        loss = float(m["loss"])
+        host = 1e3 * (time.perf_counter() - t0)
+        b.synchronize()
+        losses.append(loss)
+        if i >= TRAIN_WARMUP:
+            dev_ms.append(a.elapsed_time(b))
+            host_ms.append(host)
+    check(all(math.isfinite(x) for x in losses),
+          f"olmo-1b full-width losses not finite: {losses}")
+    # the loss and its gradient alone (forward, remat's recompute and the
+    # backward): the rest of the step is casts, clip and the update
+    grad_ms = statistics.median(event_ms(
+        lambda: _value_and_grad(model, state["params"], batch), 3))
+    n_params = count_params(model.param_specs())
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    ms = statistics.median(dev_ms)
+    rec = {"arch": cfg.name, "params": n_params, "tokens_per_step": tokens,
+           "ms_per_step": ms, "host_ms_per_step": statistics.median(host_ms),
+           "loss_and_grad_ms": grad_ms,
+           "step_ms": dev_ms, "tokens_per_s": tokens / (ms / 1e3),
+           "model_flops_per_step": 6.0 * n_params * tokens,
+           "state_bytes": tree_bytes(state),
+           "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+           "losses": losses}
+    rec["mfu"] = rec["model_flops_per_step"] / (ms / 1e3) / BF16_TENSOR_FLOPS
+    print(f"17.2 olmo-1b full width, bf16, AdamW, batch {TRAIN_BATCH} x seq "
+          f"{TRAIN_SEQ} ({tokens} tokens), remat per layer: "
+          f"{ms:.3f} ms/step by CUDA events (host clock "
+          f"{rec['host_ms_per_step']:.3f} ms; the loss and its gradient "
+          f"alone {grad_ms:.3f} ms), {rec['tokens_per_s']:.0f} "
+          f"tokens/s, MFU {rec['mfu']:.4f} (6 N T = "
+          f"{rec['model_flops_per_step']:.4e} FLOP over "
+          f"{BF16_TENSOR_FLOPS:.4e} FLOP/s; remat's recomputed forward is "
+          f"not counted: MFU counts the model's FLOPs, not the hardware's); "
+          f"state {rec['state_bytes'] / 2 ** 30:.2f} GiB, peak "
+          f"{rec['peak_gib']:.2f} GiB; step ms {[round(x, 3) for x in dev_ms]}"
+          f"; losses {[round(x, 4) for x in losses]}")
+    del state, step, model, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def lm_train_bf16_vs_f32(dev, seed: int) -> None:
+    """17.5: olmo-1b full width, one step in bf16 and one in f32 from the
+    same weights (the bf16 ones upcast) and batch: loss and grad norm
+    within TRAIN_BF16_REL of the f32 step's."""
+    import gc
+
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models.api import build_model
+    from repro_torch.models.params import tree_map
+
+    cfg16 = get_arch("olmo-1b")
+    out = []
+    for cfg in (cfg16, dataclasses.replace(cfg16, dtype="float32")):
+        model, step, state, pipe = _train_setup(cfg, dev, seed)
+        if cfg.dtype == "float32":  # the bf16 draw, upcast
+            del state["params"]
+            state["params"] = tree_map(lambda t: t.float(), build_model(
+                cfg16).init(seed, device=dev))
+        _, m = step(state, pipe.make_batch(0))
+        out.append((float(m["loss"]), float(m["grad_norm"])))
+        del model, step, state, m
+        gc.collect()
+        torch.cuda.empty_cache()
+    (l16, g16), (l32, g32) = out
+    rl, rg = abs(l16 - l32) / abs(l32), abs(g16 - g32) / abs(g32)
+    print(f"17.5 olmo-1b full width, one step bf16 vs f32 of the same "
+          f"weights: loss {l16:.6f} vs {l32:.6f} (rel {rl:.3e}), grad norm "
+          f"{g16:.6f} vs {g32:.6f} (rel {rg:.3e}); limit {TRAIN_BF16_REL}")
+    check(rl <= TRAIN_BF16_REL and rg <= TRAIN_BF16_REL,
+          "olmo-1b bf16 train step strays from f32")
+
+
+def lm_train_full_one(name: str, dev, seed: int) -> dict:
+    """17.4: one full-width bf16 step of ``name`` (after one untimed
+    step): ms (CUDA events), loss finite, peak memory."""
+    import gc
+
+    import torch
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch(name)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    model, step, state, pipe = _train_setup(cfg, dev, seed)
+    batch = pipe.make_batch(0)
+    state, m0 = step(state, batch)
+    first = float(m0["loss"])
+    ms = event_ms(lambda: step(state, batch)[1]["loss"].item(), 1)[0]
+    rec = {"arch": name, "ms_per_step": ms, "loss": first,
+           "state_bytes": tree_bytes(state),
+           "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30}
+    print(f"17.4 {name} full width, bf16, {cfg.optimizer}, batch "
+          f"{TRAIN_BATCH} x seq {TRAIN_SEQ}: {ms:.3f} ms/step, loss "
+          f"{first:.4f}, state {rec['state_bytes'] / 2 ** 30:.2f} GiB, peak "
+          f"{rec['peak_gib']:.2f} GiB")
+    check(math.isfinite(first), f"{name}: loss not finite")
+    del state, step, model, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def lm_train_reduced(name: str, dev, seed: int) -> dict:
+    """17.5 for one reduced f32 config: (1) on the card, the same batch
+    stepped twice: losses finite and falling; (2) one step on the card
+    against the CPU from the same weights and batch: loss, grad norm and
+    every state leaf within CPU_RTOL/CPU_ATOL (rounding-sensitive update
+    entries at their bound, ``repro_torch.testing.train_parity``)."""
+    import torch
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.models.params import tree_map
+    from repro_torch.testing.train_parity import compare_states
+
+    cfg = reduced(get_arch(name))
+    model, step, state, pipe = _train_setup(cfg, dev, seed,
+                                            lr=TRAIN_CMP_LR, batch=2)
+    batch = pipe.make_batch(0)
+    s1, m1 = step(state, batch)
+    _, m2 = step(s1, batch)
+    l1, l2 = float(m1["loss"]), float(m2["loss"])
+    check(math.isfinite(l1) and math.isfinite(l2) and l2 < l1,
+          f"{cfg.name}: the same batch stepped twice: {l1} -> {l2}")
+    cpu = torch.device("cpu")
+    s_cpu, m_cpu = step(tree_map(lambda t: t.to(cpu), state),
+                        {k: v.to(cpu) for k, v in batch.items()})
+    rel = max(abs(float(m1[k]) - float(m_cpu[k]))
+              / (CPU_ATOL + CPU_RTOL * abs(float(m_cpu[k])))
+              for k in ("loss", "grad_norm"))
+    cmp = compare_states(s1, s_cpu, TRAIN_CMP_LR, CPU_RTOL, CPU_ATOL)
+    print(f"17.5 {cfg.name}: losses {l1:.5f} -> {l2:.5f}; card vs CPU "
+          f"one step: loss/grad norm {rel:.3e}, state worst {cmp['worst']:.3e}"
+          f" of the allowance, sensitive entries {cmp['n_sensitive_out']} "
+          f"out (worst {cmp['sensitive_worst']:.3e} of 2 lr), noise leaves "
+          f"{cmp['noise_leaves']}")
+    check(rel <= 1.0 and cmp["worst"] <= 1.0 and cmp["sensitive_worst"] <= 1.0
+          and cmp["n_sensitive_out"] <= 8,
+          f"{cfg.name}: the card's train step disagrees with the CPU's")
+    check(cmp["noise_leaves"] == (["blocks/router"] if cfg.top_k == 1
+                                  else []),
+          f"{cfg.name}: unexpected noise leaves {cmp['noise_leaves']}")
+    return {"arch": cfg.name, "losses": [l1, l2], "card_vs_cpu": cmp,
+            "metric_ratio": rel}
+
+
+def lm_train_trace(dev, seed: int, steps: int = 2) -> dict:
+    """17.3: where one full-width olmo-1b train step goes: wall ms per
+    step (CUDA events) beside the device-busy ms torch.profiler records
+    over ``steps`` steps, the idle share, device kernels per step and the
+    five largest by device ms.  Run last, as 16.5."""
+    import gc
+    import statistics
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_arch
+    from repro_torch.perf.trace import busy_us
+
+    model, step, state, pipe = _train_setup(get_arch("olmo-1b"), dev, seed)
+    batch = pipe.make_batch(0)
+    box = [state]
+
+    def one():
+        box[0], m = step(box[0], batch)
+        float(m["loss"])
+
+    one()
+    wall_ms = statistics.median(event_ms(one, steps))
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            one()
+        torch.cuda.synchronize(dev)
+    on_dev = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = busy_us([(e.time_range.start, e.time_range.end)
+                       for e in on_dev]) / 1e3 / steps
+    by_name: dict = {}
+    for e in on_dev:
+        by_name[e.name] = by_name.get(e.name, 0.0) + \
+            e.time_range.elapsed_us() / 1e3 / steps
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    rec = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+           "device_idle_share": 1.0 - busy_ms / wall_ms,
+           "device_kernels_per_step": len(on_dev) / steps,
+           "top_kernels_ms": [(n[:80], ms) for n, ms in top]}
+    print(f"17.3 olmo-1b train step: wall {wall_ms:.3f} ms, device busy "
+          f"{busy_ms:.3f} ms (idle share {rec['device_idle_share']:.3f}), "
+          f"{rec['device_kernels_per_step']:.1f} device kernels per step; "
+          f"top by device ms: " + "; ".join(
+              f"{n} {ms:.3f}" for n, ms in rec["top_kernels_ms"]))
+    check(len(on_dev) > 0, "the profiler saw no device work in a train step")
+    del box, state, step, model, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def train_phase(dev, seed: int) -> dict:
+    """Phase 17: LM training on the card (17.1, 17.2, 17.4, 17.5; 17.3
+    runs last).  The training path reaches none of the port's kernels:
+    their launch counts must not move."""
+    from repro_torch.configs import ARCHS, reduced
+
+    before = kernel_launch_counts()
+    out = {}
+    t0 = time.perf_counter()
+    lm_train_launcher(dev, seed)
+    print(f"17.1 launcher and resume: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    out["olmo"] = lm_train_timed(dev, seed)
+    print(f"17.2 timed olmo-1b steps: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    out["full_one"] = [lm_train_full_one(n, dev, seed) for n in TRAIN_FULL_ONE]
+    for name, cfg in ARCHS.items():
+        if name in TRAIN_FULL_ONE or name == "olmo-1b":
+            continue
+        b = train_state_bytes(cfg)
+        fits = b["total"] < CARD_BYTES
+        print(f"17.4 {name} at full width: params "
+              f"{b['params'] / 2 ** 30:.1f} GiB + {cfg.optimizer} state "
+              f"{b['opt'] / 2 ** 30:.1f} GiB + f32 grads "
+              f"{b['grads_f32'] / 2 ** 30:.1f} GiB = "
+              f"{b['total'] / 2 ** 30:.1f} GiB before activations: "
+              + ("fits the card, not stepped here (its family's backward "
+                 "runs in 17.2)" if fits else
+                 f"does not fit one {CARD_BYTES / 2 ** 30:.0f} GiB card; "
+                 f"it trains reduced only (17.5)"))
+    print(f"17.4 full-width steps: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    out["reduced"] = [lm_train_reduced(n, dev, seed) for n in ARCHS]
+    lm_train_bf16_vs_f32(dev, seed)
+    print(f"17.5 correctness: {time.perf_counter() - t0:.1f} s")
+    check(kernel_launch_counts() == before,
+          "the training path launched one of the port's kernels")
+    print(f"phase 17 launched none of the {len(before)} kernels")
+    print("17 records: " + json.dumps(
+        {"olmo": out["olmo"], "full_one": out["full_one"]}))
+    return out
 
 
 def monotone(ll: list) -> bool:
@@ -3141,6 +3536,19 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     lm_phase(dev, args.seed)
     print(f"phase 16 (LM serving): {time.perf_counter() - t0:.1f} s")
+
+    # --- phase 17: LM training ---------------------------------------------
+    t0 = time.perf_counter()
+    train_phase(dev, args.seed)
+    print(f"phase 17 (LM training): {time.perf_counter() - t0:.1f} s")
+
+    # --- 16.5 and 17.3: the traces (the profiler's set-up slows the host) --
+    t0 = time.perf_counter()
+    lm_decode_trace(dev, args.seed)
+    print(f"16.5 decode-step trace: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    lm_train_trace(dev, args.seed)
+    print(f"17.3 train-step trace: {time.perf_counter() - t0:.1f} s")
 
     # --- phase 10: one launch per fused dense step ------------------------
     one_launch_phase(*dense_first)

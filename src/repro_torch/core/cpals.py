@@ -56,6 +56,8 @@ def mttkrp(
     n_rows: int,
     strategy: str = "scatter",
     layout=None,
+    mesh=None,
+    local_strategy: str = "blocked",
     sorted_rows: bool = False,
     device="cuda",
 ) -> torch.Tensor:
@@ -63,12 +65,15 @@ def mttkrp(
     :func:`krao_reduce_rows` but ``dense``.
 
     ``indices`` may be unsorted for ``scatter`` and ``segment``;
-    ``blocked``/``cuda`` need the mode-``n``-sorted stream (use a
-    :class:`ModeView` and :func:`mttkrp_mode`).
+    ``blocked``/``cuda``/``sharded`` need the mode-``n``-sorted stream
+    (use a :class:`ModeView` and :func:`mttkrp_mode`).  ``layout``,
+    ``mesh`` and ``local_strategy`` (the shard-local flavour of
+    ``sharded``/``grid``) go on to :func:`krao_reduce_rows`.
     """
     kr = pi_rows(indices, factors, n)
     return krao_reduce_rows(indices[:, n], values, kr, n_rows,
-                            strategy=strategy, layout=layout,
+                            strategy=strategy, layout=layout, mesh=mesh,
+                            local_strategy=local_strategy,
                             sorted_rows=sorted_rows, device=device)
 
 
@@ -77,11 +82,14 @@ def mttkrp_mode(
     factors: Sequence[torch.Tensor],
     strategy: str = "segment",
     layout=None,
+    mesh=None,
+    local_strategy: str = "blocked",
     device="cuda",
 ) -> torch.Tensor:
     """MTTKRP on a sorted mode view (the layout-friendly entry point)."""
     return mttkrp(mv.sorted_idx, mv.sorted_vals, factors, mv.mode, mv.n_rows,
-                  strategy=strategy, layout=layout, sorted_rows=True,
+                  strategy=strategy, layout=layout, mesh=mesh,
+                  local_strategy=local_strategy, sorted_rows=True,
                   device=device)
 
 

@@ -81,6 +81,7 @@ from .policy import default_policy, heuristic_policy
 from .sparse_tensor import ModeView
 
 __all__ = [
+    "ALL_PHI_STRATEGIES",
     "PHI_STRATEGIES",
     "canonical_strategy",
     "expand_to_grid",
@@ -94,8 +95,11 @@ __all__ = [
     "phi_mu_step",
 ]
 
-PHI_STRATEGIES = ("scatter", "segment", "blocked", "cuda", "dense",
-                  "sharded", "grid")
+PHI_STRATEGIES = ("scatter", "segment", "blocked", "cuda", "dense")
+# "sharded": the blocked schedule over row-block shards with one combine;
+# "grid": the same over an (A x B) device grid.  Both run over a mesh or
+# emulated on one device (core/distributed.py).
+ALL_PHI_STRATEGIES = PHI_STRATEGIES + ("sharded", "grid")
 _ALIASES = {"pallas": "cuda"}
 
 
@@ -103,7 +107,7 @@ def canonical_strategy(strategy: str) -> str:
     """Map an alias (``"pallas"``) to the port's strategy name and reject
     unknown ones."""
     s = _ALIASES.get(strategy, strategy)
-    if s not in PHI_STRATEGIES:
+    if s not in ALL_PHI_STRATEGIES:
         raise ValueError(f"unknown strategy {strategy!r}")
     return s
 

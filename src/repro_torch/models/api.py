@@ -19,8 +19,11 @@ Batch layouts:
   mamba2 / rglru_hybrid: {"tokens": (B, S+1) i32}
   encdec:      {"tokens": (B, S+1) i32, "frames": (B, n_frames, d)}
 
-Everything runs under ``torch.inference_mode()``: this package serves;
-training is a later slice.  Decode caches are written in place.
+The serving methods (``forward``, ``prefill``, ``decode_step``,
+``init_caches``) run under ``torch.inference_mode()``; decode caches are
+written in place.  ``init`` builds the parameters under
+``torch.no_grad()``, so they can enter autograd, and ``loss_fn`` records
+a gradient whenever its inputs ask for one (``repro_torch.train``).
 """
 from __future__ import annotations
 
@@ -32,7 +35,7 @@ import torch
 from ..config import ArchConfig, ShapeConfig
 from ..device import resolve_device
 from . import mamba2, rglru, transformer, whisper
-from .layers import matmul_f32
+from .layers import matmul_f32, remat
 from .params import abstract_params, cast_specs, empty_caches, init_params
 from .transformer import act_dtype
 
@@ -50,7 +53,9 @@ def chunked_ce_loss(params, hidden, labels, cfg: ArchConfig,
                     logits_fn: Callable | None = None):
     """Mean CE over valid (label >= 0) tokens, computed ``ce_chunk``
     positions at a time so the full (B, S, V) logits never exist.
-    Vocab-padding logits are masked out."""
+    Vocab-padding logits are masked out.  Under autograd each chunk is
+    rematted, as the reference's ``@jax.checkpoint chunk``: its f32
+    logits are recomputed in the backward, not kept."""
     if logits_fn is None:
         def logits_fn(p, h):
             w = p["embed"].T if cfg.tie_embeddings else p["unembed"]
@@ -60,19 +65,22 @@ def chunked_ce_loss(params, hidden, labels, cfg: ArchConfig,
     c = min(cfg.ce_chunk, s)
     while s % c:
         c //= 2
-    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
-    cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
-    for i in range(0, s, c):
-        lab = labels[:, i:i + c]
-        logits = logits_fn(params, hidden[:, i:i + c])  # (B, c, V_pad) f32
+
+    def chunk(h, lab):
+        logits = logits_fn(params, h)  # (B, c, V_pad) f32
         viota = torch.arange(logits.shape[-1], device=logits.device)
         logits = torch.where(viota < cfg.vocab, logits, -1e30)
         lse = torch.logsumexp(logits, dim=-1)
         gold = torch.sum(torch.where(viota == lab[..., None].long(), logits,
                                      0.0), dim=-1)
-        valid = (lab >= 0).float()
-        tot = tot + torch.sum((lse - gold) * valid)
-        cnt = cnt + torch.sum(valid)
+        return torch.sum((lse - gold) * (lab >= 0).float())
+
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(0, s, c):
+        lab = labels[:, i:i + c]
+        tot = tot + remat(chunk, hidden[:, i:i + c], lab)
+        cnt = cnt + torch.sum((lab >= 0).float())
     return tot / torch.clamp(cnt, min=1.0)
 
 
@@ -96,8 +104,10 @@ class Model:
             specs = cast_specs(specs, torch.float32)
         return specs
 
-    @torch.inference_mode()
     def init(self, seed: int = 0, device="cuda"):
+        """Parameters on ``device``, drawn under ``torch.no_grad()``
+        (plain tensors, not inference tensors: training takes their
+        gradient)."""
         return init_params(self.param_specs(), seed, device)
 
     def abstract_params(self):
@@ -118,10 +128,8 @@ class Model:
     def forward(self, params, batch):
         return self._hidden(params, batch)
 
-    @torch.inference_mode()
     def loss_fn(self, params, batch):
-        """Forward-only loss (its gradient belongs to the training
-        slice)."""
+        """Mean next-token CE; differentiable in ``params``."""
         hidden = self._hidden(params, batch)
         labels = batch["tokens"][:, 1:]
         if "patches" in batch:

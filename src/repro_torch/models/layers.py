@@ -11,8 +11,11 @@ function:
     ``moe_grouped`` is the group-local one-hot dispatch.
   * Where the reference asks for f32 results from bf16 operands
     (``preferred_element_type=f32``), :func:`matmul_f32` asks cuBLAS for
-    an f32 output (``out_dtype``); the other products return the operand
-    dtype, as ``jnp.matmul`` does.
+    an f32 output (``out_dtype``), with JAX's transpose rule as its
+    gradient; the other products return the operand dtype, as
+    ``jnp.matmul`` does.
+  * :func:`remat` runs a layer under activation checkpointing (the
+    reference's ``jax.checkpoint``) when a gradient is being recorded.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 __all__ = [
     "NEG_INF",
@@ -32,25 +36,16 @@ __all__ = [
     "moe",
     "moe_grouped",
     "norm",
+    "remat",
     "rope",
 ]
 
 NEG_INF = -1e30
 
 
-def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``torch.matmul(a, b)`` with an f32 result.
-
-    f32 operands multiply as they are.  Mixed dtypes promote to f32 (as
-    in JAX).  bf16 operands on the card keep bf16 inputs and accumulate
-    into an f32 output (``torch.mm``/``torch.bmm`` with ``out_dtype``), so
-    no f32 copy of a weight is made; the CPU build has no such kernel,
-    and there the operands are upcast.
-    """
-    if a.dtype == b.dtype == torch.float32:
-        return torch.matmul(a, b)
-    if a.dtype != b.dtype or not a.is_cuda:
-        return torch.matmul(a.float(), b.float())
+def _bf16_product_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """bf16 operands on the card, f32 accumulation and output (cuBLAS
+    ``out_dtype``); ``b`` 2-D or batched like ``a``."""
     if b.dim() == 2:
         out = torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=torch.float32)
         return out.reshape(*a.shape[:-1], b.shape[-1])
@@ -59,6 +54,64 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     b3 = b.expand(*batch, *b.shape[-2:]).reshape(-1, *b.shape[-2:])
     out = torch.bmm(a3, b3, out_dtype=torch.float32)
     return out.reshape(*batch, a.shape[-2], b.shape[-1])
+
+
+class _MatmulF32(torch.autograd.Function):
+    """:func:`_bf16_product_f32` with JAX's transpose rule for
+    ``dot_general(preferred_element_type=f32)``: each operand's cotangent
+    is the f32 product of the f32 cotangent with the other operand, cast
+    to that operand's dtype.  Only the bf16 operands are saved; the f32
+    copy of the other operand lives for one product of the backward."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return _bf16_product_f32(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = torch.matmul(g, b.float().mT).sum_to_size(a.shape)
+            ga = ga.to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            if b.dim() == 2:
+                gb = torch.matmul(a.reshape(-1, a.shape[-1]).float().T,
+                                  g.reshape(-1, g.shape[-1]))
+            else:
+                gb = torch.matmul(a.float().mT, g).sum_to_size(b.shape)
+            gb = gb.to(b.dtype)
+        return ga, gb
+
+
+def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.matmul(a, b)`` with an f32 result.
+
+    f32 operands multiply as they are.  Mixed dtypes promote to f32 (as
+    in JAX).  bf16 operands on the card keep bf16 inputs and accumulate
+    into an f32 output (``torch.mm``/``torch.bmm`` with ``out_dtype``), so
+    no f32 copy of a weight is made; PyTorch has no derivative for that
+    product, so :class:`_MatmulF32` supplies JAX's.  The CPU build has no
+    such kernel, and there the operands are upcast (autograd
+    differentiates the upcast product as it is).
+    """
+    if a.dtype == b.dtype == torch.float32:
+        return torch.matmul(a, b)
+    if a.dtype != b.dtype or not a.is_cuda:
+        return torch.matmul(a.float(), b.float())
+    return _MatmulF32.apply(a, b)
+
+
+def remat(fn, *args, on: bool = True):
+    """``fn(*args)``, under ``torch.utils.checkpoint`` (non-reentrant)
+    when ``on`` and a gradient is being recorded: its activations are
+    dropped after the forward and recomputed in the backward, as the
+    reference's ``jax.checkpoint``.  The values are the same either
+    way."""
+    if on and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:

@@ -14,7 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config import ArchConfig
-from .layers import causal_conv1d, matmul_f32, norm
+from .layers import causal_conv1d, matmul_f32, norm, remat
 from .params import ParamSpec, empty_caches
 from .transformer import act_dtype
 
@@ -228,19 +228,26 @@ def _mamba_mix(x_in, p, cfg: ArchConfig, state=None, conv_state=None):
     return out, new_state, new_conv
 
 
+def _block(x, p, cfg: ArchConfig):
+    """One training-forward layer (no cache)."""
+    y, _, _ = _mamba_mix(norm(x, p["ln"], kind="rmsnorm"), p, cfg)
+    return x + y
+
+
 def _run(params, x, cfg: ArchConfig, caches=None):
-    """Every layer in turn; ``caches`` are written in place."""
-    blocks = params["blocks"]
+    """Every layer in turn (each rematted under ``cfg.remat`` when no
+    cache is given); ``caches`` are written in place."""
+    per = {k: v.unbind(0) for k, v in params["blocks"].items()}
     for i in range(cfg.n_layers):
-        p = {k: v[i] for k, v in blocks.items()}
-        h = norm(x, p["ln"], kind="rmsnorm")
+        p = {k: per[k][i] for k in per}
         if caches is None:
-            y, _, _ = _mamba_mix(h, p, cfg)
-        else:
-            y, ns, nc = _mamba_mix(h, p, cfg, state=caches["ssm"][i],
-                                   conv_state=caches["conv"][i])
-            caches["ssm"][i] = ns
-            caches["conv"][i] = nc
+            x = remat(_block, x, p, cfg, on=cfg.remat)
+            continue
+        h = norm(x, p["ln"], kind="rmsnorm")
+        y, ns, nc = _mamba_mix(h, p, cfg, state=caches["ssm"][i],
+                               conv_state=caches["conv"][i])
+        caches["ssm"][i] = ns
+        caches["conv"][i] = nc
         x = x + y
     if caches is not None:
         caches["pos"] += x.shape[1]

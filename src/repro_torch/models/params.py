@@ -83,6 +83,7 @@ def _init_leaf(spec: ParamSpec, gen: torch.Generator,
     return out
 
 
+@torch.no_grad()
 def init_params(tree, seed: int = 0, device="cuda"):
     """ParamSpec tree -> tensor tree on ``device``.
 

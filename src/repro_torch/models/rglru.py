@@ -25,7 +25,8 @@ import torch
 import torch.nn.functional as F
 
 from ..config import ArchConfig
-from .layers import attention, causal_conv1d, gelu, matmul_f32, mlp, norm
+from .layers import (attention, causal_conv1d, gelu, matmul_f32, mlp, norm,
+                     remat)
 from .params import ParamSpec, empty_caches, tree_map
 from .transformer import _qkv, act_dtype, write_ring
 
@@ -64,11 +65,13 @@ def rg_lru(x, p, h0=None):
     h_last (B, W) f32)."""
     a, b = _lru_coeffs(x, p)
     h = (torch.zeros_like(b[:, 0]) if h0 is None else h0.float())
-    ys = torch.empty_like(b)
+    ys = []
     for t in range(x.shape[1]):
         h = a[:, t] * h + b[:, t]
-        ys[:, t] = h
-    return ys, h
+        ys.append(h)
+    # one stack, not a write per step into a buffer: under autograd each
+    # such write would copy the whole buffer's gradient in the backward
+    return torch.stack(ys, dim=1), h
 
 
 def rg_lru_ref(x, p, h0=None):
@@ -235,21 +238,32 @@ def _pick(tree, *idx):
     return tree_map(lambda a: a[idx], tree)
 
 
-def _run(params, x, cfg: ArchConfig, q_pos, caches=None):
-    """Super-blocks, then the trailing recurrent layers; ``caches`` are
-    written in place."""
+def _super_block(x, blocks, i, cfg: ArchConfig, q_pos, caches=None):
+    """Super-block ``i``: period-1 recurrent sublayers and one local-attn
+    sublayer, each followed by an MLP."""
     period = cfg.hybrid_period or 3
+    for j in range(period - 1):
+        c = None if caches is None else _pick(caches["scan"]["rec"], i, j)
+        x = _rec_sublayer(x, _pick(blocks["rec"], i, j), cfg, c)
+        x = _mlp_sublayer(x, _pick(blocks["mlp"], i, j), cfg)
+    c = None if caches is None else {
+        n: caches["scan"]["attn"][n][i] for n in ("k", "v", "kv_pos")}
+    x = _attn_sublayer(x, _pick(blocks["attn"], i), cfg, q_pos, c)
+    return _mlp_sublayer(x, _pick(blocks["mlp"], i, period - 1), cfg)
+
+
+def _run(params, x, cfg: ArchConfig, q_pos, caches=None):
+    """Super-blocks (each rematted under ``cfg.remat`` when no cache is
+    given, as the reference's scan body), then the trailing recurrent
+    layers; ``caches`` are written in place."""
     blocks = params["blocks"]
     n_super = blocks["attn"]["wq"].shape[0]
     for i in range(n_super):
-        for j in range(period - 1):
-            c = None if caches is None else _pick(caches["scan"]["rec"], i, j)
-            x = _rec_sublayer(x, _pick(blocks["rec"], i, j), cfg, c)
-            x = _mlp_sublayer(x, _pick(blocks["mlp"], i, j), cfg)
-        c = None if caches is None else {
-            n: caches["scan"]["attn"][n][i] for n in ("k", "v", "kv_pos")}
-        x = _attn_sublayer(x, _pick(blocks["attn"], i), cfg, q_pos, c)
-        x = _mlp_sublayer(x, _pick(blocks["mlp"], i, period - 1), cfg)
+        if caches is None:
+            x = remat(_super_block, x, blocks, i, cfg, q_pos,
+                      on=cfg.remat)
+        else:
+            x = _super_block(x, blocks, i, cfg, q_pos, caches)
     if "trailing" in params:
         tr = params["trailing"]
         for j in range(tr["rec"]["w_a"].shape[0]):

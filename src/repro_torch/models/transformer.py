@@ -7,7 +7,10 @@ backbone), qwen3-moe-235b (top-8, every layer), llama4-maverick-400b
 
 Parameters are stacked over super-blocks of ``moe_every`` sublayers (the
 last sublayer of a block is MoE when configured), as in the JAX package;
-here a Python loop runs the super-blocks (no scan, no remat).  Decode
+here a Python loop runs the super-blocks (no scan).  With ``cfg.remat``
+a training forward rematerializes each super-block, or, where
+``remat_block`` = k divides their count, each block of k and each
+super-block inside it (the reference's two-level form).  Decode
 caches are a ring per sublayer: slot ``pos % skv`` holds position
 ``pos``, and ``kv_pos`` (-1 = empty) says which.  :func:`decode_step`
 writes its slot in place and returns the same cache tree.
@@ -17,7 +20,8 @@ from __future__ import annotations
 import torch
 
 from ..config import ArchConfig
-from .layers import attention, matmul_f32, mlp, moe, moe_grouped, norm, rope
+from .layers import (attention, matmul_f32, mlp, moe, moe_grouped, norm,
+                     remat, rope)
 from .params import ParamSpec, empty_caches
 
 __all__ = [
@@ -177,22 +181,50 @@ def _ffn_sublayer(x, p, cfg: ArchConfig, is_moe: bool):
     return x + y.to(x.dtype)
 
 
+def _super_block(x, blk, cfg: ArchConfig, q_pos, caches=None, i=0):
+    """The ``moe_every`` sublayers of one super-block (the last one MoE
+    when configured); ``caches`` are written in place."""
+    sub = max(cfg.moe_every, 1)
+    for j in range(sub):
+        p = _sub(blk, j)
+        c = None if caches is None else {
+            n: caches[n][i, j] for n in ("k", "v", "kv_pos")}
+        x = _attn_sublayer(x, p, cfg, q_pos, c)
+        x = _ffn_sublayer(x, p, cfg, bool(cfg.n_experts) and j == sub - 1)
+    return x
+
+
 def _run_blocks(params, x, cfg: ArchConfig, q_pos, caches=None):
     """Every super-block in turn; ``caches`` (stacked (l, sub, ...)) are
-    written in place."""
+    written in place.  The stacked weights are unbound once, so the
+    backward stacks each weight's gradient once."""
     blocks = params["blocks"]
     n_sb = blocks["wq"].shape[0]
-    sub = max(cfg.moe_every, 1)
-    for i in range(n_sb):
-        blk = {k: v[i] for k, v in blocks.items()}
-        for j in range(sub):
-            p = _sub(blk, j)
-            c = None if caches is None else {
-                n: caches[n][i, j] for n in ("k", "v", "kv_pos")}
-            x = _attn_sublayer(x, p, cfg, q_pos, c)
-            x = _ffn_sublayer(x, p, cfg, bool(cfg.n_experts) and j == sub - 1)
+    per = {k: v.unbind(0) for k, v in blocks.items()}
+    blks = [{k: per[k][i] for k in per} for i in range(n_sb)]
     if caches is not None:
+        for i, blk in enumerate(blks):
+            x = _super_block(x, blk, cfg, q_pos, caches, i)
         caches["pos"] += x.shape[1]
+        return x
+
+    def layer(h, blk):
+        return _super_block(h, blk, cfg, q_pos)
+
+    k = cfg.remat_block
+    if cfg.remat and k and n_sb % k == 0:
+        # two-level remat: activations are kept only at the boundaries of
+        # blocks of k; the k layers inside recompute in the backward
+        def group(h, grp):
+            for blk in grp:
+                h = remat(layer, h, blk)
+            return h
+
+        for g in range(0, n_sb, k):
+            x = remat(group, x, blks[g:g + k])
+        return x
+    for blk in blks:
+        x = remat(layer, x, blk, on=cfg.remat)
     return x
 
 

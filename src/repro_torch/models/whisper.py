@@ -14,7 +14,7 @@ import math
 import torch
 
 from ..config import ArchConfig
-from .layers import attention, matmul_f32, mlp, norm
+from .layers import attention, matmul_f32, mlp, norm, remat
 from .params import ParamSpec, empty_caches
 from .transformer import act_dtype, write_ring
 
@@ -141,16 +141,26 @@ def _mlp_block(x, p):
     return x + y.to(x.dtype)
 
 
+def _unstack(blocks: dict) -> list:
+    """Per-layer views of a stacked block tree (unbound once, so the
+    backward stacks each weight's gradient once)."""
+    per = {k: v.unbind(0) for k, v in blocks.items()}
+    return [{k: per[k][i] for k in per}
+            for i in range(len(next(iter(per.values()))))]
+
+
 def encode(params, frames, cfg: ArchConfig):
     """Encoder over stub frame embeddings (B, n_frames, d)."""
     x = frames.to(act_dtype(cfg))
     pos = torch.arange(x.shape[1], device=x.device)
     x = x + sinusoid_pos(pos, cfg.d_model).to(x.dtype)[None]
-    blocks = params["enc_blocks"]
-    for i in range(blocks["wq"].shape[0]):
-        blk = {k: v[i] for k, v in blocks.items()}
-        x = _self_attn(x, blk, cfg, pos, pos, causal=False)
-        x = _mlp_block(x, blk)
+
+    def layer(h, blk):
+        return _mlp_block(_self_attn(h, blk, cfg, pos, pos, causal=False),
+                          blk)
+
+    for blk in _unstack(params["enc_blocks"]):
+        x = remat(layer, x, blk, on=cfg.remat)
     return norm(x, params["enc_final"], params["enc_final_b"],
                 kind="layernorm")
 
@@ -159,26 +169,31 @@ def _enc_kv(params_dec, enc_out, cfg):
     """Per-layer cross K/V from the (final-normed) encoder output,
     stacked (l, B, S_enc, Hkv, D)."""
     hkv, dh = cfg.n_kv_heads, cfg.d_head
-    n = params_dec["x_wk"].shape[0]
     return {
-        "xk": torch.stack([_heads(enc_out, params_dec["x_wk"][i], hkv, dh)
-                           for i in range(n)]),
-        "xv": torch.stack([_heads(enc_out, params_dec["x_wv"][i], hkv, dh)
-                           for i in range(n)]),
+        "xk": torch.stack([_heads(enc_out, w, hkv, dh)
+                           for w in params_dec["x_wk"].unbind(0)]),
+        "xv": torch.stack([_heads(enc_out, w, hkv, dh)
+                           for w in params_dec["x_wv"].unbind(0)]),
     }
 
 
+def _dec_layer(x, blk, cfg, q_pos, xk, xv, cache=None):
+    x = _self_attn(x, blk, cfg, q_pos, q_pos, causal=True, cache=cache)
+    x = _cross_attn(x, blk, cfg, q_pos, xk, xv)
+    return _mlp_block(x, blk)
+
+
 def _run_decoder(params, x, cfg, q_pos, enc_kv, caches=None):
-    """Decoder layers; ``caches`` ({"self": stacked k/v/kv_pos/pos}) are
-    written in place."""
-    blocks = params["dec_blocks"]
-    for i in range(blocks["wq"].shape[0]):
-        blk = {k: v[i] for k, v in blocks.items()}
-        c = None if caches is None else {
-            n: caches["self"][n][i] for n in ("k", "v", "kv_pos")}
-        x = _self_attn(x, blk, cfg, q_pos, q_pos, causal=True, cache=c)
-        x = _cross_attn(x, blk, cfg, q_pos, enc_kv["xk"][i], enc_kv["xv"][i])
-        x = _mlp_block(x, blk)
+    """Decoder layers (each rematted under ``cfg.remat`` when no cache is
+    given); ``caches`` ({"self": stacked k/v/kv_pos/pos}) are written in
+    place."""
+    for i, blk in enumerate(_unstack(params["dec_blocks"])):
+        xk, xv = enc_kv["xk"][i], enc_kv["xv"][i]
+        if caches is None:
+            x = remat(_dec_layer, x, blk, cfg, q_pos, xk, xv, on=cfg.remat)
+            continue
+        c = {n: caches["self"][n][i] for n in ("k", "v", "kv_pos")}
+        x = _dec_layer(x, blk, cfg, q_pos, xk, xv, c)
     if caches is not None:
         caches["self"]["pos"] += x.shape[1]
     return x

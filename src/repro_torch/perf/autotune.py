@@ -465,10 +465,20 @@ class AutotuneCache:
         return pol
 
 
+def _cuda_flag(include_cuda, include_pallas):
+    """``include_cuda``, or its alias ``include_pallas`` (at most one)."""
+    if include_pallas is None:
+        return include_cuda
+    if include_cuda is not None and include_cuda != include_pallas:
+        raise ValueError("include_cuda and include_pallas disagree")
+    return include_pallas
+
+
 def candidate_policies(nnz: int, n_rows: int, rank: int, platform: str,
                        vmem_budget: int = 8 * 2**20,
                        include_cuda: bool | None = None,
-                       stats: ModeStats | None = None) -> list:
+                       stats: ModeStats | None = None, *,
+                       include_pallas: bool | None = None) -> list:
     """Pruned search grid: the unblocked strategies plus the heuristic's
     blocked neighbourhood (block sizes at 0.5x/1x/2x), feasible points
     only.
@@ -477,7 +487,9 @@ def candidate_policies(nnz: int, n_rows: int, rank: int, platform: str,
     :func:`heuristic_policy`, re-centred by ``stats``), with a ``cuda``
     point beside each ``blocked`` one where the JAX package offers a
     ``pallas`` point on a TPU: on ``platform="cuda"`` by default.
+    ``include_pallas`` is the JAX package's name of ``include_cuda``.
     """
+    include_cuda = _cuda_flag(include_cuda, include_pallas)
     if include_cuda is None:
         include_cuda = platform == "cuda"
     cands = [PhiPolicy(strategy="segment"), PhiPolicy(strategy="scatter")]
@@ -546,7 +558,8 @@ class Autotuner:
                  cache_max_age_days: float | None = None,
                  model_guided: bool = True, model_top_k: int = 3,
                  model_min_samples: int = 3,
-                 model_margin_factor: float = 1.25):
+                 model_margin_factor: float = 1.25, *,
+                 include_pallas: bool | None = None):
         self.cache = AutotuneCache(cache_path, max_entries=cache_max_entries,
                                    max_age_days=cache_max_age_days)
         self.measure = measure
@@ -557,7 +570,7 @@ class Autotuner:
             raise ValueError(f"burst must be >= 1, got {burst}")
         self.vmem_budget = vmem_budget
         self.platform = platform
-        self.include_cuda = include_cuda
+        self.include_cuda = _cuda_flag(include_cuda, include_pallas)
         self.model_guided = model_guided
         self.model_top_k = int(model_top_k)
         if self.model_top_k < 1:
@@ -787,15 +800,16 @@ class Autotuner:
         return best_p
 
     # -- public API -------------------------------------------------------
-    def mode_key(self, rows, n_rows: int, rank: int,
+    def mode_key(self, rows, n_rows: int, rank: int, n_shards: int = 1,
                  stats: ModeStats | None = None) -> tuple:
         """(v2 cache key, ModeStats) for one mode's problem: what
-        :meth:`policy_for_mode` keys on."""
+        :meth:`policy_for_mode` keys on (``/shards=N`` for ``n_shards``
+        > 1)."""
         platform = self.platform or _platform_of(rows)
         if stats is None:
             stats = mode_run_stats(_host(rows), n_rows)
         key = policy_key(int(rows.shape[0]), n_rows, rank, platform,
-                         stats=stats)
+                         n_shards=n_shards, stats=stats)
         return key, stats
 
     def policy_for_mode(self, rows, vals, pi, b, n_rows: int, rank: int,

@@ -10,7 +10,9 @@ tiers run B2/B3 once per shard and once per grid cell, counted, against
 their plain blocked schedules.  The LM serving path (plain PyTorch, no
 kernel of the port) runs its ten reduced configs on the card against
 the CPU, crosses the ring cache's window and counts the engine's decode
-steps.
+steps.  LM training: ``matmul_f32``'s backward on bf16 operands (the
+cuBLAS ``out_dtype`` product) against the f32 product's gradient, and
+one train step of each reduced config on the card against the CPU.
 
 Everything here needs an NVIDIA GPU and skips with a reason without one.
 The file imports neither jax nor the JAX package, so it also runs on a
@@ -1354,3 +1356,82 @@ def test_lm_engine_decode_steps_on_the_card(card, name):
     want = Engine(model, params, ServeConfig(max_new_tokens=6),
                   device="cpu").generate(batch)
     assert torch.equal(got.cpu(), want)
+
+
+# ---------------------------------------------------------------------------
+# LM training: matmul_f32's backward and a train step, card against CPU
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shapes", (((3, 5, 64), (64, 48)),
+                                    ((2, 4, 16, 64), (2, 4, 64, 24)),
+                                    ((2, 1, 16, 64), (1, 4, 64, 24))))
+def test_matmul_f32_backward_on_the_card(card, shapes):
+    """bf16 operands on the card (cuBLAS ``out_dtype`` product): the
+    output is the f32 product of the upcast operands, and each gradient
+    is that product's gradient cast to bf16 (JAX's transpose rule), to
+    one bf16 rounding (rtol 2^-7)."""
+    from repro_torch.models.layers import matmul_f32
+
+    gen = torch.Generator(device=card).manual_seed(0)
+    sa, sb = shapes
+    a = torch.randn(sa, generator=gen, device=card).to(torch.bfloat16)
+    b = torch.randn(sb, generator=gen, device=card).to(torch.bfloat16)
+    out_shape = torch.broadcast_shapes(sa[:-2], sb[:-2]) + (sa[-2], sb[-1])
+    w = torch.randn(out_shape, generator=gen, device=card)
+    a1, b1 = a.clone().requires_grad_(True), b.clone().requires_grad_(True)
+    out = matmul_f32(a1, b1)
+    assert out.dtype == torch.float32
+    ga, gb = torch.autograd.grad((out * w).sum(), (a1, b1))
+    a2 = a.float().requires_grad_(True)
+    b2 = b.float().requires_grad_(True)
+    want = torch.matmul(a2, b2)
+    wa, wb = torch.autograd.grad((want * w).sum(), (a2, b2))
+    np.testing.assert_allclose(out.detach().cpu().numpy(),
+                               want.detach().cpu().numpy(), rtol=LM_RTOL,
+                               atol=LM_ATOL)
+    for got, ref in ((ga, wa), (gb, wb)):
+        assert got.dtype == torch.bfloat16
+        np.testing.assert_allclose(got.float().cpu().numpy(),
+                                   ref.to(torch.bfloat16).float().cpu()
+                                   .numpy(), rtol=2 ** -7, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ("granite-8b", "h2o-danube-1.8b",
+                                  "llama4-maverick-400b-a17b", "mamba2-1.3b",
+                                  "olmo-1b", "pixtral-12b",
+                                  "qwen3-moe-235b-a22b", "recurrentgemma-9b",
+                                  "stablelm-3b", "whisper-medium"))
+def test_lm_train_step_card_against_cpu(card, name):
+    """One train step with the arch's own optimizer, the same weights and
+    batch on both devices: loss, grad norm, every optimizer-state leaf and
+    every updated parameter within LM_RTOL/LM_ATOL, the rounding-sensitive
+    AdamW/Adafactor entries at their update bound
+    (``repro_torch.testing.train_parity``)."""
+    from repro_torch.config import ShapeConfig
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.testing.train_parity import compare_states
+    from repro_torch.train.optimizer import make_optimizer
+    from repro_torch.train.step import make_train_step
+
+    cfg, model = _lm(name)
+    lr = 1e-3
+    opt = make_optimizer(cfg.optimizer, lr=lr)
+    step = make_train_step(model, opt)
+    params = model.init(0, device="cpu")
+    batch = TokenPipeline(cfg, ShapeConfig("t", 32, 2, "train"), seed=1,
+                          device="cpu").make_batch(0)
+    s_cpu, m_cpu = step({"params": params, "opt": opt.init(params)}, batch)
+    p_dev, b_dev = _lm_on(card, params, batch)
+    s_dev, m_dev = step({"params": p_dev, "opt": opt.init(p_dev)}, b_dev)
+    for k in ("loss", "grad_norm"):
+        np.testing.assert_allclose(float(m_dev[k]), float(m_cpu[k]),
+                                   rtol=LM_RTOL, atol=LM_ATOL, err_msg=k)
+    assert int(m_dev["step"]) == 1
+    cmp = compare_states(s_dev, s_cpu, lr, LM_RTOL, LM_ATOL)
+    assert cmp["worst"] <= 1.0 and cmp["sensitive_worst"] <= 1.0, cmp
+    assert cmp["n_sensitive_out"] <= 8, cmp
+    assert cmp["noise_leaves"] == (["blocks/router"] if cfg.top_k == 1
+                                   else []), cmp
