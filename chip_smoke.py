@@ -232,6 +232,24 @@ Phases (any failure exits nonzero before the last line):
     leaf); olmo-1b at full width, a bf16 step against an f32 step of the
     same weights: loss and grad norm within TRAIN_BF16_REL.  No kernel's
     launch count moves in phase 17.
+18. LM training on a DeviceMesh (run after phase 17), which reaches no
+    kernel of this port either.  (1) Full-width olmo-1b, bf16, AdamW,
+    under its zero3 rules on a (1, 1) ``("data", "model")`` mesh of a
+    one-rank NCCL group (the machine has one card), from phase 17's
+    weights and batch: loss, grad norm and every state leaf within
+    CPU_RTOL/CPU_ATOL of the unsharded step (bitwise or not is printed),
+    every output leaf with its input's placements; then ms per step by
+    CUDA events (median of TRAIN_TIMED after TRAIN_WARMUP) beside phase
+    17's, tokens/s and MFU as phase 17 counts them: DTensor's host cost on
+    this card.  (2) The elastic restore: reduced olmo-1b stepped once on
+    that mesh, saved, restored onto the mesh and with ``device=`` alone,
+    both bitwise.  (3) One dry-run cell under this machine's torch,
+    olmo-1b train_4k on the single-pod mesh (a fake group of 256 ranks,
+    fake CUDA tensors): its seconds, per-device bytes and roofline terms,
+    printed as a projection from datasheet rates.  (4) Last, with 16.5
+    and 17.3, where one mesh step goes: wall ms beside the profiler's
+    device-busy ms and the idle share.  No kernel's launch count moves in
+    phase 18.
 10. One launch per fused dense step: the device kernels of one
     ``phi_mu_dense`` call on the near-dense tensor's mode 0, counted with
     torch.profiler (last, so that no timed phase runs under its set-up):
@@ -3350,6 +3368,288 @@ def train_phase(dev, seed: int) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: LM training on a DeviceMesh
+# ---------------------------------------------------------------------------
+
+
+def _mesh11(dev):
+    from torch.distributed.device_mesh import init_device_mesh
+
+    return init_device_mesh(dev.type, (1, 1),
+                            mesh_dim_names=("data", "model"))
+
+
+def _placed(tree, shardings):
+    from repro_torch.models.params import tree_map
+
+    return tree_map(lambda x, sh: sh.place(x), tree, shardings)
+
+
+def _mesh_setup(cfg, dev, seed: int, lr: float = TRAIN_LR, batch=None):
+    """Phase 17's ``_train_setup`` plus the (1, 1) mesh's layouts: (model,
+    step, plain state, plain batch, state shardings, batch shardings)."""
+    from repro_torch.config import ShapeConfig
+    from repro_torch.launch.mesh import batch_shardings, state_shardings
+    from repro_torch.train.optimizer import make_optimizer
+    from repro_torch.train.step import state_specs
+
+    mesh = _mesh11(dev)
+    model, step, state, pipe = _train_setup(cfg, dev, seed, lr=lr,
+                                            batch=batch)
+    shape = ShapeConfig("train", TRAIN_SEQ, batch or TRAIN_BATCH, "train")
+    sh = state_shardings(state_specs(model, make_optimizer(cfg.optimizer)),
+                         mesh)
+    bsh = batch_shardings(model.input_specs(shape), mesh)
+    return model, step, state, pipe.make_batch(0), sh, bsh
+
+
+def mesh_train_step(dev, seed: int, p17: dict) -> dict:
+    """18.1: full-width olmo-1b, bf16, AdamW, under its zero3 rules, on a
+    one-rank (1, 1) ``("data", "model")`` mesh: the DTensor step from
+    phase 17's weights and batch against the unsharded step (loss, grad
+    norm and every state leaf within CPU_RTOL/CPU_ATOL, the sensitive
+    update entries at their bound; bitwise or not is printed), the output
+    placements against the input's, then ms per step by CUDA events
+    (median of TRAIN_TIMED after TRAIN_WARMUP) beside phase 17's, tokens/s
+    and MFU as phase 17 counts them."""
+    import gc
+    import statistics
+
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models.params import (count_params, set_rules_profile,
+                                           tree_leaves, tree_map)
+    from repro_torch.testing.train_parity import compare_states
+
+    cfg = get_arch("olmo-1b")
+    set_rules_profile(cfg.sharding_profile)
+    try:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        model, step, state, batch, sh, bsh = _mesh_setup(cfg, dev, seed)
+        want, m_want = step(state, batch)
+        dstate = _placed(state, sh)
+        dbatch = {k: bsh[k].place(v) for k, v in batch.items()}
+        del state
+        got, m_got = step(dstate, dbatch)
+        kept = all(tuple(a.placements) == tuple(b.placements)
+                   for a, b in zip(tree_leaves(got), tree_leaves(dstate)))
+        plain = tree_map(lambda t: t.to_local(), got)
+        bitwise = all(torch.equal(a, b) for a, b in
+                      zip(tree_leaves(plain), tree_leaves(want))) and all(
+            torch.equal(m_got[k], m_want[k]) for k in ("loss", "grad_norm"))
+        rel = max(abs(float(m_got[k]) - float(m_want[k]))
+                  / (CPU_ATOL + CPU_RTOL * abs(float(m_want[k])))
+                  for k in ("loss", "grad_norm"))
+        cmp = compare_states(plain, want, TRAIN_LR, CPU_RTOL, CPU_ATOL)
+        print(f"18.1 olmo-1b full width, bf16, AdamW, zero3 rules on a (1, 1)"
+              f" mesh (one-rank NCCL group) vs the unsharded step of the same "
+              f"weights and batch: bitwise {bitwise}; loss "
+              f"{float(m_got['loss']):.6f} vs {float(m_want['loss']):.6f}, "
+              f"grad norm {float(m_got['grad_norm']):.6f} vs "
+              f"{float(m_want['grad_norm']):.6f} ({rel:.3e} of CPU_RTOL/"
+              f"CPU_ATOL); state worst {cmp['worst']:.3e} of the allowance, "
+              f"sensitive entries {cmp['n_sensitive_out']} out; placements "
+              f"kept {kept}")
+        check(kept, "the mesh step changed a leaf's placements")
+        check(rel <= 1.0 and cmp["worst"] <= 1.0
+              and cmp["sensitive_worst"] <= 1.0
+              and cmp["n_sensitive_out"] <= 8 and not cmp["noise_leaves"],
+              "the (1, 1) mesh step disagrees with the unsharded step")
+        del want, got, plain, m_want
+        box = [dstate]
+
+        def one():
+            box[0], m = step(box[0], dbatch)
+            float(m["loss"])
+
+        for _ in range(TRAIN_WARMUP):
+            one()
+        dev_ms = event_ms(one, TRAIN_TIMED)
+        n_params = count_params(model.param_specs())
+        tokens = TRAIN_BATCH * TRAIN_SEQ
+        ms = statistics.median(dev_ms)
+        rec = {"arch": cfg.name, "mesh": [1, 1], "rules": "zero3",
+               "bitwise": bitwise, "ms_per_step": ms, "step_ms": dev_ms,
+               "phase17_ms_per_step": p17["ms_per_step"],
+               "tokens_per_s": tokens / (ms / 1e3),
+               "mfu": 6.0 * n_params * tokens / (ms / 1e3)
+               / BF16_TENSOR_FLOPS,
+               "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30}
+        print(f"18.1 timed: {ms:.3f} ms/step by CUDA events on the (1, 1) "
+              f"mesh beside phase 17's unsharded {p17['ms_per_step']:.3f} "
+              f"ms/step ({ms / p17['ms_per_step']:.3f}x: DTensor's host cost "
+              f"on this card), {rec['tokens_per_s']:.0f} tokens/s, MFU "
+              f"{rec['mfu']:.4f}, peak {rec['peak_gib']:.2f} GiB; step ms "
+              f"{[round(x, 3) for x in dev_ms]}")
+        del box, dstate, step, model, batch, dbatch
+    finally:
+        set_rules_profile("tp_fsdp")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def mesh_elastic_restore(dev, seed: int) -> None:
+    """18.2: reduced olmo-1b (f32) stepped once on the (1, 1) mesh, saved
+    (rank 0 writes full arrays), restored onto the mesh (``shardings=``)
+    and onto the card with ``device=`` alone: both bitwise the state that
+    was saved, the mesh copy with the target placements."""
+    import shutil
+
+    import torch
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.models.params import (abstract_params,
+                                           set_rules_profile, tree_leaves)
+    from repro_torch.train.checkpoint import restore, save
+    from repro_torch.train.optimizer import make_optimizer
+    from repro_torch.train.step import state_specs
+
+    cfg = reduced(get_arch("olmo-1b"))
+    ck = os.path.join(HERE, "build", "chip_smoke", "mesh_ckpt")
+    shutil.rmtree(ck, ignore_errors=True)
+    set_rules_profile(cfg.sharding_profile)
+    try:
+        model, step, state, batch, sh, bsh = _mesh_setup(
+            cfg, dev, seed, lr=TRAIN_CMP_LR, batch=2)
+        s1, _ = step(_placed(state, sh),
+                     {k: bsh[k].place(v) for k, v in batch.items()})
+        save(ck, 1, s1)
+        target = abstract_params(state_specs(model,
+                                             make_optimizer(cfg.optimizer)))
+        on_mesh, step_m = restore(ck, target, shardings=sh)
+        on_dev, step_d = restore(ck, target, device=dev)
+        want = [t.full_tensor() for t in tree_leaves(s1)]
+        ok_mesh = all(torch.equal(a.full_tensor(), b) for a, b in
+                      zip(tree_leaves(on_mesh), want))
+        placed = all(tuple(a.placements) == s.placements for a, s in
+                     zip(tree_leaves(on_mesh), tree_leaves(sh)))
+        ok_dev = all(torch.equal(a, b) and a.device.type == dev.type
+                     for a, b in zip(tree_leaves(on_dev), want))
+        print(f"18.2 elastic restore of a (1, 1) mesh checkpoint "
+              f"({cfg.name}, {len(want)} leaves): onto the mesh bitwise "
+              f"{ok_mesh} (placements {placed}), with device= alone bitwise "
+              f"{ok_dev}; steps {step_m}, {step_d}")
+        check(ok_mesh and placed and ok_dev and step_m == step_d == 1,
+              "the elastic restore is not bitwise")
+    finally:
+        set_rules_profile("tp_fsdp")
+        shutil.rmtree(ck, ignore_errors=True)
+
+
+def mesh_dryrun_cell() -> dict:
+    """18.3: one dry-run cell under this machine's torch, olmo-1b
+    train_4k on the single-pod (16, 16) mesh: a fake process group of 256
+    ranks, fake CUDA tensors (no card memory); the record's numbers are a
+    projection from datasheet rates, not measurements."""
+    from repro_torch.launch import dryrun
+
+    out = os.path.join(HERE, "build", "chip_smoke", "dryrun")
+    rec = dryrun.run_cell("olmo-1b", "train_4k", "single", out, force=True,
+                          device="cuda")
+    check("error" not in rec, f"dry-run cell failed: {rec.get('error')}\n"
+          f"{rec.get('traceback', '')[-2000:]}")
+    r = rec["roofline"]
+    print(f"18.3 dry run olmo-1b train_4k, single-pod 16 x 16 mesh "
+          f"(PROJECTION from datasheet rates, {rec['hardware']}; not a "
+          f"measurement): build {rec['seconds']['build']:.1f} s, run "
+          f"{rec['seconds']['run']:.1f} s; per device: state "
+          f"{rec['state_bytes_per_device'] / 2 ** 30:.3f} GiB, peak "
+          f"{rec['hbm_bytes_per_device'] / 2 ** 30:.3f} GiB, "
+          f"{rec['cost']['flops_per_device']:.4e} FLOP, "
+          f"{rec['cost']['bytes_per_device']:.4e} bytes, wire "
+          f"{rec['collectives']['wire_bytes']:.4e} bytes "
+          f"{rec['collectives']['by_kind_count']}; roofline compute "
+          f"{r['compute_s'] * 1e3:.3f} ms, memory {r['memory_s'] * 1e3:.3f} "
+          f"ms, collective {r['collective_s'] * 1e3:.3f} ms, dominant "
+          f"{r['dominant']}, MFU bound {r['mfu_bound']:.4f}")
+    return rec
+
+
+def mesh_phase(dev, seed: int, p17: dict) -> dict:
+    """Phase 18: LM training on a DeviceMesh (18.1, 18.2 on a one-rank
+    NCCL group; 18.3 on a fake group of 256; 18.4's trace runs last).
+    The mesh path reaches none of the port's kernels: their launch counts
+    must not move."""
+    from repro_torch.launch.train import process_group
+
+    before = kernel_launch_counts()
+    out = {}
+    t0 = time.perf_counter()
+    with process_group(dev):
+        out["step"] = mesh_train_step(dev, seed, p17)
+        mesh_elastic_restore(dev, seed)
+    print(f"18.1-18.2 mesh step and restore: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    out["dryrun"] = mesh_dryrun_cell()
+    print(f"18.3 dry-run cell: {time.perf_counter() - t0:.1f} s")
+    check(kernel_launch_counts() == before,
+          "the mesh path launched one of the port's kernels")
+    print(f"phase 18 launched none of the {len(before)} kernels")
+    print("18 records: " + json.dumps(
+        {"step": out["step"], "dryrun": {k: out["dryrun"][k] for k in (
+            "n_chips", "state_bytes_per_device", "hbm_bytes_per_device",
+            "cost", "roofline", "seconds", "source")}}))
+    return out
+
+
+def mesh_train_trace(dev, seed: int, steps: int = 2) -> dict:
+    """18.4: where one (1, 1) mesh step of 18.1 goes: wall ms (CUDA
+    events) beside the device-busy ms torch.profiler records, the idle
+    share and device kernels per step.  Run last, as 16.5 and 17.3."""
+    import gc
+    import statistics
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.train import process_group
+    from repro_torch.models.params import set_rules_profile
+    from repro_torch.perf.trace import busy_us
+
+    cfg = get_arch("olmo-1b")
+    set_rules_profile(cfg.sharding_profile)
+    try:
+        with process_group(dev):
+            model, step, state, batch, sh, bsh = _mesh_setup(cfg, dev, seed)
+            box = [_placed(state, sh)]
+            dbatch = {k: bsh[k].place(v) for k, v in batch.items()}
+            del state
+
+            def one():
+                box[0], m = step(box[0], dbatch)
+                float(m["loss"])
+
+            one()
+            wall_ms = statistics.median(event_ms(one, steps))
+            torch.cuda.synchronize(dev)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(steps):
+                    one()
+                torch.cuda.synchronize(dev)
+            del box, step, model, batch, dbatch
+    finally:
+        set_rules_profile("tp_fsdp")
+    on_dev = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = busy_us([(e.time_range.start, e.time_range.end)
+                       for e in on_dev]) / 1e3 / steps
+    rec = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+           "device_idle_share": 1.0 - busy_ms / wall_ms,
+           "device_kernels_per_step": len(on_dev) / steps}
+    print(f"18.4 olmo-1b (1, 1) mesh train step: wall {wall_ms:.3f} ms, "
+          f"device busy {busy_ms:.3f} ms (idle share "
+          f"{rec['device_idle_share']:.3f}), "
+          f"{rec['device_kernels_per_step']:.1f} device kernels per step")
+    check(len(on_dev) > 0, "the profiler saw no device work in a mesh step")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
 def monotone(ll: list) -> bool:
     return all(b >= a - MONOTONE_SLACK * abs(a) for a, b in zip(ll, ll[1:]))
 
@@ -3539,8 +3839,13 @@ def main(argv=None) -> int:
 
     # --- phase 17: LM training ---------------------------------------------
     t0 = time.perf_counter()
-    train_phase(dev, args.seed)
+    p17 = train_phase(dev, args.seed)
     print(f"phase 17 (LM training): {time.perf_counter() - t0:.1f} s")
+
+    # --- phase 18: LM training on a DeviceMesh -----------------------------
+    t0 = time.perf_counter()
+    mesh_phase(dev, args.seed, p17["olmo"])
+    print(f"phase 18 (mesh training): {time.perf_counter() - t0:.1f} s")
 
     # --- 16.5 and 17.3: the traces (the profiler's set-up slows the host) --
     t0 = time.perf_counter()
@@ -3549,6 +3854,9 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     lm_train_trace(dev, args.seed)
     print(f"17.3 train-step trace: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    mesh_train_trace(dev, args.seed)
+    print(f"18.4 mesh train-step trace: {time.perf_counter() - t0:.1f} s")
 
     # --- phase 10: one launch per fused dense step ------------------------
     one_launch_phase(*dense_first)

@@ -5,7 +5,10 @@ replays exactly the batches it would have seen.  The draws come from
 numpy's ``SeedSequence([seed, step, 0xD47A])`` in the JAX package's order
 (its batch names in ``input_specs`` order; tokens uniform in [0, vocab),
 embeddings ``standard_normal * 0.02`` in f32 cast to the spec's dtype), so
-the batches are that package's, bit for bit, on ``device``.
+the batches are that package's, bit for bit, on ``device``.  With
+``shardings`` ({name: ``NamedSharding``}, ``launch.mesh.batch_shardings``)
+each leaf is placed on the mesh as a DTensor: every rank draws the same
+batch and keeps its own rows.
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ class TokenPipeline:
     shape: ShapeConfig
     seed: int = 0
     device: str = "cuda"
+    shardings: dict | None = None  # name -> NamedSharding (optional)
 
     def __post_init__(self):
         self._dev = resolve_device(self.device)
@@ -49,5 +53,8 @@ class TokenPipeline:
                                    dtype=np.int32)
             else:
                 arr = (rng.standard_normal(shape) * 0.02).astype(np.float32)
-            out[name] = torch.from_numpy(arr).to(self._dev, dtype=dtype)
+            x = torch.from_numpy(arr).to(self._dev, dtype=dtype)
+            if self.shardings and name in self.shardings:
+                x = self.shardings[name].place(x)
+            out[name] = x
         return out

@@ -1,8 +1,10 @@
-"""End-to-end training driver on one device.
+"""End-to-end training driver on a ``("data", "model")`` mesh.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch olmo-1b --full
   PYTHONPATH=src python -m repro_torch.launch.train --arch olmo-1b \\
       --device cpu            # the reduced f32 config, on the CPU
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+      --arch olmo-1b --device cpu     # a 2 x 2 mesh of gloo ranks
   # stop it mid-run and run the same command again: it resumes from the
   # latest checkpoint in --ckpt-dir
 
@@ -12,28 +14,61 @@ weights from ``--seed`` and the batches from the deterministic
 ``TokenPipeline``, and runs ``--steps`` steps of ``--batch`` sequences of
 ``--seq`` tokens through ``TrainLoop``: a checkpoint every
 ``--ckpt-every`` steps and at the end, resume, the straggler watchdog and
-SIGTERM-safe exit.  It prints the JAX package's ``[train]`` lines, with
-the device where that package prints its mesh (a mesh is not ported
-yet).
+SIGTERM-safe exit.
+
+The mesh is ``make_smoke_mesh`` over every rank of the process group: the
+group it finds, else the one ``torchrun`` describes in the environment,
+else a group of this one process (NCCL on the card, gloo with
+``--device cpu``), which it destroys on exit.  The state and each batch
+are DTensors with the active rules' placements (``state_shardings``,
+``batch_shardings``).  Rank 0 prints the JAX package's ``[train]`` lines.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import tempfile
+
+import torch
+import torch.distributed as dist
 
 from ..config import ShapeConfig
 from ..configs import get_arch, reduced
 from ..data.pipeline import TokenPipeline
 from ..device import resolve_device
 from ..models.api import build_model
-from ..models.params import abstract_params, count_params
+from ..models.params import abstract_params, count_params, tree_map
 from ..train.compression import CompressionConfig
 from ..train.loop import TrainLoop, TrainLoopConfig
 from ..train.optimizer import make_optimizer
 from ..train.step import init_state, make_train_step, state_specs
+from .mesh import batch_shardings, make_smoke_mesh, state_shardings
 
 __all__ = ["main"]
+
+
+@contextlib.contextmanager
+def process_group(dev: torch.device):
+    """The default process group for the body, and this rank's device: the
+    group already open, else ``torchrun``'s (``env://``), else a group of
+    this one process on an in-memory store.  A group it opened is
+    destroyed on exit."""
+    if dev.type == "cuda":
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+        torch.cuda.set_device(dev)
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    opened = not dist.is_initialized()
+    if opened and "WORLD_SIZE" in os.environ:
+        dist.init_process_group(backend)
+    elif opened:
+        dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                                world_size=1)
+    try:
+        yield dev
+    finally:
+        if opened:
+            dist.destroy_process_group()
 
 
 def main(argv=None) -> int:
@@ -55,33 +90,48 @@ def main(argv=None) -> int:
                     help="torch device (default: the card)")
     args = ap.parse_args(argv)
 
-    dev = resolve_device(args.device)
+    with process_group(resolve_device(args.device)) as dev:
+        return _run(args, dev)
+
+
+def _run(args, dev: torch.device) -> int:
     cfg = get_arch(args.arch)
     if not args.full:
         cfg = reduced(cfg)
     shape = ShapeConfig("cli", args.seq, args.batch, "train")
+    mesh = make_smoke_mesh(dev.type)
     model = build_model(cfg)
     opt = make_optimizer(cfg.optimizer, lr=args.lr)
     comp = CompressionConfig(args.compress)
-    pipeline = TokenPipeline(cfg, shape, seed=args.seed, device=dev)
+
+    sspecs = state_specs(model, opt, comp)
+    s_sh = state_shardings(sspecs, mesh)
+    in_sh = batch_shardings(model.input_specs(shape), mesh)
+    pipeline = TokenPipeline(cfg, shape, seed=args.seed, device=dev,
+                             shardings=in_sh)
     loop = TrainLoop(
         make_train_step(model, opt, compression=comp), pipeline.make_batch,
         TrainLoopConfig(total_steps=args.steps, ckpt_every=args.ckpt_every,
                         ckpt_dir=args.ckpt_dir),
-        device=dev,
+        device=dev, state_shardings=s_sh,
     )
-    state, start = loop.resume_or_init(
-        lambda: init_state(model, opt, args.seed, comp, device=dev),
-        target=abstract_params(state_specs(model, opt, comp)))
+
+    def fresh():
+        state = init_state(model, opt, args.seed, comp, device=dev)
+        return tree_map(lambda x, sh: sh.place(x), state, s_sh)
+
+    state, start = loop.resume_or_init(fresh, target=abstract_params(sspecs))
+    say = print if dist.get_rank() == 0 else (lambda *a, **k: None)
     n_params = count_params(model.param_specs())
-    print(f"[train] arch={cfg.name} params={n_params/1e6:.1f}M "
-          f"device={dev} start_step={start}")
+    mesh_shape = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    say(f"[train] arch={cfg.name} params={n_params/1e6:.1f}M "
+        f"mesh={mesh_shape} start_step={start}")
     state, step = loop.run(
         state, start,
-        on_metrics=lambda r: print(
+        on_metrics=lambda r: say(
             f"[train] step {r['step']:5d} loss {r['loss']:.4f} "
             f"gnorm {r['grad_norm']:.3f} {r['seconds']*1e3:.0f}ms"))
-    print(f"[train] done at step {step}; stragglers={len(loop.straggler_events)}")
+    say(f"[train] done at step {step}; stragglers={len(loop.straggler_events)}")
     return 0
 
 

@@ -36,7 +36,8 @@ from ..config import ArchConfig, ShapeConfig
 from ..device import resolve_device
 from . import mamba2, rglru, transformer, whisper
 from .layers import matmul_f32, remat
-from .params import abstract_params, cast_specs, empty_caches, init_params
+from .params import (abstract_params, cast_specs, empty_caches, for_compute,
+                     init_params, logical_constraint)
 from .transformer import act_dtype
 
 __all__ = ["Model", "build_model", "chunked_ce_loss"]
@@ -59,7 +60,7 @@ def chunked_ce_loss(params, hidden, labels, cfg: ArchConfig,
     if logits_fn is None:
         def logits_fn(p, h):
             w = p["embed"].T if cfg.tie_embeddings else p["unembed"]
-            return matmul_f32(h, w)
+            return matmul_f32(h, for_compute(w))
 
     b, s, _ = hidden.shape
     c = min(cfg.ce_chunk, s)
@@ -67,7 +68,9 @@ def chunked_ce_loss(params, hidden, labels, cfg: ArchConfig,
         c //= 2
 
     def chunk(h, lab):
+        h = logical_constraint(h, ("batch", None, None))
         logits = logits_fn(params, h)  # (B, c, V_pad) f32
+        logits = logical_constraint(logits, ("batch", None, "vocab"))
         viota = torch.arange(logits.shape[-1], device=logits.device)
         logits = torch.where(viota < cfg.vocab, logits, -1e30)
         lse = torch.logsumexp(logits, dim=-1)

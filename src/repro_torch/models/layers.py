@@ -24,11 +24,17 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import register_sharding
 from torch.utils.checkpoint import checkpoint
+
+from .params import contiguous_strides, logical_constraint
 
 __all__ = [
     "NEG_INF",
+    "assign",
     "attention",
+    "embed",
     "causal_conv1d",
     "gelu",
     "matmul_f32",
@@ -36,8 +42,11 @@ __all__ = [
     "moe",
     "moe_grouped",
     "norm",
+    "on_batch_shards",
     "remat",
     "rope",
+    "split_heads",
+    "write_slot",
 ]
 
 NEG_INF = -1e30
@@ -54,6 +63,41 @@ def _bf16_product_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     b3 = b.expand(*batch, *b.shape[-2:]).reshape(-1, *b.shape[-2:])
     out = torch.bmm(a3, b3, out_dtype=torch.float32)
     return out.reshape(*batch, a.shape[-2], b.shape[-1])
+
+
+# DTensor sharding rules (one mesh dim; DTensor expands them over the
+# mesh).  Each entry is ([outputs], [tensor inputs]).
+@register_sharding(torch.ops.aten.mm.dtype)
+def _mm_dtype_sharding(a, b, out_dtype):
+    """``aten.mm``'s strategies for the f32-output product, which DTensor
+    has none for: replicated, rows of ``a``, columns of ``b``, or the
+    contraction split into a partial sum."""
+    return [([Replicate()], [Replicate(), Replicate()]),
+            ([Shard(0)], [Shard(0), Replicate()]),
+            ([Shard(1)], [Replicate(), Shard(1)]),
+            ([Partial()], [Shard(1), Shard(0)])]
+
+
+@register_sharding(torch.ops.aten.bmm.dtype)
+def _bmm_dtype_sharding(a, b, out_dtype):
+    """``aten.bmm``'s strategies for the f32-output batched product."""
+    return [([Replicate()], [Replicate(), Replicate()]),
+            ([Shard(0)], [Shard(0), Shard(0)]),
+            ([Shard(1)], [Shard(1), Replicate()]),
+            ([Shard(2)], [Replicate(), Shard(2)]),
+            ([Partial()], [Shard(2), Shard(1)])]
+
+
+@register_sharding(torch.ops.aten.topk.default)
+def _topk_sharding(x, k, dim=-1, largest=True, sorted=True):
+    """DTensor's own ``topk`` rule, registered again so that ``k`` is part
+    of its cache key (DTensor keys it from ``dim`` on, and a second call
+    with another ``k`` reused the first one's output shape)."""
+    d = dim % len(x.shape)
+    out = [([Replicate()] * 2, [Replicate()])]
+    out += [([Shard(i)] * 2, [Shard(i)]) for i in range(len(x.shape))
+            if i != d]
+    return out
 
 
 class _MatmulF32(torch.autograd.Function):
@@ -74,15 +118,24 @@ class _MatmulF32(torch.autograd.Function):
         ga = gb = None
         if ctx.needs_input_grad[0]:
             ga = torch.matmul(g, b.float().mT).sum_to_size(a.shape)
-            ga = ga.to(a.dtype)
+            ga = _summed(ga, a).to(a.dtype)
         if ctx.needs_input_grad[1]:
             if b.dim() == 2:
                 gb = torch.matmul(a.reshape(-1, a.shape[-1]).float().T,
                                   g.reshape(-1, g.shape[-1]))
             else:
                 gb = torch.matmul(a.float().mT, g).sum_to_size(b.shape)
-            gb = gb.to(b.dtype)
+            gb = _summed(gb, b).to(b.dtype)
         return ga, gb
+
+
+def _summed(t, like):
+    """An f32 cotangent whose DTensor is a partial sum, reduced into the
+    placements of its operand ``like`` before the cast to ``like``'s
+    dtype: the cast rounds once, after the whole sum, as on one device."""
+    if isinstance(t, DTensor) and any(p.is_partial() for p in t.placements):
+        t = t.redistribute(t.device_mesh, like.placements)
+    return t
 
 
 def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -112,6 +165,59 @@ def remat(fn, *args, on: bool = True):
     if on and torch.is_grad_enabled():
         return checkpoint(fn, *args, use_reentrant=False)
     return fn(*args)
+
+
+def assign(buf: torch.Tensor, value: torch.Tensor) -> None:
+    """``buf.copy_(value)``; a DTensor ``value`` first takes ``buf``'s
+    placements, so the copy is local on every rank (an in-place op whose
+    rule wants other placements for ``buf`` would relabel ``buf``'s
+    placements without moving its data)."""
+    if isinstance(buf, DTensor) and isinstance(value, DTensor) and \
+            tuple(value.placements) != tuple(buf.placements):
+        value = value.redistribute(buf.device_mesh, buf.placements)
+    buf.copy_(value)
+
+
+def write_slot(buf: torch.Tensor, dim: int, slot: torch.Tensor,
+               value: torch.Tensor) -> None:
+    """``buf.index_copy_(dim, slot, value)`` for one slot (``slot``: a
+    1-element index, ``value``: size 1 in ``dim``).  A DTensor ``buf`` is
+    written by a mask over ``dim`` (its slot may lie on any rank's
+    shard), through :func:`assign`."""
+    if not isinstance(buf, DTensor):
+        buf.index_copy_(dim, slot, value)
+        return
+    shape = [1] * buf.dim()
+    shape[dim] = buf.shape[dim]
+    hit = (torch.arange(buf.shape[dim], device=slot.device) == slot)
+    assign(buf, torch.where(hit.reshape(shape), value.to(buf.dtype), buf))
+
+
+def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``: the rows of an embedding table.  On a mesh the
+    table is gathered whole and each rank looks up its own rows of tokens
+    (:func:`on_batch_shards`): DTensor's lookup rules do not cover a table
+    or a batch split over two mesh axes in every torch version, and a
+    split table's gradient would be a masked partial sum that the logits'
+    gradient of a tied table cannot be added to."""
+    return on_batch_shards(lambda t, tab: tab[t.long()], (tokens,), (table,))
+
+
+def split_heads(x: torch.Tensor, n_heads: int, d_head: int) -> torch.Tensor:
+    """(B, S, n_heads * d_head) -> (B, S, n_heads, d_head).  On a mesh the
+    last dim stays split only on the mesh dims whose size divides
+    ``n_heads`` (the reference pins heads so), so the reshape splits whole
+    heads; a split that divides only ``n_heads * d_head`` is gathered
+    first."""
+    b, s = x.shape[0], x.shape[1]
+    if isinstance(x, DTensor):
+        mesh = x.device_mesh
+        placements = tuple(
+            Replicate() if pl == Shard(2) and n_heads % mesh.size(i) else pl
+            for i, pl in enumerate(x.placements))
+        if placements != tuple(x.placements):
+            x = x.redistribute(mesh, placements)
+    return x.reshape(b, s, n_heads, d_head)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -200,10 +306,14 @@ def attention(
     """Chunked multi-query attention.
 
     q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D); Hq % Hkv == 0.
-    q_pos: (Sq,), kv_pos: (Skv,) absolute positions; kv_valid: (B, Skv).
+    q_pos: (Sq,), kv_pos: (Skv,) absolute positions; kv_valid: (B, Skv) or
+    (1, Skv).
     Queries are cut into chunks of ``q_chunk``; the last chunk is padded
     with rows at position -1 (masked everywhere), which are sliced off.
     """
+    if isinstance(q, DTensor):
+        return _attention_on_mesh(q, k, v, q_pos, kv_pos, kv_valid, causal,
+                                  window, q_chunk)
     b, sq, hq, d = q.shape
     hkv = k.shape[2]
     rep = hq // hkv
@@ -223,6 +333,87 @@ def attention(
     return torch.cat(outs, dim=1).reshape(b, sq + pad, hq, d)[:, :sq]
 
 
+def _local(t, mesh, placements, grads=None):
+    """A DTensor's local tensor after a redistribute to ``placements``
+    (``grads``: the placements its gradient takes); plain tensors, None
+    and dicts of them pass through (dicts element by element)."""
+    if isinstance(t, dict):
+        return {k: _local(v, mesh, placements, grads) for k, v in t.items()}
+    if not isinstance(t, DTensor):
+        return t
+    if tuple(t.placements) != tuple(placements):
+        t = t.redistribute(mesh, placements)
+    return t.to_local(grad_placements=grads)
+
+
+def _attention_on_mesh(q, k, v, q_pos, kv_pos, kv_valid, causal, window,
+                       q_chunk):
+    """:func:`attention` of DTensors, run on each rank's shards.
+
+    Attention is independent across sequences and kv-head groups, so each
+    mesh dim keeps q's split of the batch (dim 0) or of the heads (dim 2,
+    when the kv heads divide as the q heads do) and gives k and v (and
+    ``kv_valid``) the same split; any other split (of the sequence, or of
+    the head dim) is gathered first.  The positions are gathered whole.
+    The local products are :func:`attention`'s own, and the result has
+    q's placements."""
+    mesh = q.device_mesh
+    hkv = k.shape[2]
+    qp = []
+    for i, pl in enumerate(q.placements):
+        n = mesh.size(i)
+        if pl == Shard(0) or (pl == Shard(2) and hkv % n == 0):
+            qp.append(pl)
+        else:
+            qp.append(Replicate())
+    kvp = tuple(qp)
+    rep_all = (Replicate(),) * mesh.ndim
+    valid_p = rep_all if kv_valid is None or kv_valid.shape[0] == 1 else \
+        tuple(pl if pl == Shard(0) else Replicate() for pl in qp)
+
+    out = attention(_local(q, mesh, kvp), _local(k, mesh, kvp),
+                    _local(v, mesh, kvp), _local(q_pos, mesh, rep_all),
+                    _local(kv_pos, mesh, rep_all),
+                    _local(kv_valid, mesh, valid_p), causal=causal,
+                    window=window, q_chunk=q_chunk)
+    return DTensor.from_local(out.contiguous(), mesh, kvp, run_check=False,
+                              shape=q.shape,
+                              stride=contiguous_strides(q.shape))
+
+
+def on_batch_shards(fn, batched: tuple, shared: tuple = ()):
+    """``fn(*batched, *shared)`` run on each rank's rows when the first
+    batched input is a DTensor; ``fn(*batched, *shared)`` as it is
+    otherwise.
+
+    Every batched input (dim 0 the batch; None passes through) keeps the
+    first one's split of dim 0 and is gathered on its other dims; the
+    shared inputs (tensors or dicts of them) are gathered whole; each
+    output (dim 0 the batch) comes back with that split.  The recurrences
+    (the SSD chunk scan, the RG-LRU scan) are independent across
+    sequences, and DTensor's rules for their reshapes differ between
+    torch versions."""
+    x = batched[0]
+    if not isinstance(x, DTensor):
+        return fn(*batched, *shared)
+    mesh = x.device_mesh
+    rows = tuple(pl if pl == Shard(0) else Replicate() for pl in x.placements)
+    whole = (Replicate(),) * mesh.ndim
+    # a shared input's gradient from one rank's rows is a partial sum over
+    # the ranks that split the rows
+    summed = tuple(Partial() if pl == Shard(0) else Replicate() for pl in rows)
+
+    def wrap(o):
+        shape = (x.shape[0],) + tuple(o.shape[1:])
+        return DTensor.from_local(o.contiguous(), mesh, rows, run_check=False,
+                                  shape=shape,
+                                  stride=contiguous_strides(shape))
+
+    out = fn(*(_local(t, mesh, rows) for t in batched),
+             *(_local(t, mesh, whole, summed) for t in shared))
+    return tuple(wrap(o) for o in out) if isinstance(out, tuple) else wrap(out)
+
+
 # ---------------------------------------------------------------------------
 # MLP / MoE
 # ---------------------------------------------------------------------------
@@ -235,6 +426,14 @@ def mlp(x, p, act: str = "silu_glu"):
         u = torch.matmul(x, p["wi_up"])
         return torch.matmul(F.silu(g) * u, p["wo"])
     return torch.matmul(gelu(torch.matmul(x, p["wi"])), p["wo"])
+
+
+def _one_hot(idx, n: int) -> torch.Tensor:
+    """int32 one-hot of ``idx`` over ``n`` classes, by comparison
+    (``F.one_hot`` checks its range with an assert that DTensor has no
+    rule for under inference mode)."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).to(
+        torch.int32)
 
 
 def _route(xt, router, top_k: int):
@@ -272,7 +471,7 @@ def moe(x, p, n_experts: int, top_k: int, capacity_factor: float = 1.25):
     prev_total = None
     for kk in range(top_k):
         e = gate_idx[:, kk]  # (T,)
-        onehot = F.one_hot(e, n_experts).to(torch.int32)  # (T, E)
+        onehot = _one_hot(e, n_experts)  # (T, E)
         pos_all = torch.cumsum(onehot, dim=0) - 1
         pos = pos_all.gather(1, e[:, None])[:, 0]
         # offset by tokens already scattered in earlier k-slots
@@ -318,10 +517,14 @@ def moe_grouped(x, p, n_experts: int, top_k: int,
     ng = t // gs
     cap = max(int(capacity_factor * top_k * gs / n_experts), 4)
 
-    e_g = gate_idx.reshape(ng, gs, top_k)
-    w_g = gate_vals.reshape(ng, gs, top_k).float()
+    # on a mesh the routing tensors keep the groups split as the tokens are
+    # (DTensor may otherwise split a dim the reshapes below merge)
+    e_g = logical_constraint(gate_idx.reshape(ng, gs, top_k),
+                             ("batch", None, None))
+    w_g = logical_constraint(gate_vals.reshape(ng, gs, top_k).float(),
+                             ("batch", None, None))
     # rank of each (token, slot) within its expert, per group, slot-major
-    onehot_i = F.one_hot(e_g, n_experts).to(torch.int32)  # (ng, gs, k, E)
+    onehot_i = _one_hot(e_g, n_experts)  # (ng, gs, k, E)
     flat = onehot_i.permute(0, 2, 1, 3).reshape(ng, top_k * gs, n_experts)
     pos_flat = torch.cumsum(flat, dim=1) - 1
     pos = pos_flat.reshape(ng, top_k, gs, n_experts).permute(0, 2, 1, 3)
@@ -330,7 +533,7 @@ def moe_grouped(x, p, n_experts: int, top_k: int,
     w_g = w_g * keep  # dropped tokens contribute nothing
 
     ec = n_experts * cap
-    xg = xt.reshape(ng, gs, d)
+    xg = logical_constraint(xt.reshape(ng, gs, d), ("batch", None, None))
     gc = (ng if group_chunk <= 1 else
           max(g for g in range(1, min(group_chunk, ng) + 1) if ng % g == 0))
     iota = torch.arange(ec, device=x.device).reshape(1, 1, ec)
@@ -347,15 +550,22 @@ def moe_grouped(x, p, n_experts: int, top_k: int,
             hit = (slot[..., None] == iota).to(x.dtype)  # (gc, gs, ec)
             disp = disp + hit
             comb = comb + w_c[..., kk:kk + 1].to(x.dtype) * hit
+        disp = logical_constraint(disp.reshape(gc, gs, n_experts, cap),
+                                  ("batch", None, "experts", None))
+        comb = logical_constraint(comb.reshape(gc, gs, n_experts, cap),
+                                  ("batch", None, "experts", None))
         # buf (gc, E, cap, d) = einsum("gsec,gsd->gecd", disp, x_c), f32 acc
-        buf = matmul_f32(disp.transpose(1, 2), x_c).to(x.dtype)
-        buf = buf.reshape(gc, n_experts, cap, d)
+        buf = matmul_f32(disp.reshape(gc, gs, ec).transpose(1, 2),
+                         x_c).to(x.dtype)
+        buf = logical_constraint(buf.reshape(gc, n_experts, cap, d),
+                                 ("batch", "experts", None, None))
         # expert FFN over (E, gc*cap, d)
         eb = buf.permute(1, 0, 2, 3).reshape(n_experts, gc * cap, d)
         out_buf = _expert_ffn(eb, p, x.dtype)  # (E, gc*cap, d) f32
         out_buf = out_buf.reshape(n_experts, gc, cap, d).permute(1, 0, 2, 3)
         # y (gc, gs, d) = einsum("gsec,gecd->gsd", comb, out_buf) in f32
-        y_c = torch.matmul(comb.float(), out_buf.reshape(gc, ec, d))
+        y_c = torch.matmul(comb.reshape(gc, gs, ec).float(),
+                           out_buf.reshape(gc, ec, d))
         ys.append(y_c.to(x.dtype))
     yt = torch.cat(ys, dim=0)
     return yt.reshape(b, s, d), probs
@@ -372,10 +582,12 @@ def causal_conv1d(x, w, state=None):
         xin = torch.cat([state, x], dim=1)
         new_state = xin[:, -(k - 1):, :] if k > 1 else state
     else:
-        xin = F.pad(x, (0, 0, k - 1, 0))
+        # zeros before x, written as a cat (F.pad of a DTensor loses its
+        # mesh dims in some torch versions); the same values as F.pad
+        xin = torch.cat([torch.zeros_like(x[:, :k - 1]), x], dim=1)
         new_state = xin[:, -(k - 1):, :] if k > 1 else None
     s_out = x.shape[1]
-    y = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    y = torch.zeros_like(x, dtype=torch.float32)
     for tap in range(k):
         y = y + xin[:, tap:tap + s_out, :].float() * w[:, tap].float()
     return y.to(x.dtype), new_state

@@ -14,8 +14,10 @@ import torch
 import torch.nn.functional as F
 
 from ..config import ArchConfig
-from .layers import causal_conv1d, matmul_f32, norm, remat
-from .params import ParamSpec, empty_caches
+from .layers import (assign, causal_conv1d, embed, matmul_f32, norm,
+                     on_batch_shards, remat)
+from .params import (ParamSpec, empty_caches, for_compute, logical_constraint,
+                     weights_for_compute)
 from .transformer import act_dtype
 
 __all__ = [
@@ -183,7 +185,9 @@ def _mamba_mix(x_in, p, cfg: ArchConfig, state=None, conv_state=None):
     h, hd = cfg.n_ssm_heads, cfg.ssm_head_dim
     chunk = cfg.ssm_chunk
 
+    x_in = logical_constraint(x_in, ("batch", None, None))
     z_all = torch.matmul(x_in, p["in_proj"])
+    z_all = logical_constraint(z_all, ("batch", None, "mlp"))
     z = z_all[..., :din]
     xbc = z_all[..., din:din + din + 2 * g * n]
     dt_raw = z_all[..., -h:]
@@ -212,14 +216,18 @@ def _mamba_mix(x_in, p, cfg: ArchConfig, state=None, conv_state=None):
         # padded steps have dt = 0: decay 1, update 0, so the final state
         # is the state after the last real step
         pad = (-s) % chunk
-        if pad:
-            xs = F.pad(xs, (0, 0, 0, 0, 0, pad))
-            dt = F.pad(dt, (0, 0, 0, pad))
-            b = F.pad(b, (0, 0, 0, 0, 0, pad))
-            c = F.pad(c, (0, 0, 0, 0, 0, pad))
-        y, new_state = ssd_chunked(xs, dt, p["a_log"], b, c, p["d_skip"],
-                                   chunk, h0=state)
-        y = y[:, :s]
+
+        def ssd(xs, dt, b, c, h0, a_log, d_skip):
+            if pad:
+                xs = F.pad(xs, (0, 0, 0, 0, 0, pad))
+                dt = F.pad(dt, (0, 0, 0, pad))
+                b = F.pad(b, (0, 0, 0, 0, 0, pad))
+                c = F.pad(c, (0, 0, 0, 0, 0, pad))
+            y, st = ssd_chunked(xs, dt, a_log, b, c, d_skip, chunk, h0=h0)
+            return y[:, :s], st
+
+        y, new_state = on_batch_shards(ssd, (xs, dt, b, c, state),
+                                       (p["a_log"], p["d_skip"]))
 
     y = y.reshape(bsz, s, din)
     y = norm(y * F.silu(z.float()).to(y.dtype), p["norm_scale"],
@@ -230,6 +238,7 @@ def _mamba_mix(x_in, p, cfg: ArchConfig, state=None, conv_state=None):
 
 def _block(x, p, cfg: ArchConfig):
     """One training-forward layer (no cache)."""
+    p = weights_for_compute(p)
     y, _, _ = _mamba_mix(norm(x, p["ln"], kind="rmsnorm"), p, cfg)
     return x + y
 
@@ -243,11 +252,12 @@ def _run(params, x, cfg: ArchConfig, caches=None):
         if caches is None:
             x = remat(_block, x, p, cfg, on=cfg.remat)
             continue
+        p = weights_for_compute(p)
         h = norm(x, p["ln"], kind="rmsnorm")
         y, ns, nc = _mamba_mix(h, p, cfg, state=caches["ssm"][i],
                                conv_state=caches["conv"][i])
-        caches["ssm"][i] = ns
-        caches["conv"][i] = nc
+        assign(caches["ssm"][i], ns)
+        assign(caches["conv"][i], nc)
         x = x + y
     if caches is not None:
         caches["pos"] += x.shape[1]
@@ -255,16 +265,17 @@ def _run(params, x, cfg: ArchConfig, caches=None):
 
 
 def _embed(params, tokens, cfg):
-    return params["embed"][tokens.long()].to(act_dtype(cfg))
+    x = embed(params["embed"], tokens).to(act_dtype(cfg))
+    return logical_constraint(x, ("batch", None, None))
 
 
 def forward(params, tokens, cfg: ArchConfig):
     x = _run(params, _embed(params, tokens, cfg), cfg, None)
-    return norm(x, params["final_norm"], kind="rmsnorm")
+    return norm(x, for_compute(params["final_norm"]), kind="rmsnorm")
 
 
 def _logits(params, hidden):
-    return matmul_f32(hidden, params["embed"].T)
+    return matmul_f32(hidden, for_compute(params["embed"].T))
 
 
 def cache_specs(cfg: ArchConfig, batch: int, cache_len: int = 0) -> dict:
@@ -288,11 +299,12 @@ def prefill(params, tokens, cfg: ArchConfig, cache_len: int | None = None):
     x = _embed(params, tokens, cfg)
     caches = empty_caches(cache_specs(cfg, tokens.shape[0]), x.device)
     x = _run(params, x, cfg, caches)
-    h_last = norm(x[:, -1], params["final_norm"], kind="rmsnorm")
+    h_last = norm(x[:, -1], for_compute(params["final_norm"]),
+                  kind="rmsnorm")
     return _logits(params, h_last), caches
 
 
 def decode_step(params, caches, tokens, cfg: ArchConfig):
     x = _run(params, _embed(params, tokens, cfg), cfg, caches)
-    h = norm(x[:, 0], params["final_norm"], kind="rmsnorm")
+    h = norm(x[:, 0], for_compute(params["final_norm"]), kind="rmsnorm")
     return _logits(params, h), caches

@@ -25,9 +25,10 @@ import torch
 import torch.nn.functional as F
 
 from ..config import ArchConfig
-from .layers import (attention, causal_conv1d, gelu, matmul_f32, mlp, norm,
-                     remat)
-from .params import ParamSpec, empty_caches, tree_map
+from .layers import (assign, attention, causal_conv1d, embed, gelu, matmul_f32,
+                     mlp, norm, on_batch_shards, remat)
+from .params import (ParamSpec, empty_caches, for_compute, logical_constraint,
+                     tree_map, weights_for_compute)
 from .transformer import _qkv, act_dtype, write_ring
 
 __all__ = [
@@ -188,6 +189,7 @@ def param_specs(cfg: ArchConfig) -> dict:
 def _rec_sublayer(x, p, cfg: ArchConfig, cache=None):
     """Recurrent temporal mix.  cache: {'h': (B, W), 'conv': (B, K-1, W)},
     written in place, or None."""
+    x = logical_constraint(x, ("batch", None, None))
     h_in = norm(x, p["ln1"], kind=cfg.norm)
     gate = gelu(matmul_f32(h_in, p["w_gate_in"]))
     rec = matmul_f32(h_in, p["w_rec_in"]).to(x.dtype)
@@ -197,11 +199,14 @@ def _rec_sublayer(x, p, cfg: ArchConfig, cache=None):
     if cache is not None and x.shape[1] == 1:
         y, new_h = _rg_lru_step(rec, p, cache["h"])
     else:
-        y, new_h = rg_lru(rec, p, h0=None if cache is None else cache["h"])
+        lru = {k: p[k] for k in ("w_a", "b_a", "w_x", "b_x", "lam")}
+        y, new_h = on_batch_shards(
+            lambda x, h0, lru: rg_lru(x, lru, h0=h0),
+            (rec, None if cache is None else cache["h"]), (lru,))
     out = matmul_f32((y * gate).to(x.dtype), p["w_rec_out"]).to(x.dtype)
     if cache is not None:
-        cache["h"].copy_(new_h)
-        cache["conv"].copy_(new_conv)
+        assign(cache["h"], new_h)
+        assign(cache["conv"], new_conv)
     return x + out
 
 
@@ -210,6 +215,7 @@ def _attn_sublayer(x, p, cfg: ArchConfig, q_pos, cache=None):
     place."""
     b, s, _ = x.shape
     window = cfg.window or 2048
+    x = logical_constraint(x, ("batch", None, None))
     h = norm(x, p["ln1"], kind=cfg.norm)
     q, k, v = _qkv(h, p, cfg, q_pos)
     if cache is None or s > 1:
@@ -219,7 +225,7 @@ def _attn_sublayer(x, p, cfg: ArchConfig, q_pos, cache=None):
                       q_chunk=cfg.attn_q_chunk)
     else:
         write_ring(cache, k, v, q_pos, prefill=False)
-        kv_valid = (cache["kv_pos"] >= 0)[None, :].expand(b, -1)
+        kv_valid = (cache["kv_pos"] >= 0)[None, :]
         o = attention(q, cache["k"], cache["v"], q_pos, cache["kv_pos"],
                       kv_valid=kv_valid, causal=True, window=window,
                       q_chunk=cfg.attn_q_chunk)
@@ -228,6 +234,7 @@ def _attn_sublayer(x, p, cfg: ArchConfig, q_pos, cache=None):
 
 
 def _mlp_sublayer(x, p, cfg: ArchConfig):
+    x = logical_constraint(x, ("batch", None, None))
     h = norm(x, p["ln2"], kind=cfg.norm)
     y = mlp(h, {"wi_gate": p["wi_gate"], "wi_up": p["wi_up"],
                 "wo": p["wo_mlp"]}, act="silu_glu")
@@ -238,18 +245,23 @@ def _pick(tree, *idx):
     return tree_map(lambda a: a[idx], tree)
 
 
+def _weights(tree, *idx):
+    """One sublayer's weights, in their compute layout on a mesh."""
+    return weights_for_compute(_pick(tree, *idx))
+
+
 def _super_block(x, blocks, i, cfg: ArchConfig, q_pos, caches=None):
     """Super-block ``i``: period-1 recurrent sublayers and one local-attn
     sublayer, each followed by an MLP."""
     period = cfg.hybrid_period or 3
     for j in range(period - 1):
         c = None if caches is None else _pick(caches["scan"]["rec"], i, j)
-        x = _rec_sublayer(x, _pick(blocks["rec"], i, j), cfg, c)
-        x = _mlp_sublayer(x, _pick(blocks["mlp"], i, j), cfg)
+        x = _rec_sublayer(x, _weights(blocks["rec"], i, j), cfg, c)
+        x = _mlp_sublayer(x, _weights(blocks["mlp"], i, j), cfg)
     c = None if caches is None else {
         n: caches["scan"]["attn"][n][i] for n in ("k", "v", "kv_pos")}
-    x = _attn_sublayer(x, _pick(blocks["attn"], i), cfg, q_pos, c)
-    return _mlp_sublayer(x, _pick(blocks["mlp"], i, period - 1), cfg)
+    x = _attn_sublayer(x, _weights(blocks["attn"], i), cfg, q_pos, c)
+    return _mlp_sublayer(x, _weights(blocks["mlp"], i, period - 1), cfg)
 
 
 def _run(params, x, cfg: ArchConfig, q_pos, caches=None):
@@ -268,8 +280,8 @@ def _run(params, x, cfg: ArchConfig, q_pos, caches=None):
         tr = params["trailing"]
         for j in range(tr["rec"]["w_a"].shape[0]):
             c = None if caches is None else _pick(caches["trailing"], j)
-            x = _rec_sublayer(x, _pick(tr["rec"], j), cfg, c)
-            x = _mlp_sublayer(x, _pick(tr["mlp"], j), cfg)
+            x = _rec_sublayer(x, _weights(tr["rec"], j), cfg, c)
+            x = _mlp_sublayer(x, _weights(tr["mlp"], j), cfg)
     if caches is not None:
         caches["scan"]["attn"]["pos"] += x.shape[1]
         caches["pos"] += x.shape[1]
@@ -282,18 +294,19 @@ def _run(params, x, cfg: ArchConfig, q_pos, caches=None):
 
 
 def _embed(params, tokens, cfg):
-    return params["embed"][tokens.long()].to(act_dtype(cfg))
+    x = embed(params["embed"], tokens).to(act_dtype(cfg))
+    return logical_constraint(x, ("batch", None, None))
 
 
 def forward(params, tokens, cfg: ArchConfig):
     x = _embed(params, tokens, cfg)
     q_pos = torch.arange(x.shape[1], device=x.device)
     x = _run(params, x, cfg, q_pos, None)
-    return norm(x, params["final_norm"], kind=cfg.norm)
+    return norm(x, for_compute(params["final_norm"]), kind=cfg.norm)
 
 
 def _logits(params, hidden):
-    return matmul_f32(hidden, params["embed"].T)
+    return matmul_f32(hidden, for_compute(params["embed"].T))
 
 
 def cache_specs(cfg: ArchConfig, batch: int, cache_len: int) -> dict:
@@ -341,7 +354,7 @@ def prefill(params, tokens, cfg: ArchConfig, cache_len: int | None = None):
     x = _embed(params, tokens, cfg)
     caches = empty_caches(cache_specs(cfg, bsz, cache_len), x.device)
     x = _run(params, x, cfg, torch.arange(s, device=x.device), caches)
-    h_last = norm(x[:, -1], params["final_norm"], kind=cfg.norm)
+    h_last = norm(x[:, -1], for_compute(params["final_norm"]), kind=cfg.norm)
     return _logits(params, h_last), caches
 
 
@@ -349,5 +362,5 @@ def decode_step(params, caches, tokens, cfg: ArchConfig):
     x = _embed(params, tokens, cfg)
     q_pos = caches["pos"].reshape(1).long()
     x = _run(params, x, cfg, q_pos, caches)
-    h = norm(x[:, 0], params["final_norm"], kind=cfg.norm)
+    h = norm(x[:, 0], for_compute(params["final_norm"]), kind=cfg.norm)
     return _logits(params, h), caches

@@ -20,9 +20,11 @@ from __future__ import annotations
 import torch
 
 from ..config import ArchConfig
-from .layers import (attention, matmul_f32, mlp, moe, moe_grouped, norm,
-                     remat, rope)
-from .params import ParamSpec, empty_caches
+from .layers import (assign, attention, embed, matmul_f32, mlp, moe,
+                     moe_grouped, norm, remat, rope, split_heads,
+                     write_slot)
+from .params import (ParamSpec, empty_caches, for_compute, logical_constraint,
+                     weights_for_compute)
 
 __all__ = [
     "param_specs",
@@ -115,30 +117,39 @@ def write_ring(cache: dict, k, v, q_pos, prefill: bool) -> None:
     """Write new keys/values into a ring cache in place.
 
     cache: k/v (B, skv, Hkv, D), kv_pos (skv,).  Decode (one token) writes
-    slot ``pos % skv``; prefill writes the last ``skv`` tokens at their
-    slots and marks every other slot empty (-1).
+    slot ``pos % skv``; prefill (positions ``0 .. s-1``) writes the last
+    ``skv`` tokens at their slots and marks every other slot empty (-1):
+    the last ``n = min(s, skv)`` rows, padded to ``skv``, rolled by the
+    slot of their first position.
     """
     skv = cache["k"].shape[1]
     if prefill:
-        pp = q_pos[-skv:]
-        slots = (pp % skv).long()
-        cache["k"][:, slots] = k[:, -skv:]
-        cache["v"][:, slots] = v[:, -skv:]
-        cache["kv_pos"].fill_(-1)
-        cache["kv_pos"][slots] = pp.to(torch.int32)
+        n = min(k.shape[1], skv)
+        r = (k.shape[1] - n) % skv
+
+        def ring(x, fill):
+            x = x[:, -n:]
+            if n < skv:
+                pad = torch.full((x.shape[0], skv - n) + tuple(x.shape[2:]),
+                                 fill, dtype=x.dtype, device=x.device)
+                x = torch.cat([x, pad], dim=1)
+            return torch.roll(x, r, dims=1) if r else x
+
+        assign(cache["k"], ring(k, 0))
+        assign(cache["v"], ring(v, 0))
+        assign(cache["kv_pos"], ring(q_pos.to(torch.int32)[None], -1)[0])
     else:
         slot = (q_pos % skv).long()
-        cache["k"].index_copy_(1, slot, k)
-        cache["v"].index_copy_(1, slot, v)
-        cache["kv_pos"].index_copy_(0, slot, q_pos.to(torch.int32))
+        write_slot(cache["k"], 1, slot, k)
+        write_slot(cache["v"], 1, slot, v)
+        write_slot(cache["kv_pos"], 0, slot, q_pos.to(torch.int32))
 
 
 def _qkv(h, p, cfg: ArchConfig, q_pos):
-    b, s, _ = h.shape
     hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    q = torch.matmul(h, p["wq"]).reshape(b, s, hq, dh)
-    k = torch.matmul(h, p["wk"]).reshape(b, s, hkv, dh)
-    v = torch.matmul(h, p["wv"]).reshape(b, s, hkv, dh)
+    q = split_heads(torch.matmul(h, p["wq"]), hq, dh)
+    k = split_heads(torch.matmul(h, p["wk"]), hkv, dh)
+    v = split_heads(torch.matmul(h, p["wv"]), hkv, dh)
     return rope(q, q_pos, cfg.rope_theta), rope(k, q_pos, cfg.rope_theta), v
 
 
@@ -146,8 +157,12 @@ def _attn_sublayer(x, p, cfg: ArchConfig, q_pos, cache=None):
     """Pre-norm attention.  cache: dict(k, v, kv_pos) of this sublayer,
     written in place, or None."""
     b, s, _ = x.shape
+    x = logical_constraint(x, ("batch", None, None))
     h = norm(x, p.get("ln1"), kind=cfg.norm)
     q, k, v = _qkv(h, p, cfg, q_pos)
+    q = logical_constraint(q, ("batch", None, "heads", None))
+    k = logical_constraint(k, ("batch", None, "kv", None))
+    v = logical_constraint(v, ("batch", None, "kv", None))
     if cache is None or s > 1:
         if cache is not None:
             write_ring(cache, k, v, q_pos, prefill=True)
@@ -155,7 +170,7 @@ def _attn_sublayer(x, p, cfg: ArchConfig, q_pos, cache=None):
                       q_chunk=cfg.attn_q_chunk)
     else:
         write_ring(cache, k, v, q_pos, prefill=False)
-        kv_valid = (cache["kv_pos"] >= 0)[None, :].expand(b, -1)
+        kv_valid = (cache["kv_pos"] >= 0)[None, :]
         o = attention(q, cache["k"], cache["v"], q_pos, cache["kv_pos"],
                       kv_valid=kv_valid, causal=False, window=cfg.window,
                       q_chunk=cfg.attn_q_chunk)
@@ -164,6 +179,7 @@ def _attn_sublayer(x, p, cfg: ArchConfig, q_pos, cache=None):
 
 
 def _ffn_sublayer(x, p, cfg: ArchConfig, is_moe: bool):
+    x = logical_constraint(x, ("batch", None, None))
     h = norm(x, p.get("ln2"), kind=cfg.norm)
     if is_moe:
         mp = {"router": p["router"], "wi_gate": p["e_wi_gate"],
@@ -185,6 +201,7 @@ def _super_block(x, blk, cfg: ArchConfig, q_pos, caches=None, i=0):
     """The ``moe_every`` sublayers of one super-block (the last one MoE
     when configured); ``caches`` are written in place."""
     sub = max(cfg.moe_every, 1)
+    blk = weights_for_compute(blk)
     for j in range(sub):
         p = _sub(blk, j)
         c = None if caches is None else {
@@ -234,9 +251,11 @@ def _run_blocks(params, x, cfg: ArchConfig, q_pos, caches=None):
 
 
 def _embed_in(params, tokens, cfg, extra_embeds=None):
-    x = params["embed"][tokens.long()].to(act_dtype(cfg))
+    x = embed(params["embed"], tokens).to(act_dtype(cfg))
+    x = logical_constraint(x, ("batch", None, None))
     if extra_embeds is not None:  # pixtral: prepend stub patch embeddings
         x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
+        x = logical_constraint(x, ("batch", None, None))
     return x
 
 
@@ -245,13 +264,13 @@ def forward(params, tokens, cfg: ArchConfig, extra_embeds=None):
     x = _embed_in(params, tokens, cfg, extra_embeds)
     q_pos = torch.arange(x.shape[1], device=x.device)
     x = _run_blocks(params, x, cfg, q_pos, None)
-    return norm(x, params.get("final_norm"), kind=cfg.norm)
+    return norm(x, for_compute(params.get("final_norm")), kind=cfg.norm)
 
 
 def logits_from_hidden(params, hidden, cfg: ArchConfig):
     """f32 logits over the padded vocab."""
     w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
-    return matmul_f32(hidden, w)
+    return matmul_f32(hidden, for_compute(w))
 
 
 def cache_specs(cfg: ArchConfig, batch: int, cache_len: int) -> dict:
@@ -286,7 +305,8 @@ def prefill(params, tokens, cfg: ArchConfig, extra_embeds=None,
                           x.device)
     q_pos = torch.arange(s, device=x.device)
     x = _run_blocks(params, x, cfg, q_pos, caches)
-    h_last = norm(x[:, -1], params.get("final_norm"), kind=cfg.norm)
+    h_last = norm(x[:, -1], for_compute(params.get("final_norm")),
+                  kind=cfg.norm)
     return logits_from_hidden(params, h_last, cfg), caches
 
 
@@ -296,5 +316,5 @@ def decode_step(params, caches, tokens, cfg: ArchConfig):
     x = _embed_in(params, tokens, cfg)
     q_pos = caches["pos"][0, :1].long()  # uniform across layers
     x = _run_blocks(params, x, cfg, q_pos, caches)
-    h = norm(x[:, 0], params.get("final_norm"), kind=cfg.norm)
+    h = norm(x[:, 0], for_compute(params.get("final_norm")), kind=cfg.norm)
     return logits_from_hidden(params, h, cfg), caches

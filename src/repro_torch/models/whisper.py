@@ -14,8 +14,10 @@ import math
 import torch
 
 from ..config import ArchConfig
-from .layers import attention, matmul_f32, mlp, norm, remat
-from .params import ParamSpec, empty_caches
+from .layers import (attention, embed, matmul_f32, mlp, norm, remat,
+                     split_heads)
+from .params import (ParamSpec, empty_caches, for_compute, logical_constraint,
+                     weights_for_compute)
 from .transformer import act_dtype, write_ring
 
 __all__ = ["param_specs", "encode", "forward", "prefill", "decode_step",
@@ -94,8 +96,7 @@ def param_specs(cfg: ArchConfig) -> dict:
 
 
 def _heads(x, w, n_heads, d_head):
-    b = x.shape[0]
-    return torch.matmul(x, w).reshape(b, -1, n_heads, d_head)
+    return split_heads(torch.matmul(x, w), n_heads, d_head)
 
 
 def _self_attn(x, p, cfg, q_pos, kv_pos, causal, cache=None):
@@ -103,6 +104,7 @@ def _self_attn(x, p, cfg, q_pos, kv_pos, causal, cache=None):
     in place."""
     b, s, _ = x.shape
     hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    x = logical_constraint(x, ("batch", None, None))
     h = norm(x, p["ln1"], p["ln1_b"], kind="layernorm")
     q = _heads(h, p["wq"], hq, dh)
     k = _heads(h, p["wk"], hkv, dh)
@@ -114,7 +116,7 @@ def _self_attn(x, p, cfg, q_pos, kv_pos, causal, cache=None):
                       q_chunk=cfg.attn_q_chunk)
     else:
         write_ring(cache, k, v, q_pos, prefill=False)
-        kv_valid = (cache["kv_pos"] >= 0)[None, :].expand(b, -1)
+        kv_valid = (cache["kv_pos"] >= 0)[None, :]
         o = attention(q, cache["k"], cache["v"], q_pos, cache["kv_pos"],
                       kv_valid=kv_valid, causal=True,
                       q_chunk=cfg.attn_q_chunk)
@@ -136,6 +138,7 @@ def _cross_attn(x, p, cfg, q_pos, xk, xv):
 
 
 def _mlp_block(x, p):
+    x = logical_constraint(x, ("batch", None, None))
     h = norm(x, p["ln2"], p["ln2_b"], kind="layernorm")
     y = mlp(h, {"wi": p["wi"], "wo": p["wo_mlp"]}, act="gelu")
     return x + y.to(x.dtype)
@@ -156,13 +159,14 @@ def encode(params, frames, cfg: ArchConfig):
     x = x + sinusoid_pos(pos, cfg.d_model).to(x.dtype)[None]
 
     def layer(h, blk):
+        blk = weights_for_compute(blk)
         return _mlp_block(_self_attn(h, blk, cfg, pos, pos, causal=False),
                           blk)
 
     for blk in _unstack(params["enc_blocks"]):
         x = remat(layer, x, blk, on=cfg.remat)
-    return norm(x, params["enc_final"], params["enc_final_b"],
-                kind="layernorm")
+    return norm(x, for_compute(params["enc_final"]),
+                for_compute(params["enc_final_b"]), kind="layernorm")
 
 
 def _enc_kv(params_dec, enc_out, cfg):
@@ -170,14 +174,15 @@ def _enc_kv(params_dec, enc_out, cfg):
     stacked (l, B, S_enc, Hkv, D)."""
     hkv, dh = cfg.n_kv_heads, cfg.d_head
     return {
-        "xk": torch.stack([_heads(enc_out, w, hkv, dh)
+        "xk": torch.stack([_heads(enc_out, for_compute(w), hkv, dh)
                            for w in params_dec["x_wk"].unbind(0)]),
-        "xv": torch.stack([_heads(enc_out, w, hkv, dh)
+        "xv": torch.stack([_heads(enc_out, for_compute(w), hkv, dh)
                            for w in params_dec["x_wv"].unbind(0)]),
     }
 
 
 def _dec_layer(x, blk, cfg, q_pos, xk, xv, cache=None):
+    blk = weights_for_compute(blk)
     x = _self_attn(x, blk, cfg, q_pos, q_pos, causal=True, cache=cache)
     x = _cross_attn(x, blk, cfg, q_pos, xk, xv)
     return _mlp_block(x, blk)
@@ -200,7 +205,8 @@ def _run_decoder(params, x, cfg, q_pos, enc_kv, caches=None):
 
 
 def _embed_tokens(params, tokens, cfg, pos):
-    x = params["embed"][tokens.long()].to(act_dtype(cfg))
+    x = embed(params["embed"], tokens).to(act_dtype(cfg))
+    x = logical_constraint(x, ("batch", None, None))
     return x + sinusoid_pos(pos, cfg.d_model).to(x.dtype)[None]
 
 
@@ -210,12 +216,12 @@ def forward(params, tokens, frames, cfg: ArchConfig):
     q_pos = torch.arange(tokens.shape[1], device=tokens.device)
     x = _embed_tokens(params, tokens, cfg, q_pos)
     x = _run_decoder(params, x, cfg, q_pos, enc_kv, None)
-    return norm(x, params["dec_final"], params["dec_final_b"],
-                kind="layernorm")
+    return norm(x, for_compute(params["dec_final"]),
+                for_compute(params["dec_final_b"]), kind="layernorm")
 
 
 def _logits(params, hidden):
-    return matmul_f32(hidden, params["embed"].T)
+    return matmul_f32(hidden, for_compute(params["embed"].T))
 
 
 def cache_specs(cfg: ArchConfig, batch: int, cache_len: int) -> dict:
@@ -256,8 +262,8 @@ def prefill(params, tokens, frames, cfg: ArchConfig,
     x = _embed_tokens(params, tokens, cfg, q_pos)
     caches = empty_caches(cache_specs(cfg, b, cache_len)["dec"], x.device)
     x = _run_decoder(params, x, cfg, q_pos, enc_kv, caches)
-    h_last = norm(x[:, -1], params["dec_final"], params["dec_final_b"],
-                  kind="layernorm")
+    h_last = norm(x[:, -1], for_compute(params["dec_final"]),
+                  for_compute(params["dec_final_b"]), kind="layernorm")
     return _logits(params, h_last), {"dec": caches, "enc_kv": enc_kv}
 
 
@@ -266,6 +272,6 @@ def decode_step(params, caches, tokens, cfg: ArchConfig):
     q_pos = caches["dec"]["self"]["pos"][:1].long()
     x = _embed_tokens(params, tokens, cfg, q_pos)
     x = _run_decoder(params, x, cfg, q_pos, caches["enc_kv"], caches["dec"])
-    h = norm(x[:, 0], params["dec_final"], params["dec_final_b"],
-             kind="layernorm")
+    h = norm(x[:, 0], for_compute(params["dec_final"]),
+             for_compute(params["dec_final_b"]), kind="layernorm")
     return _logits(params, h), caches

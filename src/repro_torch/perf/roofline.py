@@ -59,6 +59,16 @@ HARDWARE = {
         "NVIDIA H100 SXM5", peak_flops=67e12, hbm_bw=3.35e12,
         vmem_bytes=SMEM_LIMIT,
     ),
+    # The same part for the LM dry run (launch/dryrun.py): the datasheet's
+    # dense bf16 tensor-core peak, 989.4 TFLOP/s (as chip_smoke.py's
+    # BF16_TENSOR_FLOPS), and NVLink 4 at 900 GB/s per GPU in both
+    # directions together, 450 GB/s each way (NVIDIA H100 Tensor Core GPU
+    # datasheet, SXM5 column; the NVLink Switch System joins up to 256
+    # such GPUs at that rate).  Rates at the full 700 W power limit.
+    "h100_sxm_bf16": HardwareSpec(
+        "NVIDIA H100 SXM5 (bf16 tensor cores)", peak_flops=989.4e12,
+        hbm_bw=3.35e12, link_bw=450e9, vmem_bytes=SMEM_LIMIT,
+    ),
 }
 
 

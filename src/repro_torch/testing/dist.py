@@ -8,9 +8,11 @@ rank still running is terminated, so a hang costs the caller its timeout
 and nothing more.  The children import this package and ``torch`` only.
 
 :func:`sharded_mesh_checks` and :func:`grid_mesh_checks` are the rank
-bodies of the multi-rank tests of the row-sharded and the N-D grid tiers:
-the same inputs (numpy, from the caller) through the mesh path on every
-rank.
+bodies of the multi-rank tests of the row-sharded and the N-D grid tiers,
+:func:`mesh_train_checks`, :func:`elastic_restore_checks` and
+:func:`launcher_checks` those of LM training on a ``("data", "model")``
+DeviceMesh: the same inputs (numpy, from the caller) through the mesh
+path on every rank.
 """
 from __future__ import annotations
 
@@ -22,7 +24,9 @@ import warnings
 import numpy as np
 import torch
 
-__all__ = ["grid_mesh_checks", "idle", "run_ranks", "sharded_mesh_checks"]
+__all__ = ["elastic_restore_checks", "grid_mesh_checks", "idle",
+           "launcher_checks", "mesh_train_checks", "run_ranks",
+           "sharded_mesh_checks"]
 
 
 def _rank_main(rank: int, world: int, init_file: str, backend: str,
@@ -334,3 +338,189 @@ def _solve_result(res) -> dict:
                 loglik=res.loglik_history, inner=res.inner_iters,
                 recoveries=[(e.kind, e.mode, e.detail.get("action"))
                             for e in res.recoveries or []])
+
+
+# ---------------------------------------------------------------------------
+# LM training on a ("data", "model") mesh
+# ---------------------------------------------------------------------------
+
+
+def _items(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _items(tree[k], f"{prefix}/{k}" if prefix else k)
+    else:
+        yield prefix, tree
+
+
+def _train_mesh(shape: tuple):
+    from torch.distributed.device_mesh import init_device_mesh
+
+    return init_device_mesh("cpu", tuple(shape),
+                            mesh_dim_names=("data", "model"))
+
+
+def _cpu_mm_dtype() -> None:
+    """Give ``aten::mm.dtype``/``aten::bmm.dtype`` a CPU kernel in this
+    process (the f32 product of the upcast operands), so that the card's
+    bf16 branch of ``matmul_f32`` and its DTensor rule run on gloo ranks.
+    The CPU build has none."""
+    global _MM_LIB
+    if "_MM_LIB" in globals():
+        return
+    lib = torch.library.Library("aten", "IMPL")
+    lib.impl("mm.dtype", lambda a, b, out_dtype: torch.mm(
+        a.to(out_dtype), b.to(out_dtype)), "CPU")
+    lib.impl("bmm.dtype", lambda a, b, out_dtype: torch.bmm(
+        a.to(out_dtype), b.to(out_dtype)), "CPU")
+    _MM_LIB = lib
+
+
+def _matmul_f32_checks(mesh, a_np, b_np) -> dict:
+    """``_MatmulF32`` (the card's bf16 product) on DTensors of every
+    placement pair on the 1-D ``mesh``: {(a placement, b placement):
+    (product, grad a, grad b)} as full numpy arrays (f32)."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from ..models.layers import _MatmulF32
+
+    _cpu_mm_dtype()
+    out = {}
+    a_full = torch.from_numpy(a_np).to(torch.bfloat16)
+    b_full = torch.from_numpy(b_np).to(torch.bfloat16)
+    choices = [Replicate()] + [Shard(i) for i in range(a_full.dim())]
+    for pa in choices:
+        for pb in choices[:1 + b_full.dim()]:
+            a = distribute_tensor(a_full, mesh, [pa], src_data_rank=None)
+            b = distribute_tensor(b_full, mesh, [pb], src_data_rank=None)
+            a.requires_grad_(True)
+            b.requires_grad_(True)
+            y = _MatmulF32.apply(a, b)
+            ga, gb = torch.autograd.grad(y.sum(), (a, b))
+            out[(str(pa), str(pb))] = tuple(
+                t.detach().full_tensor().float().numpy() for t in (y, ga, gb))
+    return out
+
+
+def mesh_train_checks(rank: int, world: int, cases: list, lr: float,
+                      mesh_shape: tuple, save_case=None, ckpt_dir=None,
+                      matmul_inputs=None) -> dict:
+    """One train step of each case on a ``mesh_shape`` ``("data",
+    "model")`` mesh of the ``world`` ranks.
+
+    ``cases``: (arch, rules profile, params, batch), numpy trees (the
+    reduced f32 config of ``arch``).  Every rank returns
+    ``{case: [paths whose placements the step changed]}`` under
+    ``"moved"``; rank 0 also ``{case: {"state", "loss", "grad_norm",
+    "step", "placements"}}`` (the new state as full numpy arrays, each
+    leaf's placements as strings) under ``"steps"``.  The state of
+    ``save_case`` is saved to ``ckpt_dir`` at step 1 (rank 0 writes).
+    ``matmul_inputs`` (a list of (a, b) numpy pairs): the
+    :func:`_matmul_f32_checks` of each on the mesh's ``"model"``
+    sub-mesh, under ``"matmul_f32"``.
+    """
+    from ..configs import ARCHS, reduced
+    from ..launch.mesh import batch_shardings, state_shardings
+    from ..models.api import build_model
+    from ..models.convert import params_from_numpy
+    from ..models.params import set_rules_profile, tree_map
+    from ..train import checkpoint
+    from ..train.optimizer import make_optimizer
+    from ..train.step import make_train_step, state_specs
+
+    mesh = _train_mesh(mesh_shape)
+    out: dict = {"moved": {}, "steps": {}}
+    try:
+        for name, profile, params_np, batch_np in cases:
+            set_rules_profile(profile)
+            cfg = reduced(ARCHS[name])
+            model = build_model(cfg)
+            opt = make_optimizer(cfg.optimizer, lr=lr)
+            params = params_from_numpy(params_np, "cpu")
+            sh = state_shardings(state_specs(model, opt), mesh)
+            state = tree_map(lambda x, s: s.place(x),
+                             {"params": params, "opt": opt.init(params)}, sh)
+            specs = {k: (tuple(v.shape), None) for k, v in batch_np.items()}
+            bsh = batch_shardings(specs, mesh)
+            batch = {k: bsh[k].place(torch.from_numpy(v))
+                     for k, v in batch_np.items()}
+            new, metrics = make_train_step(model, opt)(state, batch)
+            old = dict(_items(state))
+            got = dict(_items(new))
+            out["moved"][(name, profile)] = [
+                p for p in old if tuple(got[p].placements)
+                != tuple(old[p].placements)]
+            full = {p: t.full_tensor().numpy() for p, t in got.items()}
+            if save_case == (name, profile):
+                checkpoint.save(ckpt_dir, 1, new)
+            if rank == 0:
+                out["steps"][(name, profile)] = dict(
+                    state=full, loss=float(metrics["loss"]),
+                    grad_norm=float(metrics["grad_norm"]),
+                    step=int(metrics["step"]),
+                    placements={p: [str(x) for x in t.placements]
+                                for p, t in got.items()})
+    finally:
+        set_rules_profile("tp_fsdp")
+    if matmul_inputs is not None:
+        res = [_matmul_f32_checks(mesh["model"], a, b)
+               for a, b in matmul_inputs]
+        if rank == 0:
+            out["matmul_f32"] = res
+    return out
+
+
+def elastic_restore_checks(rank: int, world: int, ckpt_dir: str, arch: str,
+                           profile: str, mesh_shape: tuple) -> dict:
+    """Restore the checkpoint a :func:`mesh_train_checks` case saved onto
+    a ``mesh_shape`` mesh of these ranks (``restore(..., shardings=)``)
+    and onto the CPU with no mesh (``device="cpu"``).  Rank 0 returns
+    both as full numpy arrays by path, and the restored step; every rank
+    returns whether each restored leaf has the target placements."""
+    from ..configs import ARCHS, reduced
+    from ..launch.mesh import state_shardings
+    from ..models.api import build_model
+    from ..models.params import abstract_params, set_rules_profile, tree_map
+    from ..train.checkpoint import restore
+    from ..train.optimizer import make_optimizer
+    from ..train.step import state_specs
+
+    mesh = _train_mesh(mesh_shape)
+    set_rules_profile(profile)
+    try:
+        cfg = reduced(ARCHS[arch])
+        model = build_model(cfg)
+        specs = state_specs(model, make_optimizer(cfg.optimizer))
+        sh = state_shardings(specs, mesh)
+        target = abstract_params(specs)
+        on_mesh, step = restore(ckpt_dir, target, shardings=sh)
+        plain, step_cpu = restore(ckpt_dir, target, device="cpu")
+        placed = tree_map(lambda t, s: tuple(t.placements) == s.placements,
+                          on_mesh, sh)
+    finally:
+        set_rules_profile("tp_fsdp")
+    out = {"placed": all(v for _, v in _items(placed)),
+           "steps": (step, step_cpu)}
+    full = {p: t.full_tensor().numpy() for p, t in _items(on_mesh)}
+    if rank == 0:
+        out["mesh"] = full
+        out["cpu"] = {p: t.numpy() for p, t in _items(plain)}
+    return out
+
+
+def launcher_checks(rank: int, world: int, runs: list) -> list:
+    """``launch.train.main(argv)`` for each argv of ``runs`` in turn on
+    this group (the launcher uses the group it finds); returns, per run,
+    the lines it printed (rank 0) and the loop's last step."""
+    import contextlib
+    import io
+
+    from ..launch import train
+
+    out = []
+    for argv in runs:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = train.main(list(argv))
+        out.append((rc, buf.getvalue().splitlines()))
+    return out

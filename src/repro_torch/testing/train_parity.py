@@ -54,7 +54,8 @@ def _v_leaf(v_tree: dict, path: str):
 def compare_states(got: dict, want: dict, lr: float, rtol: float,
                    atol: float, skip: dict | None = None) -> dict:
     """``got`` against ``want`` (train states: params, opt[, resid]; same
-    keys, shapes and dtypes, or ValueError).
+    keys, shapes and dtypes, or ValueError), computed on ``want``'s
+    device.
 
     ``skip`` ({parameter path: bool mask}) leaves entries out of that
     parameter's leaves in every section.  Returns ``worst`` (the largest
@@ -79,17 +80,17 @@ def compare_states(got: dict, want: dict, lr: float, rtol: float,
             if g.shape != w.shape or g.dtype != w.dtype:
                 raise ValueError(f"{where}: {g.dtype}{tuple(g.shape)} vs "
                                  f"{w.dtype}{tuple(w.shape)}")
-            g = g.detach().float().cpu()
-            w = w.detach().float().cpu()
-            keep = torch.ones(w.shape, dtype=torch.bool)
+            w = w.detach().float()
+            g = g.detach().float().to(w.device)
+            keep = torch.ones(w.shape, dtype=torch.bool, device=w.device)
             for key, mask in (skip or {}).items():
                 if (path == key or path.endswith("/" + key)) \
                         and mask.shape == w.shape:
-                    keep &= ~mask
-            small = torch.zeros(w.shape, dtype=torch.bool)
+                    keep &= ~mask.to(w.device)
+            small = torch.zeros(w.shape, dtype=torch.bool, device=w.device)
             if section == "params":
                 small = torch.sqrt(_v_hat(opt, _v_leaf(v_tree, path))
-                                   .float().cpu()) < SMALL_G
+                                   .float().to(w.device)) < SMALL_G
             ratio = (g - w).abs() / (atol + rtol * w.abs())
             held = ratio[keep & ~small]
             if held.numel() and float(held.max()) > out["worst"]:

@@ -12,7 +12,12 @@ rename).
   * writes are atomic: a temp file in the directory, then ``os.replace``;
     the ``LATEST`` JSON is written last, so a crash mid-write never
     corrupts the restore point;
-  * ``Checkpointer`` keeps a rolling window of ``keep`` checkpoints.
+  * ``Checkpointer`` keeps a rolling window of ``keep`` checkpoints;
+  * mesh-independent: a tree of DTensors is written as its full arrays
+    (every rank gathers each leaf, rank 0 writes, the others wait), so a
+    checkpoint written on one mesh restores onto any mesh
+    (``restore(..., shardings=)``: the elastic re-mesh) or onto one
+    device (``device=``).
 """
 from __future__ import annotations
 
@@ -23,6 +28,8 @@ import zipfile
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from ..device import resolve_device
 
@@ -52,6 +59,11 @@ def _write_npy(f, t: torch.Tensor) -> None:
         np.lib.format.write_array(f, t.numpy(), allow_pickle=False)
 
 
+def _full(leaf) -> torch.Tensor:
+    """A leaf's full value (a DTensor's gathered on every rank)."""
+    return leaf.full_tensor() if isinstance(leaf, DTensor) else leaf
+
+
 def _savez(f, tree) -> None:
     """``np.savez``'s container (stored zip, one ``<key>.npy`` member per
     leaf) with bf16 leaves written as the JAX package writes them."""
@@ -59,7 +71,11 @@ def _savez(f, tree) -> None:
                          allowZip64=True) as z:
         for key, leaf in _items(tree):
             with z.open(key + ".npy", "w", force_zip64=True) as m:
-                _write_npy(m, leaf)
+                _write_npy(m, _full(leaf))
+
+
+def _sharded(tree) -> bool:
+    return any(isinstance(leaf, DTensor) for _, leaf in _items(tree))
 
 
 def _to_tensor(arr: np.ndarray, like: torch.Tensor, key: str,
@@ -77,9 +93,30 @@ def _to_tensor(arr: np.ndarray, like: torch.Tensor, key: str,
 
 
 def save(ckpt_dir: str, step: int, tree, extra: dict | None = None) -> str:
-    """Atomically write ``tree`` (nested dicts of tensors) at ``step``."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+    """Atomically write ``tree`` (nested dicts of tensors) at ``step``.
+
+    A tree with DTensor leaves is a collective: every rank of the default
+    process group calls it, each leaf is gathered leaf by leaf, rank 0
+    writes, and every rank returns once the file and ``LATEST`` are in
+    place."""
     path = os.path.join(ckpt_dir, f"step_{step:08d}.npz")
+    if _sharded(tree):
+        try:
+            if dist.get_rank() == 0:
+                _save_file(ckpt_dir, path, step, tree, extra)
+            else:
+                for _, leaf in _items(tree):
+                    _full(leaf)
+        finally:
+            dist.barrier()
+        return path
+    _save_file(ckpt_dir, path, step, tree, extra)
+    return path
+
+
+def _save_file(ckpt_dir: str, path: str, step: int, tree,
+               extra: dict | None) -> None:
+    os.makedirs(ckpt_dir, exist_ok=True)
     fd, tmp = tempfile.mkstemp(dir=ckpt_dir, suffix=".tmp")
     try:
         with os.fdopen(fd, "wb") as f:
@@ -96,7 +133,6 @@ def save(ckpt_dir: str, step: int, tree, extra: dict | None = None) -> str:
     with os.fdopen(fd, "w") as f:
         json.dump(meta, f)
     os.replace(tmp, os.path.join(ckpt_dir, "LATEST"))
-    return path
 
 
 def latest_step(ckpt_dir: str) -> int | None:
@@ -108,11 +144,21 @@ def latest_step(ckpt_dir: str) -> int | None:
 
 
 def restore(ckpt_dir: str, tree_like, step: int | None = None,
-            device="cuda"):
+            device="cuda", shardings=None):
     """(tree, step): the checkpoint at ``step`` (default: the latest) on
     the structure of ``tree_like`` (tensors giving shapes and dtypes,
     e.g. meta tensors from ``abstract_params(state_specs(...))``), every
-    leaf placed on ``device``."""
+    leaf placed on ``device``; or, with ``shardings`` (a tree of
+    ``NamedSharding``, ``launch.mesh.state_shardings``), placed on its
+    mesh as a DTensor (the elastic re-mesh: any mesh, any rank count;
+    every rank reads the file and keeps its own chunks)."""
+    if shardings is not None:
+        tree, step = restore(ckpt_dir, tree_like, step, device="cpu")
+
+        def place(t, sh):
+            return sh.place(t.to(sh.mesh.device_type))
+
+        return _map2(place, tree, shardings), step
     dev = resolve_device(device)
     if step is None:
         step = latest_step(ckpt_dir)
@@ -133,6 +179,12 @@ def restore(ckpt_dir: str, tree_like, step: int | None = None,
     return build(tree_like), step
 
 
+def _map2(fn, tree, other):
+    if isinstance(tree, dict):
+        return {k: _map2(fn, v, other[k]) for k, v in tree.items()}
+    return fn(tree, other)
+
+
 class Checkpointer:
     """Rolling checkpoint manager with a retention window."""
 
@@ -142,10 +194,12 @@ class Checkpointer:
 
     def save(self, step: int, tree, extra: dict | None = None):
         save(self.dir, step, tree, extra)
-        self._gc()
+        if not _sharded(tree) or dist.get_rank() == 0:
+            self._gc()
 
-    def restore(self, tree_like, device="cuda", step=None):
-        return restore(self.dir, tree_like, step=step, device=device)
+    def restore(self, tree_like, device="cuda", step=None, shardings=None):
+        return restore(self.dir, tree_like, step=step, device=device,
+                       shardings=shardings)
 
     def latest_step(self):
         return latest_step(self.dir)

@@ -1,12 +1,14 @@
-"""Fault-tolerant training loop on one device.
+"""Fault-tolerant training loop, on one device or a mesh.
 
   * checkpoint every ``ckpt_every`` steps (atomic, rolling window), at the
     end, and on SIGTERM/SIGINT (the current step finishes, is saved, and
     the loop returns);
   * resume from the latest checkpoint: the data pipeline is stateless in
     ``step``, so the replay is exact;
-  * ``device=`` says where a restored state is placed (the JAX package
-    re-places it with the shardings of its mesh);
+  * ``device=`` says where a restored state is placed, or
+    ``state_shardings=`` (a ``NamedSharding`` tree) the mesh layout it is
+    placed in: the elastic re-mesh, a checkpoint of any mesh restored
+    onto this one;
   * straggler watchdog: each step's wall time against the rolling median
     of the last ``straggler_window`` steps, from the sixth step on; a step
     slower than ``straggler_factor`` times it is logged as an event.
@@ -45,11 +47,12 @@ class TrainLoopConfig:
 
 class TrainLoop:
     def __init__(self, train_step: Callable, make_batch: Callable,
-                 cfg: TrainLoopConfig, device="cuda"):
+                 cfg: TrainLoopConfig, device="cuda", state_shardings=None):
         self.train_step = train_step
         self.make_batch = make_batch
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.state_shardings = state_shardings
         self.ckpt = Checkpointer(cfg.ckpt_dir, keep=cfg.keep)
         self.step_times: list = []
         self.straggler_events: list = []
@@ -70,8 +73,9 @@ class TrainLoop:
             signal.signal(s, h)
 
     def resume_or_init(self, init_state_fn: Callable, target=None):
-        """(state, start_step): restored onto ``self.device`` if a
-        checkpoint exists, else ``init_state_fn()``.  ``target`` is the
+        """(state, start_step): restored onto ``self.device`` (or placed
+        with ``self.state_shardings``) if a checkpoint exists, else
+        ``init_state_fn()``.  ``target`` is the
         state's structure as tensors (meta tensors from
         ``abstract_params(state_specs(...))`` cost no memory); without it
         ``init_state_fn`` runs once to give it."""
@@ -80,7 +84,8 @@ class TrainLoop:
             return init_state_fn(), 0
         if target is None:
             target = tree_map(lambda t: t.to("meta"), init_state_fn())
-        return self.ckpt.restore(target, device=self.device)
+        return self.ckpt.restore(target, device=self.device,
+                                 shardings=self.state_shardings)
 
     # -- straggler watchdog ---------------------------------------------------
     def _watch(self, step: int, dt: float):

@@ -1,6 +1,6 @@
-"""Train/serve step builders for the training loop.
+"""Train/serve step builders for the training loop and the dry run.
 
-``make_train_step`` assembles the JAX package's step on one device:
+``make_train_step`` assembles the JAX package's step:
   gradients of ``loss_fn`` (``torch.autograd.grad``; microbatches split
   on dim 0 and accumulated in ``cfg.grad_accum_dtype``)
   -> global-norm clip -> optional error-feedback grad compression
@@ -8,16 +8,38 @@
 
 State is a plain dict {"params", "opt", ["resid"]}; ``state_specs`` gives
 it as a ParamSpec tree (``abstract_params`` of it: the restore target,
-no memory).  The step is functional: it returns a new state and never
-writes into the one it was given.
+no memory; ``launch.mesh.state_shardings`` of it: its layout on a mesh).
+The step is functional: it returns a new state and never writes into the
+one it was given.
+
+On one device the state is plain tensors.  On a mesh it is DTensors
+(``NamedSharding.place``) and DTensor's sharding propagation does what
+XLA's partitioner does for the reference: the step runs with the state's
+mesh active (``logical_constraint`` pins the activations) and plain
+tensors made inside the model treated as replicated; each gradient is
+redistributed to its parameter's placements (a reduce-scatter of the
+partial sums), and every leaf of the new state comes back with the
+placements of the leaf it replaces (the reference's ``in_shardings ==
+out_shardings``).
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
+from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor.experimental import implicit_replication
 
 from ..device import resolve_device
 from ..models.api import Model
-from ..models.params import ParamSpec, tree_leaves, tree_map
+from ..models.params import (
+    ParamSpec,
+    _ambient_mesh,
+    contiguous_strides,
+    tree_leaves,
+    tree_map,
+    use_mesh,
+)
 from .compression import CompressionConfig, compress_grads, init_residual
 from .optimizer import (
     Optimizer,
@@ -54,27 +76,81 @@ def init_state(model: Model, optimizer: Optimizer, seed: int = 0,
     return state
 
 
+def mesh_of(tree):
+    """The DeviceMesh of the first DTensor leaf of ``tree`` (None: a
+    plain-tensor tree)."""
+    for x in tree_leaves(tree):
+        if isinstance(x, DTensor):
+            return x.device_mesh
+    return None
+
+
+@contextlib.contextmanager
+def on_mesh(mesh):
+    """The body on ``mesh``: the mesh made ambient (unless one is) and
+    plain tensors mixed with DTensors taken as replicated.  No-op for
+    ``mesh=None``."""
+    if mesh is None:
+        yield
+        return
+    ambient = (use_mesh(mesh) if _ambient_mesh() is None
+               else contextlib.nullcontext())
+    with ambient, implicit_replication():
+        yield
+
+
+def _rows(x, i: int, n_mb: int):
+    """Microbatch ``i`` of ``n_mb`` of one input.  A DTensor sharded on
+    dim 0 is cut on each rank's own rows (microbatch ``i`` takes the
+    ``i``-th slice of every rank's rows: the same rows as one cut of the
+    global batch, grouped otherwise, and no rows move)."""
+    if isinstance(x, DTensor) and any(
+            getattr(pl, "dim", None) == 0 for pl in x.placements):
+        loc = x.to_local()
+        k = loc.shape[0] // n_mb
+        shape = (x.shape[0] // n_mb,) + tuple(x.shape[1:])
+        return DTensor.from_local(loc[i * k:(i + 1) * k], x.device_mesh,
+                                  x.placements, run_check=False, shape=shape,
+                                  stride=contiguous_strides(shape))
+    k = x.shape[0] // n_mb
+    return x[i * k:(i + 1) * k]
+
+
 def _split_microbatches(batch: dict, n_mb: int) -> list:
     """``n_mb`` batches cut from dim 0 of every input."""
     for k, x in batch.items():
         b = x.shape[0]
         if b % n_mb:
             raise ValueError(f"{k}: batch {b} % microbatches {n_mb} != 0")
-    return [{k: x[i * (x.shape[0] // n_mb):(i + 1) * (x.shape[0] // n_mb)]
-             for k, x in batch.items()} for i in range(n_mb)]
+    return [{k: _rows(x, i, n_mb) for k, x in batch.items()}
+            for i in range(n_mb)]
+
+
+def _like(g, p):
+    """Gradient ``g`` with the placements of its DTensor parameter ``p``
+    (a partial sum is reduce-scattered); ``g`` itself otherwise."""
+    if isinstance(p, DTensor) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 def _value_and_grad(model: Model, params, batch):
-    """(loss, grads in each parameter's dtype).  A parameter the loss does
-    not reach gets a zero gradient, as under ``jax.grad``."""
+    """(loss, grads in each parameter's dtype and, on a mesh, with its
+    placements).  A parameter the loss does not reach gets a zero
+    gradient, as under ``jax.grad``."""
     live = tree_map(lambda p: p.detach().requires_grad_(True), params)
     leaves = tree_leaves(live)
     with torch.enable_grad():
         loss = model.loss_fn(live, batch)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    it = iter([torch.zeros_like(p) if g is None else g
+    it = iter([torch.zeros_like(p) if g is None else _like(g, p)
                for p, g in zip(leaves, grads)])
     return loss.detach(), tree_map(lambda _: next(it), params)
+
+
+def _full(x):
+    """A metric as a plain tensor (a DTensor's full value)."""
+    return x.full_tensor() if isinstance(x, DTensor) else x
 
 
 def make_train_step(model: Model, optimizer: Optimizer,
@@ -94,8 +170,7 @@ def make_train_step(model: Model, optimizer: Optimizer,
             return loss, tree_map(lambda g: g.float(), grads)
         loss_sum = torch.zeros((), dtype=torch.float32,
                                device=tree_leaves(params)[0].device)
-        g_sum = tree_map(lambda p: torch.zeros(p.shape, dtype=acc_dt,
-                                               device=p.device), params)
+        g_sum = tree_map(lambda p: torch.zeros_like(p, dtype=acc_dt), params)
         for mb in _split_microbatches(batch, n_mb):
             loss, grads = _value_and_grad(model, params, mb)
             g_sum = tree_map(lambda a, g: a + g.to(acc_dt), g_sum, grads)
@@ -106,6 +181,15 @@ def make_train_step(model: Model, optimizer: Optimizer,
 
     @torch.no_grad()
     def train_step(state, batch):
+        mesh = mesh_of(state)
+        with on_mesh(mesh):
+            new_state, metrics = _step(state, batch)
+            if mesh is not None:
+                new_state = tree_map(_like, new_state, state)
+                metrics = tree_map(_full, metrics)
+        return new_state, metrics
+
+    def _step(state, batch):
         params = state["params"]
         loss, grads = grads_of(params, batch)
         grads, gnorm = clip_by_global_norm(grads, clip_norm)
@@ -123,24 +207,37 @@ def make_train_step(model: Model, optimizer: Optimizer,
     return train_step
 
 
+def greedy(logits) -> torch.Tensor:
+    """(B, V) logits -> (B, 1) int32 argmax.  A DTensor's vocab dim is
+    gathered first (keeping its batch split): DTensor's argmax over a
+    split dim reads each shard's offset from the data."""
+    if isinstance(logits, DTensor):
+        logits = logits.redistribute(logits.device_mesh, tuple(
+            pl if getattr(pl, "dim", None) == 0 else Replicate()
+            for pl in logits.placements))
+    return torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+
+
 def make_serve_step(model: Model):
     """decode: (params, caches, tokens (B, 1)) -> (next_tokens (B, 1)
-    int32, caches); the caches are written in place."""
+    int32, caches); the caches are written in place.  DTensor parameters
+    run on their mesh, as in the train step."""
 
     def serve_step(params, caches, tokens):
-        logits, caches = model.decode_step(params, caches, tokens)
-        nxt = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
-        return nxt, caches
+        with on_mesh(mesh_of(params)):
+            logits, caches = model.decode_step(params, caches, tokens)
+            return greedy(logits), caches
 
     return serve_step
 
 
 def make_prefill(model: Model):
-    """prefill: (params, batch) -> (next_tokens (B, 1) int32, caches)."""
+    """prefill: (params, batch) -> (next_tokens (B, 1) int32, caches);
+    with DTensor parameters the caches are DTensors on their mesh."""
 
     def prefill(params, batch):
-        logits, caches = model.prefill(params, batch)
-        nxt = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
-        return nxt, caches
+        with on_mesh(mesh_of(params)):
+            logits, caches = model.prefill(params, batch)
+            return greedy(logits), caches
 
     return prefill

@@ -12,7 +12,11 @@ kernel of the port) runs its ten reduced configs on the card against
 the CPU, crosses the ring cache's window and counts the engine's decode
 steps.  LM training: ``matmul_f32``'s backward on bf16 operands (the
 cuBLAS ``out_dtype`` product) against the f32 product's gradient, and
-one train step of each reduced config on the card against the CPU.
+one train step of each reduced config on the card against the CPU.  LM
+training on a mesh: each reduced config's step on a (1, 1) DeviceMesh of
+a one-rank NCCL group against the plain step on the card, and
+``matmul_f32`` of bf16 DTensors through the registered DTensor rules of
+``aten.mm.dtype``/``aten.bmm.dtype``.
 
 Everything here needs an NVIDIA GPU and skips with a reason without one.
 The file imports neither jax nor the JAX package, so it also runs on a
@@ -1435,3 +1439,98 @@ def test_lm_train_step_card_against_cpu(card, name):
     assert cmp["n_sensitive_out"] <= 8, cmp
     assert cmp["noise_leaves"] == (["blocks/router"] if cfg.top_k == 1
                                    else []), cmp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ("granite-8b", "h2o-danube-1.8b",
+                                  "llama4-maverick-400b-a17b", "mamba2-1.3b",
+                                  "olmo-1b", "pixtral-12b",
+                                  "qwen3-moe-235b-a22b", "recurrentgemma-9b",
+                                  "stablelm-3b", "whisper-medium"))
+def test_lm_mesh_step_on_the_card(card, name):
+    """The step on a (1, 1) ``("data", "model")`` mesh of a one-rank NCCL
+    group, under the arch's own rules, against the unsharded step on the
+    card from the same weights and batch: loss, grad norm and every state
+    leaf within LM_RTOL/LM_ATOL (the rounding-sensitive entries at their
+    update bound); every leaf keeps its placements."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.config import ShapeConfig
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch.mesh import batch_shardings, state_shardings
+    from repro_torch.launch.train import process_group
+    from repro_torch.models.params import (set_rules_profile, tree_leaves,
+                                           tree_map)
+    from repro_torch.testing.train_parity import compare_states
+    from repro_torch.train.optimizer import make_optimizer
+    from repro_torch.train.step import make_train_step, state_specs
+
+    cfg, model = _lm(name)
+    lr = 1e-3
+    opt = make_optimizer(cfg.optimizer, lr=lr)
+    step = make_train_step(model, opt)
+    shape = ShapeConfig("t", 32, 2, "train")
+    params = model.init(0, device=card)
+    batch = TokenPipeline(cfg, shape, seed=1, device=card).make_batch(0)
+    state = {"params": params, "opt": opt.init(params)}
+    want, m_want = step(state, batch)
+    set_rules_profile(cfg.sharding_profile)
+    try:
+        with process_group(card):
+            mesh = init_device_mesh("cuda", (1, 1),
+                                    mesh_dim_names=("data", "model"))
+            sh = state_shardings(state_specs(model, opt), mesh)
+            bsh = batch_shardings(model.input_specs(shape), mesh)
+            dstate = tree_map(lambda x, s: s.place(x), state, sh)
+            got, m_got = step(dstate, {k: bsh[k].place(v)
+                                       for k, v in batch.items()})
+            assert all(tuple(a.placements) == tuple(b.placements) for a, b
+                       in zip(tree_leaves(got), tree_leaves(dstate)))
+            got = tree_map(lambda t: t.to_local(), got)
+    finally:
+        set_rules_profile("tp_fsdp")
+    for k in ("loss", "grad_norm"):
+        np.testing.assert_allclose(float(m_got[k]), float(m_want[k]),
+                                   rtol=LM_RTOL, atol=LM_ATOL, err_msg=k)
+    cmp = compare_states(got, want, lr, LM_RTOL, LM_ATOL)
+    assert cmp["worst"] <= 1.0 and cmp["sensitive_worst"] <= 1.0, cmp
+    assert cmp["n_sensitive_out"] <= 8, cmp
+    assert cmp["noise_leaves"] == (["blocks/router"] if cfg.top_k == 1
+                                   else []), cmp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shapes", (((3, 5, 64), (64, 48)),
+                                    ((2, 4, 16, 64), (2, 4, 64, 24))))
+def test_matmul_f32_on_a_card_mesh(card, shapes):
+    """``matmul_f32`` of bf16 DTensors on a (1, 1) mesh of a one-rank NCCL
+    group (``aten.mm.dtype``/``aten.bmm.dtype`` through their registered
+    DTensor rules): product and gradients equal the plain tensors'."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import Shard, distribute_tensor
+
+    from repro_torch.launch.train import process_group
+    from repro_torch.models.layers import matmul_f32
+
+    gen = torch.Generator(device=card).manual_seed(0)
+    sa, sb = shapes
+    a = torch.randn(sa, generator=gen, device=card).to(torch.bfloat16)
+    b = torch.randn(sb, generator=gen, device=card).to(torch.bfloat16)
+    a1, b1 = a.clone().requires_grad_(True), b.clone().requires_grad_(True)
+    want = matmul_f32(a1, b1)
+    wa, wb = torch.autograd.grad(want.sum(), (a1, b1))
+    with process_group(card):
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        a2 = distribute_tensor(a, mesh, [Shard(0), Shard(a.dim() - 1)],
+                               src_data_rank=None).requires_grad_(True)
+        b2 = distribute_tensor(b, mesh, [Shard(b.dim() - 2), Shard(0)],
+                               src_data_rank=None).requires_grad_(True)
+        got = matmul_f32(a2, b2)
+        ga, gb = torch.autograd.grad(got.sum(), (a2, b2))
+        got, ga, gb = (t.full_tensor() for t in (got, ga, gb))
+    assert got.dtype == torch.float32 and ga.dtype == torch.bfloat16
+    for g, w in ((got, want), (ga, wa), (gb, wb)):
+        np.testing.assert_allclose(g.detach().float().cpu().numpy(),
+                                   w.detach().float().cpu().numpy(),
+                                   rtol=LM_RTOL, atol=LM_ATOL)

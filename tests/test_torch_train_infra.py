@@ -319,7 +319,7 @@ def test_launcher_trains_and_resumes_on_the_cpu(tmp_path):
         assert P_launch.main(argv) == 0
     lines = out.getvalue().splitlines()
     assert lines[0].startswith("[train] arch=olmo-1b-smoke ")
-    assert "device=cpu start_step=0" in lines[0]
+    assert "mesh={'data': 1, 'model': 1} start_step=0" in lines[0]
     assert sum(ln.startswith("[train] step") for ln in lines) == 3
     assert lines[-1].startswith("[train] done at step 3")
     assert latest_step(ck) == 3
