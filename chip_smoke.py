@@ -243,22 +243,42 @@ Phases (any failure exits nonzero before the last line):
     17's, tokens/s and MFU as phase 17 counts them: DTensor's host cost on
     this card.  (2) The elastic restore: reduced olmo-1b stepped once on
     that mesh, saved, restored onto the mesh and with ``device=`` alone,
-    both bitwise.  (3) One dry-run cell under this machine's torch,
-    olmo-1b train_4k on the single-pod mesh (a fake group of 256 ranks,
-    fake CUDA tensors): its seconds, per-device bytes and roofline terms,
-    printed as a projection from datasheet rates.  (4) Last, with 16.5
-    and 17.3, where one mesh step goes: wall ms beside the profiler's
-    device-busy ms and the idle share.  No kernel's launch count moves in
-    phase 18.
+    both bitwise.  (3) Two dry-run cells under this machine's torch on
+    the single-pod mesh (a fake group of 256 ranks, fake CUDA tensors):
+    olmo-1b train_4k and recurrentgemma-9b prefill_32k (38 layers of
+    32768 positions, forward only); each one's seconds, per-device bytes
+    and roofline terms, printed as a projection from datasheet rates.
+    (4) Last, with 16.5 and 17.3, where one mesh step goes: wall ms
+    beside the profiler's device-busy ms and the idle share.  No kernel's
+    launch count moves in phase 18.
+19. The log-depth RG-LRU scan (run after phase 18), recurrentgemma-9b at
+    its published widths, weights drawn from ``--seed``.  (1)
+    ``rg_lru`` on the first recurrent sublayer's weights at (1, S, 4096)
+    for S in RG_SCAN_SEQS against ``rg_lru_ref`` (the sequential loop),
+    in turns: outputs, and at the first S the gradients of x, w_a, w_x
+    and lam, within SCAN_RTOL/SCAN_ATOL; forward ms both ways, and
+    forward + backward ms at the first S (CUDA events, median of
+    RG_REPS); their device kernels per call from a torch.profiler pass
+    after phase 10, last.  (2) The full 38-layer model's ``prefill``
+    of 1 x RG_PREFILL tokens in bf16: ms per prefill (CUDA events, median
+    of RG_REPS), tokens/s, finite logits, RG_DECODE greedy decode steps;
+    how far its last-position logits move with ``rg_lru_ref`` patched in,
+    printed beside how far they move when the scan's output is one f32
+    rounding step off (bf16 rounding through 38 random layers: ~3e-2 of
+    the largest |logit| either way); then the same prefill in f32
+    weights, scan against sequential within RG_F32_FRAC of the largest
+    |logit|.  No kernel's launch count moves in phase 19.
 10. One launch per fused dense step: the device kernels of one
     ``phi_mu_dense`` call on the near-dense tensor's mode 0, counted with
-    torch.profiler (last, so that no timed phase runs under its set-up):
-    one accumulation kernel and at most one fill of a few bytes.
+    torch.profiler (after every timed phase, so that none runs under its
+    set-up; only 19.1's launch counts come later): one accumulation
+    kernel and at most one fill of a few bytes.
 
 The counted main-path solves of phases 3, 5 and 6 fail on any demotion
 (``recoveries`` must be empty): a ladder that quietly ran a plain
 strategy would otherwise pass as the kernel; so do phases 13's, 14's
-and 15's.  Phases 7-9 and 11-17 print their own times.  The line before
+and 15's.  Phases 7-9 and 11-19 print their own times, and the
+whole run its total.  The line before
 the last is the per-kernel JSON record (``launches`` from the counted
 runs of phases 3-7, ``service_launches`` from phase 13's,
 ``sharded_launches`` from phase 14's, ``grid_launches`` from phase
@@ -364,6 +384,23 @@ TRAIN_BF16_REL = 3e-2
 # datasheet, without sparsity): the bound of a bf16 train step's matmuls
 BF16_TENSOR_FLOPS = 989.4e12
 CARD_BYTES = 80 * 2 ** 30  # an H100 SXM's HBM3
+# Phase 19, the RG-LRU scan: recurrentgemma-9b's train_4k and prefill_32k
+# lengths at its published width; 5 timed calls a way (median)
+RG_SCAN_SEQS = (4096, 32768)
+RG_REPS = 5
+RG_GRAD_KEYS = ("w_a", "w_x", "lam")  # 19.1's weight gradients, with x's
+# the scan against the sequential loop in f32: the card's tier for
+# reordered f32 sums (16.3's)
+SCAN_RTOL, SCAN_ATOL = CPU_RTOL, CPU_ATOL
+RG_PREFILL, RG_DECODE = 4096, 8  # 19.2: prompt (batch 1), greedy steps
+# 19.2 in f32 weights: the scan against the sequential loop through 38
+# layers, as a share of the largest |logit| (reordered f32 sums; moving
+# the scan's output one f32 rounding step moves the logits as far)
+RG_F32_FRAC = 1e-4
+# 18.3's dry-run cells on the single-pod mesh under the card's torch:
+# olmo-1b's train cell and the prefill cell the log-depth scan unblocks
+MESH_DRYRUN_CELLS = (("olmo-1b", "train_4k"),
+                     ("recurrentgemma-9b", "prefill_32k"))
 CSRC = "src/repro_torch/kernels/csrc"
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "phi_blocked": ("phi.cu", "src/repro/kernels/phi/kernel.py:139"),
@@ -3539,23 +3576,25 @@ def mesh_elastic_restore(dev, seed: int) -> None:
         shutil.rmtree(ck, ignore_errors=True)
 
 
-def mesh_dryrun_cell() -> dict:
-    """18.3: one dry-run cell under this machine's torch, olmo-1b
-    train_4k on the single-pod (16, 16) mesh: a fake process group of 256
-    ranks, fake CUDA tensors (no card memory); the record's numbers are a
-    projection from datasheet rates, not measurements."""
+def mesh_dryrun_cell(arch: str, shape: str) -> dict:
+    """18.3: one dry-run cell under this machine's torch on the
+    single-pod (16, 16) mesh: a fake process group of 256 ranks, fake
+    CUDA tensors (no card memory); the record's numbers are a projection
+    from datasheet rates, not measurements."""
     from repro_torch.launch import dryrun
 
     out = os.path.join(HERE, "build", "chip_smoke", "dryrun")
-    rec = dryrun.run_cell("olmo-1b", "train_4k", "single", out, force=True,
+    t0 = time.perf_counter()
+    rec = dryrun.run_cell(arch, shape, "single", out, force=True,
                           device="cuda")
-    check("error" not in rec, f"dry-run cell failed: {rec.get('error')}\n"
-          f"{rec.get('traceback', '')[-2000:]}")
+    secs = time.perf_counter() - t0
+    check("error" not in rec, f"dry-run cell {arch} {shape} failed: "
+          f"{rec.get('error')}\n{rec.get('traceback', '')[-2000:]}")
     r = rec["roofline"]
-    print(f"18.3 dry run olmo-1b train_4k, single-pod 16 x 16 mesh "
+    print(f"18.3 dry run {arch} {shape}, single-pod 16 x 16 mesh "
           f"(PROJECTION from datasheet rates, {rec['hardware']}; not a "
-          f"measurement): build {rec['seconds']['build']:.1f} s, run "
-          f"{rec['seconds']['run']:.1f} s; per device: state "
+          f"measurement): {secs:.1f} s (build {rec['seconds']['build']:.1f}"
+          f" s, run {rec['seconds']['run']:.1f} s); per device: state "
           f"{rec['state_bytes_per_device'] / 2 ** 30:.3f} GiB, peak "
           f"{rec['hbm_bytes_per_device'] / 2 ** 30:.3f} GiB, "
           f"{rec['cost']['flops_per_device']:.4e} FLOP, "
@@ -3582,16 +3621,16 @@ def mesh_phase(dev, seed: int, p17: dict) -> dict:
         out["step"] = mesh_train_step(dev, seed, p17)
         mesh_elastic_restore(dev, seed)
     print(f"18.1-18.2 mesh step and restore: {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    out["dryrun"] = mesh_dryrun_cell()
-    print(f"18.3 dry-run cell: {time.perf_counter() - t0:.1f} s")
+    out["dryrun"] = {f"{a} {sh}": mesh_dryrun_cell(a, sh)
+                     for a, sh in MESH_DRYRUN_CELLS}
     check(kernel_launch_counts() == before,
           "the mesh path launched one of the port's kernels")
     print(f"phase 18 launched none of the {len(before)} kernels")
     print("18 records: " + json.dumps(
-        {"step": out["step"], "dryrun": {k: out["dryrun"][k] for k in (
+        {"step": out["step"], "dryrun": {cell: {k: rec[k] for k in (
             "n_chips", "state_bytes_per_device", "hbm_bytes_per_device",
-            "cost", "roofline", "seconds", "source")}}))
+            "cost", "roofline", "seconds", "source")}
+            for cell, rec in out["dryrun"].items()}}))
     return out
 
 
@@ -3650,6 +3689,331 @@ def mesh_train_trace(dev, seed: int, steps: int = 2) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: the log-depth RG-LRU scan (recurrentgemma-9b)
+# ---------------------------------------------------------------------------
+
+
+def _rg_lru_inputs(dev, seed: int, seq: int, lru: dict, grad: bool):
+    """19.1's inputs: one recurrent sublayer's RG-LRU weights (``lru``,
+    f32) and an input of (1, seq, W) bf16 values from the seed, held as
+    f32 (the scan upcasts its bf16 input first, so the forward is the
+    same; the gradient of x is then not rounded to bf16, which would flip
+    last bits between two summation orders).  With ``grad``, fresh leaves
+    and the cotangents of y and h_last."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed + seq)
+    w = lru["lam"].shape[-1]
+    x = torch.randn((1, seq, w), generator=g, device=dev).to(
+        torch.bfloat16).float()
+    if not grad:
+        return x, lru, None
+    p = {k: v.detach().clone().requires_grad_(k in RG_GRAD_KEYS)
+         for k, v in lru.items()}
+    cot = (torch.randn((1, seq, w), generator=g, device=dev),
+           torch.randn((1, w), generator=g, device=dev))
+    return x.requires_grad_(), p, cot
+
+
+def _rg_lru_fwd_bwd(fn, x, p, cot) -> tuple:
+    """y, h_last and the gradients of x and RG_GRAD_KEYS of ``fn``."""
+    import torch
+
+    y, h = fn(x, p)
+    loss = (y * cot[0]).sum() + (h * cot[1]).sum()
+    grads = torch.autograd.grad(loss, [x] + [p[k] for k in RG_GRAD_KEYS])
+    return y, h, grads
+
+
+def rglru_scan_part(lru: dict, dev, seed: int) -> dict:
+    """19.1: ``rg_lru`` (the log-depth scan) against ``rg_lru_ref`` (the
+    sequential loop) on one recurrent sublayer's weights at (1, S, 4096)
+    for S in RG_SCAN_SEQS: outputs within SCAN_RTOL/SCAN_ATOL; at the
+    first S also the gradients of x, w_a, w_x and lam; forward ms (and
+    forward + backward ms at the first S) by CUDA events, median of
+    RG_REPS after one untimed call, the two ways in turns."""
+    import statistics
+
+    import torch
+
+    from repro_torch.models import rglru
+
+    ways = {"scan": rglru.rg_lru, "sequential": rglru.rg_lru_ref}
+    out = {}
+    for seq in RG_SCAN_SEQS:
+        rec = {}
+        x, p, _ = _rg_lru_inputs(dev, seed, seq, lru, grad=False)
+        with torch.no_grad():
+            got = {k: fn(x, p) for k, fn in ways.items()}
+            for i, what in enumerate(("y", "h_last")):
+                a, b = got["scan"][i], got["sequential"][i]
+                err = (a - b).abs().max().item()
+                check(bool(torch.isfinite(a).all()),
+                      f"19.1 S={seq}: non-finite {what}")
+                check(torch.allclose(a, b, rtol=SCAN_RTOL, atol=SCAN_ATOL),
+                      f"19.1 S={seq}: scan vs sequential {what}: max abs "
+                      f"error {err:.3e}")
+                rec[f"{what}_max_abs_err"] = err
+            del got
+            ms = {k: [] for k in ways}
+            for _ in range(RG_REPS):
+                for k, fn in ways.items():
+                    ms[k] += event_ms(lambda: fn(x, p), 1)
+        rec.update({f"{k}_fwd_ms": statistics.median(v)
+                    for k, v in ms.items()})
+        if seq == RG_SCAN_SEQS[0]:
+            x, p, cot = _rg_lru_inputs(dev, seed, seq, lru, grad=True)
+            res = {k: _rg_lru_fwd_bwd(fn, x, p, cot)
+                   for k, fn in ways.items()}
+            names = ("y", "h_last", "grad_x") + tuple(
+                f"grad_{k}" for k in RG_GRAD_KEYS)
+            flat = {k: (v[0], v[1]) + tuple(v[2]) for k, v in res.items()}
+            for i, what in enumerate(names):
+                a, b = flat["scan"][i], flat["sequential"][i]
+                err = (a - b).abs().max().item()
+                scale = b.abs().max().item()
+                check(torch.allclose(a, b, rtol=SCAN_RTOL, atol=SCAN_ATOL),
+                      f"19.1 S={seq} fwd+bwd: scan vs sequential {what}: "
+                      f"max abs error {err:.3e} (max |value| {scale:.3e})")
+                rec[f"bwd_{what}_max_abs_err"] = err
+            del res, flat
+            ms = {k: [] for k in ways}
+            for _ in range(RG_REPS):
+                for k, fn in ways.items():
+                    ms[k] += event_ms(lambda: _rg_lru_fwd_bwd(fn, x, p, cot),
+                                      1)
+            rec.update({f"{k}_fwd_bwd_ms": statistics.median(v)
+                        for k, v in ms.items()})
+        out[seq] = rec
+        print(f"19.1 rg_lru (1, {seq}, {x.shape[-1]}), f32 on bf16 inputs: "
+              f"forward scan {rec['scan_fwd_ms']:.3f} ms, sequential "
+              f"{rec['sequential_fwd_ms']:.3f} ms (x"
+              f"{rec['sequential_fwd_ms'] / rec['scan_fwd_ms']:.1f})"
+              + (f"; forward + backward scan {rec['scan_fwd_bwd_ms']:.3f} "
+                 f"ms, sequential {rec['sequential_fwd_bwd_ms']:.3f} ms (x"
+                 f"{rec['sequential_fwd_bwd_ms'] / rec['scan_fwd_bwd_ms']:.1f}"
+                 ")" if "scan_fwd_bwd_ms" in rec else "")
+              + "; max abs errors " + ", ".join(
+                  f"{k[:-12]} {v:.2e}" for k, v in rec.items()
+                  if k.endswith("_max_abs_err")))
+        del x, p
+        torch.cuda.empty_cache()
+    return out
+
+
+def _prefill_logits(model, params, batch, lru_fn=None):
+    """Last-position logits (f32) of one prefill, with ``lru_fn`` in place
+    of ``rg_lru`` when given."""
+    from repro_torch.models import rglru
+
+    scan = rglru.rg_lru
+    rglru.rg_lru = lru_fn or scan
+    try:
+        logits, _ = model.prefill(params, batch,
+                                  cache_len=RG_PREFILL + RG_DECODE)
+    finally:
+        rglru.rg_lru = scan
+    return logits.float()
+
+
+def _one_ulp_off(scan):
+    """``scan`` with each output entry moved by one f32 rounding step (a
+    factor 1 +- 2^-24, signs from a fixed seed): how far the model's
+    logits move for rounding alone."""
+    import torch
+
+    def fn(x, p, h0=None):
+        y, h = scan(x, p, h0)
+        g = torch.Generator(device=y.device).manual_seed(0)
+        sign = torch.randint(0, 2, y.shape, generator=g,
+                             device=y.device) * 2 - 1
+        return y * (1 + sign * 2.0 ** -24), h
+
+    return fn
+
+
+def rglru_prefill_part(model, params, dev, seed: int) -> dict:
+    """19.2 in the config's dtype (bf16): the full model's prefill of
+    1 x RG_PREFILL tokens, ms per prefill (CUDA events, median of RG_REPS
+    after one untimed), tokens/s, finite logits and RG_DECODE greedy
+    decode steps; then the share of the largest |logit| by which the
+    last-position logits move with ``rg_lru_ref`` patched in, beside the
+    share they move when the scan's output is one f32 rounding step off
+    (printed: bf16 rounding through 38 layers of random weights moves
+    them by ~3e-2 either way, so the scan is held in f32, 19.2's
+    ``rglru_prefill_f32``)."""
+    import statistics
+
+    import torch
+
+    from repro_torch.config import ShapeConfig
+    from repro_torch.models import rglru
+
+    batch = model.make_batch(seed + 1, ShapeConfig(
+        "rg_prefill", RG_PREFILL, 1, "prefill"), device=dev)
+    cache_len = RG_PREFILL + RG_DECODE
+    logits, caches = model.prefill(params, batch, cache_len=cache_len)
+    check(bool(torch.isfinite(logits).all()), "19.2: a non-finite logit")
+    ms = statistics.median(event_ms(
+        lambda: model.prefill(params, batch, cache_len=cache_len), RG_REPS))
+    tok = torch.argmax(logits, dim=-1)[:, None]
+    toks = [tok]
+    for _ in range(RG_DECODE):
+        lg, caches = model.decode_step(params, caches, tok)
+        check(bool(torch.isfinite(lg).all()),
+              "19.2: a non-finite decode logit")
+        tok = torch.argmax(lg, dim=-1)[:, None]
+        toks.append(tok)
+    toks = torch.cat(toks, dim=1)
+    check(bool(((toks >= 0) & (toks < model.cfg.vocab_pad)).all()),
+          "19.2: token ids outside the vocabulary")
+    del caches
+    logits = logits.float()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    seq = _prefill_logits(model, params, batch, rglru.rg_lru_ref)
+    torch.cuda.synchronize(dev)
+    seq_s = time.perf_counter() - t0
+    off = _prefill_logits(model, params, batch,
+                          _one_ulp_off(rglru.rg_lru))
+    scale = seq.abs().max().item()
+    rec = {"prefill_ms": ms, "tokens_per_s": RG_PREFILL / (ms / 1e3),
+           "sequential_prefill_s": seq_s,
+           "vs_sequential_share": (logits - seq).abs().max().item() / scale,
+           "one_ulp_off_share": (logits - off).abs().max().item() / scale,
+           "greedy_tokens": toks[0].tolist()}
+    print(f"19.2 {model.cfg.name} prefill 1 x {RG_PREFILL} "
+          f"({model.cfg.n_layers} layers, {model.cfg.dtype}): {ms:.3f} ms, "
+          f"{rec['tokens_per_s']:.1f} tok/s; the same prefill with the "
+          f"sequential scan patched in: {seq_s:.3f} s, last-position logits "
+          f"{rec['vs_sequential_share']:.4e} of the largest |logit| "
+          f"({scale:.4e}) from it; with the scan's output one f32 rounding "
+          f"step off: {rec['one_ulp_off_share']:.4e}; greedy tokens "
+          f"{rec['greedy_tokens']}")
+    del seq, off, logits
+    return rec
+
+
+def rglru_prefill_f32(dev, seed: int) -> dict:
+    """19.2 in f32 weights (the same widths and seed): the scan's
+    last-position logits against the sequential scan's within
+    RG_F32_FRAC of their largest |logit|."""
+    import gc
+
+    import torch
+
+    from repro_torch.config import ShapeConfig
+    from repro_torch.configs import get_arch
+    from repro_torch.models import rglru
+    from repro_torch.models.api import build_model
+
+    cfg = dataclasses.replace(get_arch("recurrentgemma-9b"), dtype="float32")
+    model = build_model(cfg)
+    params = model.init(seed, device=dev)
+    batch = model.make_batch(seed + 1, ShapeConfig(
+        "rg_prefill", RG_PREFILL, 1, "prefill"), device=dev)
+    got = _prefill_logits(model, params, batch)
+    want = _prefill_logits(model, params, batch, rglru.rg_lru_ref)
+    check(bool(torch.isfinite(got).all()), "19.2 f32: a non-finite logit")
+    scale = want.abs().max().item()
+    share = (got - want).abs().max().item() / scale
+    check(share <= RG_F32_FRAC,
+          f"19.2 f32: scan vs sequential prefill logits differ by "
+          f"{share:.4e} of the largest |logit| (allowed {RG_F32_FRAC})")
+    print(f"19.2 {cfg.name} prefill 1 x {RG_PREFILL}, f32 weights: scan "
+          f"vs sequential last-position logits {share:.4e} of the largest "
+          f"|logit| ({scale:.4e}; allowed {RG_F32_FRAC})")
+    del params, model, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"f32_vs_sequential_share": share}
+
+
+def rglru_phase(dev, seed: int) -> dict:
+    """Phase 19: recurrentgemma-9b at its published widths on the card:
+    19.1 on its first recurrent sublayer's RG-LRU weights, then 19.2 with
+    the full model in bf16 and in f32.  Reaches none of the port's
+    kernels: their launch counts must not move.  The model not fitting,
+    or any check, fails the run."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.api import build_model
+
+    before = kernel_launch_counts()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = build_model(get_arch("recurrentgemma-9b"))
+    params = model.init(seed, device=dev)
+    lru = {k: params["blocks"]["rec"][k][0, 0].detach().clone()
+           for k in ("w_a", "b_a", "w_x", "b_x", "lam")}
+    out = {"lru": lru}
+    t0 = time.perf_counter()
+    out["scan"] = rglru_scan_part(lru, dev, seed)
+    print(f"19.1 scan vs sequential: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    out["prefill"] = rglru_prefill_part(model, params, dev, seed)
+    del params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["prefill"].update(rglru_prefill_f32(dev, seed))
+    print(f"19.2 prefill: {time.perf_counter() - t0:.1f} s")
+    out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    check(kernel_launch_counts() == before,
+          "the RG-LRU path launched one of the port's kernels")
+    print(f"phase 19 launched none of the {len(before)} kernels; peak "
+          f"{out['peak_gib']:.2f} GiB")
+    print("19 records: " + json.dumps(
+        {"prefill": out["prefill"],
+         "scan": {str(k): v for k, v in out["scan"].items()}}))
+    return out
+
+
+def rglru_launch_trace(lru: dict, dev, seed: int) -> dict:
+    """19.1's launch counts: the device kernels torch.profiler records for
+    one call each way (forward at every RG_SCAN_SEQS, forward + backward
+    at the first).  Run last: after a session that recorded the
+    sequential loop's 65k kernels, phase 10's profiler session on the
+    card recorded none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import rglru
+
+    ways = {"scan": rglru.rg_lru, "sequential": rglru.rg_lru_ref}
+    counts = {}
+
+    def kernels(fn) -> int:
+        torch.cuda.synchronize(dev)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize(dev)
+        return sum(1 for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+
+    for seq in RG_SCAN_SEQS:
+        x, p, _ = _rg_lru_inputs(dev, seed, seq, lru, grad=False)
+        with torch.no_grad():
+            for k, fn in ways.items():
+                counts[f"{k}_fwd_{seq}"] = kernels(lambda: fn(x, p))
+        if seq == RG_SCAN_SEQS[0]:
+            x, p, cot = _rg_lru_inputs(dev, seed, seq, lru, grad=True)
+            for k, fn in ways.items():
+                counts[f"{k}_fwd_bwd_{seq}"] = kernels(
+                    lambda: _rg_lru_fwd_bwd(fn, x, p, cot))
+        del x, p
+        torch.cuda.empty_cache()
+    print("19.1 device kernels per call (torch.profiler): " + ", ".join(
+        f"{k} {v}" for k, v in counts.items()))
+    check(all(v > 0 for v in counts.values()),
+          "the profiler saw no device work in an RG-LRU call")
+    return counts
+
+
 def monotone(ll: list) -> bool:
     return all(b >= a - MONOTONE_SLACK * abs(a) for a, b in zip(ll, ll[1:]))
 
@@ -3660,6 +4024,7 @@ def main(argv=None) -> int:
     ap.add_argument("--scale", type=float, default=1.0)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
 
     import torch
 
@@ -3847,6 +4212,11 @@ def main(argv=None) -> int:
     mesh_phase(dev, args.seed, p17["olmo"])
     print(f"phase 18 (mesh training): {time.perf_counter() - t0:.1f} s")
 
+    # --- phase 19: the log-depth RG-LRU scan -------------------------------
+    t0 = time.perf_counter()
+    p19 = rglru_phase(dev, args.seed)
+    print(f"phase 19 (RG-LRU scan): {time.perf_counter() - t0:.1f} s")
+
     # --- 16.5 and 17.3: the traces (the profiler's set-up slows the host) --
     t0 = time.perf_counter()
     lm_decode_trace(dev, args.seed)
@@ -3860,6 +4230,11 @@ def main(argv=None) -> int:
 
     # --- phase 10: one launch per fused dense step ------------------------
     one_launch_phase(*dense_first)
+
+    # --- 19.1's launch counts (last: see rglru_launch_trace) ---------------
+    t0 = time.perf_counter()
+    rglru_launch_trace(p19["lru"], dev, args.seed)
+    print(f"19.1 launch-count trace: {time.perf_counter() - t0:.1f} s")
 
     where = {k: (f"near-dense {dt.shape}" if k.startswith("dense")
                  else args.tensor) for k in rows}
@@ -3883,6 +4258,7 @@ def main(argv=None) -> int:
          "timed": timed[k]}
         for k, v in rows.items()
     ]}
+    print(f"chip_smoke total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

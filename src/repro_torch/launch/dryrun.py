@@ -39,6 +39,7 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch olmo-1b \\
       --shape train_4k --mesh single
   PYTHONPATH=src python -m repro_torch.launch.dryrun          # every cell
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --table  # the records
 """
 from __future__ import annotations
 
@@ -79,7 +80,8 @@ from ..train.step import (
 )
 from .mesh import batch_shardings, make_production_mesh, state_shardings
 
-__all__ = ["SOURCE", "lower_cell", "main", "model_flops_for", "run_cell"]
+__all__ = ["SOURCE", "lower_cell", "main", "model_flops_for", "run_cell",
+           "table"]
 
 OUT_DIR = os.path.join("build", "dryrun")
 HW = HARDWARE["h100_sxm_bf16"]
@@ -480,6 +482,33 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, out_dir: str,
     return rec
 
 
+def table(out_dir: str) -> str:
+    """One markdown row per record under ``out_dir``: per-device state and
+    peak GiB, FLOPs, the dominant roofline term, the bound in ms (all
+    projections) and the seconds the cell took here (build + run)."""
+    rows = ["| mesh | arch | shape | state GiB | peak GiB | FLOP/device | "
+            "dominant | bound ms | s |", "| --- " * 9 + "|"]
+    for mesh_kind in ("single", "multi"):
+        d = os.path.join(out_dir, mesh_kind)
+        for name in sorted(os.listdir(d)) if os.path.isdir(d) else ():
+            with open(os.path.join(d, name)) as f:
+                r = json.load(f)
+            cell = f"| {mesh_kind} | {r['arch']} | {r['shape']} |"
+            if "skipped" in r or "error" in r:
+                what = ("skipped: " + r["skipped"] if "skipped" in r
+                        else "error: " + r["error"][:80])
+                rows.append(f"{cell} {what} |" + " |" * 5)
+                continue
+            rt = r["roofline"]
+            rows.append(
+                f"{cell} {r['state_bytes_per_device'] / 2 ** 30:.2f} | "
+                f"{r['hbm_bytes_per_device'] / 2 ** 30:.2f} | "
+                f"{r['cost']['flops_per_device']:.4e} | {rt['dominant']} | "
+                f"{rt['bound_s'] * 1e3:.2f} | "
+                f"{r['seconds']['build'] + r['seconds']['run']:.0f} |")
+    return "\n".join(rows)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="repro_torch.launch.dryrun")
     ap.add_argument("--arch", default="all")
@@ -491,7 +520,13 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda",
                     help="device type of the fake tensors (default: the "
                          "card's)")
+    ap.add_argument("--table", action="store_true",
+                    help="print the records under --out as a markdown "
+                         "table and run nothing")
     args = ap.parse_args(argv)
+    if args.table:
+        print(table(args.out))
+        return 0
     resolve_device(args.device)
 
     archs = list(ARCHS) if args.arch == "all" else [args.arch]

@@ -38,6 +38,7 @@ __all__ = [
     "causal_conv1d",
     "gelu",
     "matmul_f32",
+    "merge_heads",
     "mlp",
     "moe",
     "moe_grouped",
@@ -218,6 +219,29 @@ def split_heads(x: torch.Tensor, n_heads: int, d_head: int) -> torch.Tensor:
         if placements != tuple(x.placements):
             x = x.redistribute(mesh, placements)
     return x.reshape(b, s, n_heads, d_head)
+
+
+class _MergeHeads(torch.autograd.Function):
+    """The merge of :func:`merge_heads`, whose gradient is split back into
+    heads by :func:`split_heads`."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.heads = x.shape[2:]
+        return x.reshape(x.shape[0], x.shape[1], -1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return split_heads(g, *ctx.heads)
+
+
+def merge_heads(x: torch.Tensor) -> torch.Tensor:
+    """(B, S, n_heads, d_head) -> (B, S, n_heads * d_head).  On a mesh the
+    gradient comes back split on its last dim as the output projection
+    splits it; it is split into heads as :func:`split_heads` splits (torch
+    2.11's view rules refuse to split a dim sharded over a mesh dim that
+    does not divide ``n_heads``, as llama4's 40 heads on 16)."""
+    return _MergeHeads.apply(x)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:

@@ -11,9 +11,9 @@ The RG-LRU diagonal recurrence
   r_t = sigmoid(W_a x_t + b_a);  i_t = sigmoid(W_x x_t + b_x)
   a_t = exp(-c * softplus(Lambda) * r_t)          (c = 8)
   h_t = a_t h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t)
-runs as a sequential loop over time in forward/prefill (the reference's
-``lax.associative_scan`` has no PyTorch counterpart) and as an O(1)
-update in decode.
+is computed with the log-depth ``associative_scan`` (``models/scan.py``,
+the reference's ``lax.associative_scan`` recursion) in train/prefill and
+as an O(1) update in decode.
 
 Parameters are stacked over super-blocks of ``hybrid_period`` sublayers;
 the layers past the last whole period are trailing recurrent layers
@@ -26,9 +26,10 @@ import torch.nn.functional as F
 
 from ..config import ArchConfig
 from .layers import (assign, attention, causal_conv1d, embed, gelu, matmul_f32,
-                     mlp, norm, on_batch_shards, remat)
+                     merge_heads, mlp, norm, on_batch_shards, remat)
 from .params import (ParamSpec, empty_caches, for_compute, logical_constraint,
                      tree_map, weights_for_compute)
+from .scan import associative_scan
 from .transformer import _qkv, act_dtype, write_ring
 
 __all__ = [
@@ -62,17 +63,23 @@ def _lru_coeffs(x, p):
 
 
 def rg_lru(x, p, h0=None):
-    """RG-LRU over a sequence.  x: (B, S, W).  Returns (y (B, S, W) f32,
-    h_last (B, W) f32)."""
+    """RG-LRU over a sequence via associative scan.
+
+    x: (B, S, W).  Returns (y (B, S, W) f32, h_last (B, W) f32).
+    """
     a, b = _lru_coeffs(x, p)
-    h = (torch.zeros_like(b[:, 0]) if h0 is None else h0.float())
-    ys = []
-    for t in range(x.shape[1]):
-        h = a[:, t] * h + b[:, t]
-        ys.append(h)
-    # one stack, not a write per step into a buffer: under autograd each
-    # such write would copy the whole buffer's gradient in the backward
-    return torch.stack(ys, dim=1), h
+    if h0 is not None:
+        # fold the carried state into the first step: h_1 = a_1 h_0 + b_1
+        b = torch.cat(((b[:, 0] + a[:, 0] * h0.float())[:, None], b[:, 1:]),
+                      dim=1)
+
+    def combine(l, r):
+        al, bl = l
+        ar, br = r
+        return al * ar, ar * bl + br
+
+    _, h = associative_scan(combine, (a, b), dim=1)
+    return h, h[:, -1]
 
 
 def rg_lru_ref(x, p, h0=None):
@@ -213,7 +220,7 @@ def _rec_sublayer(x, p, cfg: ArchConfig, cache=None):
 def _attn_sublayer(x, p, cfg: ArchConfig, q_pos, cache=None):
     """Local (sliding-window) attention with a ring cache written in
     place."""
-    b, s, _ = x.shape
+    s = x.shape[1]
     window = cfg.window or 2048
     x = logical_constraint(x, ("batch", None, None))
     h = norm(x, p["ln1"], kind=cfg.norm)
@@ -229,7 +236,7 @@ def _attn_sublayer(x, p, cfg: ArchConfig, q_pos, cache=None):
         o = attention(q, cache["k"], cache["v"], q_pos, cache["kv_pos"],
                       kv_valid=kv_valid, causal=True, window=window,
                       q_chunk=cfg.attn_q_chunk)
-    o = torch.matmul(o.reshape(b, s, -1), p["wo"])
+    o = torch.matmul(merge_heads(o), p["wo"])
     return x + o.to(x.dtype)
 
 

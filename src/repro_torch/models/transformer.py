@@ -20,8 +20,8 @@ from __future__ import annotations
 import torch
 
 from ..config import ArchConfig
-from .layers import (assign, attention, embed, matmul_f32, mlp, moe,
-                     moe_grouped, norm, remat, rope, split_heads,
+from .layers import (assign, attention, embed, matmul_f32, merge_heads, mlp,
+                     moe, moe_grouped, norm, remat, rope, split_heads,
                      write_slot)
 from .params import (ParamSpec, empty_caches, for_compute, logical_constraint,
                      weights_for_compute)
@@ -156,7 +156,7 @@ def _qkv(h, p, cfg: ArchConfig, q_pos):
 def _attn_sublayer(x, p, cfg: ArchConfig, q_pos, cache=None):
     """Pre-norm attention.  cache: dict(k, v, kv_pos) of this sublayer,
     written in place, or None."""
-    b, s, _ = x.shape
+    s = x.shape[1]
     x = logical_constraint(x, ("batch", None, None))
     h = norm(x, p.get("ln1"), kind=cfg.norm)
     q, k, v = _qkv(h, p, cfg, q_pos)
@@ -174,7 +174,7 @@ def _attn_sublayer(x, p, cfg: ArchConfig, q_pos, cache=None):
         o = attention(q, cache["k"], cache["v"], q_pos, cache["kv_pos"],
                       kv_valid=kv_valid, causal=False, window=cfg.window,
                       q_chunk=cfg.attn_q_chunk)
-    o = torch.matmul(o.reshape(b, s, -1), p["wo"])
+    o = torch.matmul(merge_heads(o), p["wo"])
     return x + o.to(x.dtype)
 
 

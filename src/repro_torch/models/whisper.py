@@ -14,8 +14,8 @@ import math
 import torch
 
 from ..config import ArchConfig
-from .layers import (attention, embed, matmul_f32, mlp, norm, remat,
-                     split_heads)
+from .layers import (attention, embed, matmul_f32, merge_heads, mlp, norm,
+                     remat, split_heads)
 from .params import (ParamSpec, empty_caches, for_compute, logical_constraint,
                      weights_for_compute)
 from .transformer import act_dtype, write_ring
@@ -102,7 +102,7 @@ def _heads(x, w, n_heads, d_head):
 def _self_attn(x, p, cfg, q_pos, kv_pos, causal, cache=None):
     """Self-attention; ``cache`` (k, v, kv_pos of this layer) is written
     in place."""
-    b, s, _ = x.shape
+    s = x.shape[1]
     hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     x = logical_constraint(x, ("batch", None, None))
     h = norm(x, p["ln1"], p["ln1_b"], kind="layernorm")
@@ -120,20 +120,19 @@ def _self_attn(x, p, cfg, q_pos, kv_pos, causal, cache=None):
         o = attention(q, cache["k"], cache["v"], q_pos, cache["kv_pos"],
                       kv_valid=kv_valid, causal=True,
                       q_chunk=cfg.attn_q_chunk)
-    o = torch.matmul(o.reshape(b, s, hq * dh), p["wo"])
+    o = torch.matmul(merge_heads(o), p["wo"])
     return x + o.to(x.dtype)
 
 
 def _cross_attn(x, p, cfg, q_pos, xk, xv):
     """Cross-attention over precomputed encoder K/V."""
-    b, s, _ = x.shape
     hq, dh = cfg.n_heads, cfg.d_head
     h = norm(x, p["lnx"], p["lnx_b"], kind="layernorm")
     q = _heads(h, p["x_wq"], hq, dh)
     kv_pos = torch.arange(xk.shape[1], device=x.device)
     o = attention(q, xk, xv, q_pos, kv_pos, causal=False,
                   q_chunk=cfg.attn_q_chunk)
-    o = torch.matmul(o.reshape(b, s, hq * dh), p["x_wo"])
+    o = torch.matmul(merge_heads(o), p["x_wo"])
     return x + o.to(x.dtype)
 
 

@@ -148,8 +148,11 @@ def adafactor(lr: float = 1e-3, decay: float = 0.8, eps: float = 1e-30,
                 v = beta * s["v"] + (1 - beta) * g2
                 u = g * torch.rsqrt(torch.clamp(v, min=eps))
                 ns = {"v": v}
-            # update clipping (RMS <= clip_threshold)
-            rms = torch.sqrt(torch.mean(u * u) + 1e-30)
+            # update clipping (RMS <= clip_threshold); the mean as a sum
+            # over the count (the same arithmetic): DTensor's mean over a
+            # dim split unevenly (94 stacked layers on 16 ranks) gathers
+            # the whole tensor first, its sum stays a partial sum
+            rms = torch.sqrt(torch.sum(u * u) / u.numel() + 1e-30)
             u = u / torch.clamp(rms / clip_threshold, min=1.0)
             return -lr * u, ns
 

@@ -1534,3 +1534,38 @@ def test_matmul_f32_on_a_card_mesh(card, shapes):
         np.testing.assert_allclose(g.detach().float().cpu().numpy(),
                                    w.detach().float().cpu().numpy(),
                                    rtol=LM_RTOL, atol=LM_ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seq,with_h0", ((1, False), (7, True), (300, False),
+                                         (4096, True)))
+def test_rg_lru_scan_against_sequential_on_the_card(card, seq, with_h0):
+    """The log-depth RG-LRU scan (``rg_lru``) against the sequential loop
+    (``rg_lru_ref``) on the card: outputs and the gradients of x, h0 and
+    every RG-LRU weight within rtol 1e-4 / atol 1e-5, the card's tier for
+    reordered f32 sums."""
+    from repro_torch.models import rglru
+
+    rtol, atol = 1e-4, 1e-5
+    gen = torch.Generator(device=card).manual_seed(seq)
+    bsz, w = 2, 64
+
+    def draw(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=card)
+                * scale).requires_grad_(True)
+
+    x = draw(bsz, seq, w)
+    p = {"w_a": draw(w, w, scale=0.1 / w ** 0.5), "b_a": draw(w, scale=0.1),
+         "w_x": draw(w, w, scale=0.1 / w ** 0.5), "b_x": draw(w, scale=0.1),
+         "lam": draw(w)}
+    h0 = draw(bsz, w) if with_h0 else None
+    gy = torch.randn((bsz, seq, w), generator=gen, device=card)
+    gh = torch.randn((bsz, w), generator=gen, device=card)
+    leaves = [x, *p.values()] + ([h0] if with_h0 else [])
+    res = []
+    for fn in (rglru.rg_lru, rglru.rg_lru_ref):
+        y, h = fn(x, p, h0)
+        grads = torch.autograd.grad((y * gy).sum() + (h * gh).sum(), leaves)
+        res.append((y, h, *grads))
+    for got, want in zip(*res):
+        torch.testing.assert_close(got, want, rtol=rtol, atol=atol)

@@ -429,7 +429,8 @@ def test_ssd_chunked_matches(g, with_h0):
 
 @pytest.mark.parametrize("with_h0", (False, True))
 def test_rg_lru_matches(with_h0):
-    """The sequential scan against the reference's associative scan."""
+    """The log-depth scan against the reference's associative scan, and
+    against the sequential oracle."""
     bsz, s, w = 2, 24, 16
     x = _rand(30, (bsz, s, w))
     p = {"w_a": _rand(31, (w, w), 0.1 / w ** 0.5),
