@@ -268,6 +268,22 @@ Phases (any failure exits nonzero before the last line):
     the largest |logit| either way); then the same prefill in f32
     weights, scan against sequential within RG_F32_FRAC of the largest
     |logit|.  No kernel's launch count moves in phase 19.
+20. The examples (run after phase 19): each ``examples/*_torch.py``
+    through its ``main``, in-process, every launch count zeroed just
+    before it and read just after.  (1) quickstart at its own size and
+    (2) decompose_frostt on uber at each EXAMPLE_FROSTT_SCALES: B2 once
+    per mode update and B1 once per inner iteration, no other kernel, no
+    demotion, finite nonnegative factors, a finite nondecreasing
+    log-likelihood; decompose_frostt's heuristic, given no platform, must
+    print the ``cuda`` policy.  (3) serve_lm and (4) train_lm
+    ``--steps`` 4 then 8 on one fresh checkpoint directory under
+    ``build/chip_smoke/``, the second resuming at step 4, losses finite,
+    each first at its defaults (the reduced preset, as the reference
+    example runs: a smoke run whose rate is no metric) and then with
+    ``--full`` (h2o-danube-1.8b and olmo-1b at their published widths in
+    bf16; olmo-1b's checkpoints ~11 GiB each, removed): no kernel's count
+    moves.  Each example's seconds, and its ms per sweep, tokens/s or ms
+    per step, with the card's name and power limit.
 10. One launch per fused dense step: the device kernels of one
     ``phi_mu_dense`` call on the near-dense tensor's mode 0, counted with
     torch.profiler (after every timed phase, so that none runs under its
@@ -276,13 +292,13 @@ Phases (any failure exits nonzero before the last line):
 
 The counted main-path solves of phases 3, 5 and 6 fail on any demotion
 (``recoveries`` must be empty): a ladder that quietly ran a plain
-strategy would otherwise pass as the kernel; so do phases 13's, 14's
-and 15's.  Phases 7-9 and 11-19 print their own times, and the
+strategy would otherwise pass as the kernel; so do phases 13's, 14's,
+15's and 20's.  Phases 7-9 and 11-20 print their own times, and the
 whole run its total.  The line before
 the last is the per-kernel JSON record (``launches`` from the counted
 runs of phases 3-7, ``service_launches`` from phase 13's,
 ``sharded_launches`` from phase 14's, ``grid_launches`` from phase
-15's); the last is
+15's, ``example_launches`` from phase 20's); the last is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -292,6 +308,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -401,6 +418,11 @@ RG_F32_FRAC = 1e-4
 # olmo-1b's train cell and the prefill cell the log-depth scan unblocks
 MESH_DRYRUN_CELLS = (("olmo-1b", "train_4k"),
                      ("recurrentgemma-9b", "prefill_32k"))
+# Phase 20, the examples: decompose_frostt at its default scale and at the
+# published size; train_lm's two runs on one checkpoint directory (the
+# second resumes from the first's last step)
+EXAMPLE_FROSTT_SCALES = (0.003, 1.0)
+EXAMPLE_TRAIN_STEPS = (4, 8)
 CSRC = "src/repro_torch/kernels/csrc"
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "phi_blocked": ("phi.cu", "src/repro/kernels/phi/kernel.py:139"),
@@ -2996,6 +3018,16 @@ def kernel_launch_counts() -> dict:
             **dense_ops.launch_counts, **stream_ops.launch_counts}
 
 
+def reset_kernel_launch_counts() -> None:
+    from repro_torch.kernels.dense import ops as dense_ops
+    from repro_torch.kernels.mttkrp import ops as mttkrp_ops
+    from repro_torch.kernels.phi import ops as phi_ops
+    from repro_torch.kernels.stream import ops as stream_ops
+
+    for ops in (phi_ops, mttkrp_ops, dense_ops, stream_ops):
+        ops.reset_launch_counts()
+
+
 def lm_phase(dev, seed: int) -> list:
     """Phase 16: LM serving on the card (16.1-16.4).  The LM path reaches
     none of the port's kernels: their launch counts must not move."""
@@ -4014,6 +4046,174 @@ def rglru_launch_trace(lru: dict, dev, seed: int) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: the examples on the card
+# ---------------------------------------------------------------------------
+
+
+def run_example(name: str, argv: list) -> dict:
+    """``main(argv)`` of ``examples/<name>_torch.py``, in-process, with
+    every launch count zeroed just before and read just after; its printed
+    lines echoed.  Returns its lines, the counts, the results of its
+    ``cpapr_mu`` calls and its seconds (host clock, synchronised)."""
+    import torch
+
+    from repro_torch.testing.dist import example_checks
+
+    path = os.path.join(HERE, "examples", f"{name}_torch.py")
+    results = []
+    reset_kernel_launch_counts()
+    t0 = time.perf_counter()
+    rc, lines = example_checks(0, 1, path, argv, results)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = kernel_launch_counts()
+    for ln in lines:
+        print(f"20   {ln}")
+    check(rc == 0, f"examples/{name}_torch.py {argv} returned {rc}")
+    return {"lines": lines, "launches": launches, "results": results,
+            "seconds": secs}
+
+
+def example_solve(what: str, run: dict, n_modes: int, card: str,
+                  total: dict) -> None:
+    """Hold an example's one CP-APR solve as phase 3 holds its own: B2
+    once per mode update and B1 once per inner iteration, no other
+    kernel, no demotion, finite nonnegative factors, a finite
+    nondecreasing log-likelihood; print its ms per sweep (median over its
+    sweeps) with the card.  Adds the counts read into ``total``."""
+    import torch
+
+    check(len(run["results"]) == 1,
+          f"{what}: {len(run['results'])} cpapr_mu calls, expected 1")
+    (res,) = run["results"]
+    launches = run["launches"]
+    print(f"{what}: {res.n_outer} sweeps, inner iterations "
+          f"{res.inner_iters}, launches {launches}")
+    check(res.recoveries is None,
+          f"{what}: guard recoveries or demotions: {res.recoveries}")
+    want = {"phi_blocked": res.n_outer * n_modes,
+            "phi_mu_blocked": sum(res.inner_iters)}
+    check(want["phi_mu_blocked"] > 0, f"{what}: no inner iteration")
+    check(launches == {k: want.get(k, 0) for k in launches},
+          f"{what}: expected {want} (B2 once per mode update, B1 once per "
+          f"inner iteration, nothing else), launched {launches}")
+    check(all(bool(torch.isfinite(f).all() and (f >= 0).all())
+              for f in res.ktensor.factors),
+          f"{what}: non-finite or negative factor")
+    ll = res.loglik_history
+    check(len(ll) == res.n_outer and all(math.isfinite(x) for x in ll)
+          and monotone(ll),
+          f"{what}: log-likelihood not finite and nondecreasing: {ll}")
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+    sweep_ms = 1e3 * sorted(res.sweep_seconds)[len(res.sweep_seconds) // 2]
+    print(f"{what}: {run['seconds']:.2f} s, {res.n_outer} sweeps at "
+          f"{sweep_ms:.3f} ms per sweep (median; {card})")
+
+
+def example_serve(dev, width: list, card: str) -> None:
+    """serve_lm at its defaults, given ``width`` (``[]``: the reduced
+    preset, a smoke run whose rate is no metric; ``["--full"]``: the
+    published width in bf16): its tokens, tok/s on its own clock, no
+    kernel launched."""
+    run = run_example("serve_lm", ["--device", dev.type] + width)
+    head = run["lines"][0]
+    check(not any(run["launches"].values()),
+          f"serve_lm {width} launched one of the port's kernels: "
+          f"{run['launches']}")
+    arch = "h2o-danube-1.8b" + ("" if width else "-smoke")
+    check(head.startswith(f"[serve] arch={arch} ")
+          and "generated (4, 32) tokens" in head,
+          f"serve_lm {width}: {head}")
+    m = re.search(r"\(([\d.]+) tok/s", head)
+    check(m is not None, f"serve_lm: no tok/s in {head}")
+    kind = ("published width, bf16" if width
+            else "reduced preset: smoke only, not a metric")
+    print(f"20.3 {' '.join(['serve_lm'] + width)} ({kind}): "
+          f"{run['seconds']:.2f} s, {m.group(1)} tok/s (its own clock, first generate; {card}); "
+          f"launched none of the {len(run['launches'])} kernels")
+
+
+def example_train(dev, width: list, card: str) -> None:
+    """train_lm given ``width`` (as :func:`example_serve`), ``--steps``
+    EXAMPLE_TRAIN_STEPS in turn on one fresh checkpoint directory under
+    ``build/chip_smoke/``: each run resumes at the last one's step, every
+    loss finite, no kernel launched; ms per step on its own clock."""
+    import shutil
+
+    import torch
+
+    ck = os.path.join(HERE, "build", "chip_smoke", "example_train_ckpt")
+    shutil.rmtree(ck, ignore_errors=True)
+    arch = "olmo-1b" + ("" if width else "-smoke")
+    kind = ("published width, bf16" if width
+            else "reduced preset: smoke only, not a metric")
+    try:
+        start = 0
+        for steps in EXAMPLE_TRAIN_STEPS:
+            run = run_example("train_lm", ["--device", dev.type] + width
+                              + ["--steps", str(steps), "--ckpt-dir", ck])
+            lines = run["lines"]
+            check(lines[0].startswith(f"[train] arch={arch} ")
+                  and lines[0].endswith(f"start_step={start}"),
+                  f"train_lm {width} --steps {steps}: expected {arch} at "
+                  f"start_step={start}: {lines[0]}")
+            check(lines[-1].startswith(f"[train] done at step {steps}"),
+                  f"train_lm --steps {steps}: {lines[-1]}")
+            steps_run = [ln.split() for ln in lines
+                         if ln.startswith("[train] step")]
+            check([int(s[2]) for s in steps_run]
+                  == list(range(start + 1, steps + 1)),
+                  f"train_lm --steps {steps}: step lines {steps_run}")
+            check(all(math.isfinite(float(s[4])) for s in steps_run),
+                  f"train_lm: a loss is not finite: {steps_run}")
+            check(not any(run["launches"].values()),
+                  f"train_lm launched one of the port's kernels: "
+                  f"{run['launches']}")
+            ms = sorted(float(s[-1].removesuffix("ms"))
+                        for s in steps_run[1:])
+            print(f"20.4 {' '.join(['train_lm'] + width)} --steps {steps} "
+                  f"(start {start}; {kind}): {run['seconds']:.2f} s, "
+                  f"{ms[len(ms) // 2]:.0f} ms per step (median after the "
+                  f"first, its own clock; {card})")
+            start = steps
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
+def examples_phase(dev, card: str) -> dict:
+    """Phase 20: the four examples (``examples/*_torch.py``) through their
+    ``main`` on the card.  Returns the CP examples' launch counts summed."""
+    import torch
+
+    d = ["--device", dev.type]
+    total = {}
+    run = run_example("quickstart", d)
+    check(run["lines"][1] == "Phi strategy: cuda",
+          f"quickstart: {run['lines'][1]}")
+    example_solve("20.1 quickstart", run, 3, card, total)
+
+    for scale in EXAMPLE_FROSTT_SCALES:
+        run = run_example("decompose_frostt",
+                          d + ["--tensor", "uber", "--scale", str(scale)])
+        check(run["lines"][1].startswith(
+            "heuristic policy for this platform: cuda:"),
+            f"decompose_frostt: the heuristic did not pick the Φ kernel on "
+            f"the card: {run['lines'][1]}")
+        example_solve(f"20.2 decompose_frostt --tensor uber --scale {scale}",
+                      run, 4, card, total)
+        torch.cuda.empty_cache()
+
+    for width in ([], ["--full"]):
+        example_serve(dev, width, card)
+        torch.cuda.empty_cache()
+    for width in ([], ["--full"]):
+        example_train(dev, width, card)
+    return total
+
+
 def monotone(ll: list) -> bool:
     return all(b >= a - MONOTONE_SLACK * abs(a) for a, b in zip(ll, ll[1:]))
 
@@ -4217,6 +4417,11 @@ def main(argv=None) -> int:
     p19 = rglru_phase(dev, args.seed)
     print(f"phase 19 (RG-LRU scan): {time.perf_counter() - t0:.1f} s")
 
+    # --- phase 20: the examples on the card --------------------------------
+    t0 = time.perf_counter()
+    example_launches = examples_phase(dev, card)
+    print(f"phase 20 (examples): {time.perf_counter() - t0:.1f} s")
+
     # --- 16.5 and 17.3: the traces (the profiler's set-up slows the host) --
     t0 = time.perf_counter()
     lm_decode_trace(dev, args.seed)
@@ -4248,6 +4453,7 @@ def main(argv=None) -> int:
          "service_launches": service_launches.get(k, 0),
          "sharded_launches": sharded_launches.get(k, 0),
          "grid_launches": grid_launches.get(k, 0),
+         "example_launches": example_launches.get(k, 0),
          "max_abs_err": v["max_abs_err"], "max_rel_err": v["max_rel_err"],
          "ms": v["ms"], "plain_ms": v["plain_ms"], "bound_ms": v["bound_ms"],
          "bound_by": "bytes"

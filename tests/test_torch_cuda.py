@@ -765,6 +765,24 @@ def test_detect_hardware_spec_on_the_card(card):
             roofline.detect_hardware_spec()
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", FIXTURES)
+def test_heuristic_policy_without_platform_on_the_card(card, kind):
+    """With a card and no ``platform`` the heuristic picks the Φ kernel,
+    as the JAX package's picks its accelerator's schedule."""
+    from repro_torch.core.layout import mode_run_stats
+    from repro_torch.core.policy import heuristic_policy
+
+    t, _ = fixture(kind)
+    mv = sort_mode(t, 0)
+    stats = mode_run_stats(mv.rows.numpy(), mv.n_rows)
+    for st in (None, stats):
+        pol = heuristic_policy(t.nnz, mv.n_rows, RANK, stats=st)
+        assert pol == heuristic_policy(t.nnz, mv.n_rows, RANK,
+                                       platform="cuda", stats=st)
+        assert pol.strategy == "cuda"
+
+
 # --- the degradation ladder and the autotuner on the card -------------------
 
 

@@ -36,6 +36,14 @@ def views(kind: str, mode: int):
     return r_sort_mode(t, mode), p_sort_mode(pt, mode), t
 
 
+@pytest.mark.parametrize("kind", FIXTURES)
+def test_density_equal(kind):
+    t, _ = make_fixture(kind)
+    pt = sparse_tensor_from_numpy(t.shape, np.asarray(t.indices),
+                                  np.asarray(t.values), device="cpu")
+    assert pt.density() == t.density()
+
+
 def _assert_layout_equal(a, b):
     for f in ("block_nnz", "block_rows", "n_rows", "n_rows_pad", "n_grid",
               "pad_fraction", "n_row_blocks"):
@@ -158,3 +166,47 @@ def test_layout_device_copies_cached():
     assert lt.local_rows.dtype == torch.int32
     np.testing.assert_array_equal(lt.gather.numpy(), lay.gather)
     np.testing.assert_array_equal(lt.valid.numpy(), lay.valid)
+
+
+NO_PLATFORM_CASES = [(3_309_490, 24, 16), (3_309_490, 1717, 16),
+                     (100, 5000, 4), (30_000, 200, 4)]
+
+
+@pytest.mark.parametrize("nnz,n_rows,rank", NO_PLATFORM_CASES)
+def test_heuristic_policy_without_platform_equals_reference(nnz, n_rows,
+                                                           rank,
+                                                           monkeypatch):
+    """No ``platform`` resolves to the platform this process computes on:
+    here JAX's CPU backend and a torch without a card."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    ref = R_policy.heuristic_policy(nnz, n_rows, rank, platform=None)
+    port = P_policy.heuristic_policy(nnz, n_rows, rank)
+    assert port.__dict__ == ref.__dict__
+    assert port.strategy == "segment"
+
+
+@pytest.mark.parametrize("nnz,n_rows,rank", NO_PLATFORM_CASES)
+def test_heuristic_policy_without_platform_takes_the_card(nnz, n_rows, rank,
+                                                          monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    port = P_policy.heuristic_policy(nnz, n_rows, rank)
+    assert port == P_policy.heuristic_policy(nnz, n_rows, rank,
+                                             platform="cuda")
+    assert port.strategy == "cuda"
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("kind", FIXTURES)
+def test_heuristic_policy_without_platform_with_stats(kind, mode,
+                                                      monkeypatch):
+    rmv, pmv, _ = views(kind, mode)
+    rstats = R_layout.mode_run_stats(np.asarray(rmv.rows), rmv.n_rows)
+    pstats = P_layout.mode_run_stats(pmv.rows.numpy(), pmv.n_rows)
+    ref = R_policy.heuristic_policy(rmv.nnz, rmv.n_rows, RANK, stats=rstats)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert (P_policy.heuristic_policy(pmv.nnz, pmv.n_rows, RANK,
+                                      stats=pstats).__dict__ == ref.__dict__)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert (P_policy.heuristic_policy(pmv.nnz, pmv.n_rows, RANK, stats=pstats)
+            == P_policy.heuristic_policy(pmv.nnz, pmv.n_rows, RANK,
+                                         platform="cuda", stats=pstats))
