@@ -49,7 +49,10 @@ Phases (any failure exits nonzero before the last line):
    is made from the seed.  On every mode the dense Φ, fused Φ -> MU and
    MTTKRP kernels are held against their plain versions, then, as in
    phase 2, run by direct launch beside the wrappers (each also checked
-   bitwise equal from call to call); then
+   bitwise equal from call to call); the operands each wrapper hands its
+   kernel's launcher must total ``perf.comm.dense_input_bytes`` (unpadded:
+   the port pads nothing), and the kernels' bound is computed from those
+   bytes; then
    ``cpapr_mu(strategy="dense")`` (counted: ``dense_phi`` once per mode
    update, ``dense_phi_mu`` once per inner iteration) is held against
    the ``segment`` solve, and ``cp_als(strategy="dense")`` (counted:
@@ -148,7 +151,20 @@ Phases (any failure exits nonzero before the last line):
     killed and resumed, each within LOGLIK_RTOL of the clean one; on a
     tensor with skewed row blocks ``rebalance_every=1`` records exactly
     the re-splits the nnz weights call for, and its killed and resumed
-    solve keeps them.
+    solve keeps them.  (6) The communication model (``perf.comm``, the
+    JAX package's ``perf/hlo.py``) on each sharded mode at S = 2 and 4:
+    the psum and reduce-scatter wire per device from the layouts,
+    ``preferred_combine`` against them, ``phi_combine_wire_bound`` (held
+    on every mode), ``phi_reduce_scatter_wire_bound`` (held where the
+    owner windows stay within 2x the mean; the ratio printed),
+    ``mttkrp_comm_lower_bound``; every shard's shard-local Π inputs
+    within ``pi_gather_wire_bound`` beside ``pi_replicated_gather_bytes``
+    and the share of rows touched; a projection (not a measurement) of
+    the S = N_SHARDS wire over NVLink's 450 GB/s beside (1)'s fused
+    steps; and (4)'s one-rank NCCL group under
+    ``record_collectives``: one fused owner step records one
+    reduce-scatter and no all-gather, one psum Φ (f32, and on bf16
+    inputs) one all-reduce, each of the model's bytes and no wire.
 15. The N-D device grid (run after phase 14), on the phase 2 tensor at
     256 x 256 with the local ``cuda`` kernels, N_SHARDS cells emulated:
     (1) on every mode, the explicit grid (GRID_EXPLICIT: 1 x 4 on the
@@ -177,7 +193,13 @@ Phases (any failure exits nonzero before the last line):
     once (the kernel fault after ``local cuda->blocked``), within
     LOGLIK_RTOL of the clean 2 x 2 solve; a 1 x 4 solve killed and
     resumed ends within LOGLIK_RTOL of the uninterrupted one with equal
-    counts and its checkpoint's ``mode_grids``.
+    counts and its checkpoint's ``mode_grids``.  (6) For the explicit and
+    the chosen grid of every mode: ``grid_scatter_wire_bytes`` equals
+    ``grid_combine_wire_bound``, is at or above
+    ``mttkrp_comm_lower_bound`` where the grid has a column axis, and
+    below the S = N_SHARDS 1-D owner wire on grids of two or more rows
+    (1 x B grids printed only); (4)'s (1, 1) grid recorded one fused
+    step with no column collective.
 16. LM serving (run after phase 15): the LM stack's serving path, which
     reaches no kernel of this port (the reference computes it with plain
     einsums, so the port does too; TF32 stays off).  (1) Every one of
@@ -839,6 +861,39 @@ def als_against_segment(t, init, strategy: str, kernel: str, ops,
     return launches
 
 
+def _handed_operands(kernel_mod) -> "contextlib.AbstractContextManager":
+    """Within the block, the per-rank bytes
+    (``perf.comm.entry_parameter_bytes``) of the operands each dense
+    wrapper hands its kernel's launcher, by kernel name (``x``, ``c``,
+    ``a`` and, for Φ and the fused step, ``b``).  The launches themselves
+    run and count as ever."""
+    import contextlib
+
+    from repro_torch.perf.comm import entry_parameter_bytes
+
+    launchers = {"dense_mttkrp": ("launch_mttkrp", 3),
+                 "dense_phi": ("launch_phi", 4),
+                 "dense_phi_mu": ("launch_phi_mu", 4)}
+
+    @contextlib.contextmanager
+    def spy():
+        seen: dict = {}
+        saved = {fn: getattr(kernel_mod, fn) for fn, _ in launchers.values()}
+        for name, (fn, n_in) in launchers.items():
+            def handed(*args, _name=name, _fn=saved[fn], _n=n_in, **kw):
+                seen[_name] = sum(entry_parameter_bytes(args[:_n]))
+                return _fn(*args, **kw)
+
+            setattr(kernel_mod, fn, handed)
+        try:
+            yield seen
+        finally:
+            for fn, f in saved.items():
+                setattr(kernel_mod, fn, f)
+
+    return spy()
+
+
 def dense_kernel_phase(t, init, timing_iters: int) -> dict:
     """Phase 6a: the three dense kernels on every mode of ``t``."""
     import torch
@@ -846,9 +901,13 @@ def dense_kernel_phase(t, init, timing_iters: int) -> dict:
     from repro_torch.core.dense import build_dense_mode
     from repro_torch.core.phi import _dense_operands
     from repro_torch.core.sparse_tensor import sort_mode
-    from repro_torch.kernels.dense import ops, ref
+    from repro_torch.kernels.dense import kernel, ops, ref
+    from repro_torch.perf.comm import dense_input_bytes
+    from repro_torch.perf.roofline import HARDWARE
     from repro_torch.perf.timing import cuda_ms
 
+    check(HARDWARE["h100_sxm"].hbm_bw == HBM_BYTES_PER_S,
+          "the kernels' byte bound and perf.roofline's H100 rate differ")
     r = init.rank
     rows = new_rows(("dense_phi_mu", "dense_phi", "dense_mttkrp"))
     first = None
@@ -860,27 +919,41 @@ def dense_kernel_phase(t, init, timing_iters: int) -> dict:
         x, c, a = _dense_operands(dn, init.factors, b)
         first = first or (x, c, a, b)
         k, i, j = x.shape
-        phi_k = ops.phi_dense(x, c, a, b)
-        mu_k, viol_k = ops.phi_mu_dense(x, c, a, b)
-        m_k = ops.mttkrp_dense(x, c, a)
+        with _handed_operands(kernel) as handed:
+            phi_k = ops.phi_dense(x, c, a, b)
+            mu_k, viol_k = ops.phi_mu_dense(x, c, a, b)
+            m_k = ops.mttkrp_dense(x, c, a)
         torch.cuda.synchronize()
         phi_p = ref.phi_dense_ref(x, c, a, b, 1e-10)
         mu_p, viol_p = ref.phi_mu_dense_ref(x, c, a, b, 1e-10)
         m_p = ref.mttkrp_dense_ref(x, c, a)
-        # bytes: x, c, a (and B) read once, the (I, R) result written once;
-        # operations: per cell 2R for the model value, one divide and 2R
-        # for the back-contraction (MTTKRP: 2R), c∘a_k per slice, the a
-        # scaling per (k, i, r), and 4 per entry for the MU epilogue
+        # bytes: the operands the wrappers hand the kernels (x, c, a and B:
+        # perf.comm.dense_input_bytes, unpadded, as the port pads nothing)
+        # read once, the (I, R) result written once; operations: per cell
+        # 2R for the model value, one divide and 2R for the
+        # back-contraction (MTTKRP: 2R), c∘a_k per slice, the a scaling per
+        # (k, i, r), and 4 per entry for the MU epilogue
         isz = x.element_size()
+        operands = {name: dense_input_bytes(k, i, j, r, isz,
+                                            with_b=name != "dense_mttkrp")
+                    for name in rows}
+        print(f"dense mode {n} (K {k}, I {i}, J {j}): operand bytes handed "
+              f"to the kernels " + ", ".join(
+                  f"{name} {handed[name]:.0f}" for name in rows)
+              + " (dense_input_bytes: " + ", ".join(
+                  f"{operands[name]:.0f}" for name in rows) + ")")
+        check(handed == operands,
+              f"dense mode {n}: the wrappers hand their kernels {handed} "
+              f"bytes, dense_input_bytes says {operands}")
         cells = k * i * j
-        inputs = isz * (cells + (j + k) * r)
         out = 4 * i * r
         phi_ops_n = cells * (4 * r + 1) + k * j * r + 2 * k * i * r
         sizes = {
-            "dense_phi": (inputs + isz * i * r + out, phi_ops_n),
-            "dense_phi_mu": (inputs + 2 * isz * i * r + 4, phi_ops_n
-                             + 4 * i * r),
-            "dense_mttkrp": (inputs + out, cells * 2 * r + 2 * k * i * r),
+            "dense_phi": (int(operands["dense_phi"]) + out, phi_ops_n),
+            "dense_phi_mu": (int(operands["dense_phi_mu"]) + isz * i * r
+                             + 4, phi_ops_n + 4 * i * r),
+            "dense_mttkrp": (int(operands["dense_mttkrp"]) + out,
+                             cells * 2 * r + 2 * k * i * r),
         }
         times = {
             "dense_phi": (
@@ -911,6 +984,11 @@ def dense_kernel_phase(t, init, timing_iters: int) -> dict:
                               timing_iters)
         for name in rows:
             rows[name]["direct_ms"] += direct[name]
+    print("B4-B6 bound from their dense_input_bytes operands plus the "
+          "result at HARDWARE['h100_sxm'].hbm_bw "
+          f"({HBM_BYTES_PER_S / 1e12:.2f} TB/s), summed over the modes: "
+          + ", ".join(f"{name} {rows[name]['bound_ms']:.4f} ms"
+                      for name in rows))
     return rows, first
 
 
@@ -1813,12 +1891,12 @@ def _shard_modes(layouts) -> list:
             if lay.n_row_blocks >= max(SHARD_COUNTS)]
 
 
-def sharded_kernel_phase(t, init, mvs, layouts, timing_iters: int) -> None:
+def sharded_kernel_phase(t, init, mvs, layouts, timing_iters: int) -> dict:
     """14.1: B2 and B3 once per shard on per-shard windows (both combines,
     replicated and shard-local Π) against the same calls on the plain
     blocked schedule; exact launch counts; exact-zero padding rows; one
     sharded fused MU step per shard count as a CUDA-graph burst beside the
-    unsharded ``cuda`` step."""
+    unsharded ``cuda`` step.  Returns each sharded mode's step times."""
     import torch
 
     from repro_torch.core import distributed as D
@@ -1834,12 +1912,13 @@ def sharded_kernel_phase(t, init, mvs, layouts, timing_iters: int) -> None:
     from repro_torch.kernels.phi import ops as phi_ops
 
     dev = t.device
+    mode_steps = {}
     for n in _shard_modes(layouts):
         mv, lay = mvs[n], layouts[n]
         pi = pi_rows(mv.sorted_idx, init.factors, n)
         b = init.factors[n] * init.lam[None, :]
         vals_e, pi_e = expand_to_layout(lay, mv.sorted_vals, pi)
-        steps = {"unsharded cuda": graph_ms(
+        steps = mode_steps[n] = {"unsharded cuda": graph_ms(
             lambda: phi_mu_step(mv.rows, mv.sorted_vals, pi, b, mv.n_rows,
                                 strategy="cuda", layout=lay, vals_e=vals_e,
                                 pi_e=pi_e, device=dev), timing_iters)}
@@ -1919,6 +1998,7 @@ def sharded_kernel_phase(t, init, mvs, layouts, timing_iters: int) -> None:
         print(f"mode {n} fused MU step, device ms per step in a CUDA graph "
               f"(graph_ms): " + ", ".join(f"{k} {v:.4f} ms"
                                           for k, v in steps.items()))
+    return mode_steps
 
 
 def _per_update_launches(events, final) -> list:
@@ -2071,8 +2151,9 @@ def _ll_rel(a, b) -> float:
         b.loglik_history[-1])
 
 
-def nccl_phase(t, init, dev) -> None:
-    """14.4: the collective code path on a one-rank NCCL process group."""
+def nccl_phase(t, init, mvs, layouts, dev) -> dict:
+    """14.4: the collective code path on a one-rank NCCL process group;
+    returns 14.6's recorded steps (:func:`nccl_recorded_steps`)."""
     import torch
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
@@ -2126,8 +2207,45 @@ def nccl_phase(t, init, dev) -> None:
         check(len(hist) == len(emu.kkt_history) and err <= LOGLIK_RTOL
               and kkt_err <= KKT_RTOL,
               "dist_cpapr_mu disagrees with the emulated one-shard solve")
+        return nccl_recorded_steps(mesh, init, mvs, layouts)
     finally:
         dist.destroy_process_group()
+
+
+def nccl_recorded_steps(mesh, init, mvs, layouts) -> dict:
+    """14.4's part for 14.6: on the one-rank NCCL group, the first sharded
+    mode at S = 1 with the local cuda kernels, under
+    ``perf.comm.record_collectives``: one fused owner step and one psum Φ
+    in f32, and the psum Φ again on bf16 inputs.  Uncounted (the counts
+    were read in 14.2 and 14.3)."""
+    import torch
+
+    from repro_torch.core import distributed as D
+    from repro_torch.core.layout import owner_partition, shard_blocked_layout
+    from repro_torch.core.phi import expand_to_shards
+    from repro_torch.core.pi import pi_rows
+    from repro_torch.perf.comm import record_collectives
+
+    n = _shard_modes(layouts)[0]
+    mv = mvs[n]
+    sl = shard_blocked_layout(layouts[n], 1)
+    opart = owner_partition(sl)
+    pi = pi_rows(mv.sorted_idx, init.factors, n)
+    b = init.factors[n] * init.lam[None, :]
+    vals_es, pi_es = expand_to_shards(sl, mv.sorted_vals, pi)
+    out = {"mode": n, "layout": sl, "owner_partition": opart}
+    with record_collectives() as out["owner"]:
+        D.phi_mu_sharded_owner(sl, opart, vals_es, pi_es,
+                               D.owner_stack(opart, b, mesh), mesh=mesh,
+                               local_strategy="cuda")
+    with record_collectives() as out["psum"]:
+        D.phi_sharded(sl, vals_es, pi_es, b, mesh=mesh, local_strategy="cuda")
+    h = torch.bfloat16
+    with record_collectives() as out["psum_bf16"]:
+        D.phi_sharded(sl, vals_es.to(h), pi_es.to(h), b.to(h), mesh=mesh,
+                      local_strategy="cuda")
+    torch.cuda.synchronize()
+    return out
 
 
 def sharded_ladder_phase(t, init, layouts, sh, dev, seed: int) -> None:
@@ -2251,12 +2369,126 @@ def skewed_rebalance_part(dev, seed: int) -> None:
           "the resumed rebalanced solve disagrees with the uninterrupted one")
 
 
+def _pad_rows(n_rows: int, block_rows: int) -> int:
+    """The row count the bounds of ``perf.comm`` pad a mode to."""
+    return -(-max(n_rows, block_rows) // block_rows) * block_rows
+
+
+def sharded_wire_phase(t, init, mvs, layouts, mode_steps: dict,
+                       recorded: dict) -> None:
+    """14.6: the sharded modes against the communication model
+    (``perf.comm``, the JAX package's ``perf/hlo.py``) at S = 2 and 4:
+    per-device wire of both combines from the layouts, the bounds, the
+    Π-gather bytes of every shard, a projection of the S = N_SHARDS wire
+    over NVLink, and 14.4's recorded one-rank NCCL steps."""
+    from repro_torch.core import distributed as D
+    from repro_torch.core.layout import (
+        build_shard_pi_gather,
+        owner_partition,
+        shard_blocked_layout,
+    )
+    from repro_torch.core.phi import expand_vals_to_shards
+    from repro_torch.perf import comm
+    from repro_torch.perf.roofline import HARDWARE
+
+    dev = t.device
+    link = HARDWARE["h100_sxm_bf16"].link_bw
+    for n in _shard_modes(layouts):
+        mv, lay = mvs[n], layouts[n]
+        br = lay.block_rows
+        for s_count in SHARD_COUNTS:
+            sl = shard_blocked_layout(lay, s_count)
+            opart = owner_partition(sl)
+            psum = comm.allreduce_wire_bytes(
+                D.sharded_combine_bytes(sl, RANK), s_count)
+            rs = D.owner_scatter_wire_bytes(opart, RANK)
+            psum_bound = comm.phi_combine_wire_bound(mv.n_rows, RANK, s_count,
+                                                     block_rows=br)
+            rs_bound = comm.phi_reduce_scatter_wire_bound(
+                mv.n_rows, RANK, s_count, block_rows=br)
+            lower = comm.mttkrp_comm_lower_bound(mv.n_rows, RANK, s_count)
+            ratio = opart.own_rows / (_pad_rows(mv.n_rows, br) / s_count)
+            pref = D.preferred_combine(sl, RANK)
+            print(f"mode {n} S={s_count} per-device wire bytes: psum {psum:.0f}"
+                  f" (phi_combine_wire_bound {psum_bound:.0f}), "
+                  f"reduce_scatter {rs:.0f} (phi_reduce_scatter_wire_bound "
+                  f"{rs_bound:.0f}; owner window {opart.own_rows} rows, "
+                  f"{ratio:.3f}x the mean), mttkrp_comm_lower_bound "
+                  f"{lower:.0f}; preferred_combine {pref}; owned slice "
+                  f"{opart.scatter_bytes(RANK)} B against the combine window "
+                  f"{D.sharded_combine_bytes(sl, RANK)} B")
+            check(0 < psum <= psum_bound,
+                  f"mode {n} S={s_count}: the psum wire {psum} is outside "
+                  f"phi_combine_wire_bound {psum_bound}")
+            check(pref == ("reduce_scatter" if rs <= psum else "psum"),
+                  f"mode {n} S={s_count}: preferred_combine {pref} does not "
+                  f"follow the wire (reduce_scatter {rs}, psum {psum})")
+            check(ratio > 2 or rs <= rs_bound,
+                  f"mode {n} S={s_count}: owner windows within 2x the mean, "
+                  f"but the reduce-scatter wire {rs} exceeds {rs_bound}")
+            pig = build_shard_pi_gather(sl, mv.sorted_idx, n)
+            vals_es = expand_vals_to_shards(sl, mv.sorted_vals)
+            touched, lidx = pig.on(dev)
+            valid = sl.on(dev).valid
+            slot = sl.n_grid_shard * sl.block_nnz
+            bound = comm.pi_gather_wire_bound(
+                slot, pig.touched_rows_pad, RANK, t.ndim,
+                idx_itemsize=lidx[0].element_size())
+            repl = comm.pi_replicated_gather_bytes(t.shape, n, RANK)
+            for s in range(s_count):
+                vals, fg, li, v = D._pi_operands(pig, valid, touched, lidx,
+                                                 vals_es, init.factors, s)
+                got = sum(comm.entry_parameter_bytes([vals, *fg, *li, v]))
+                rows_b = sum(comm.entry_parameter_bytes(fg))
+                shares = ", ".join(
+                    f"mode {m} {int(pig.touched_count[s, j])}/{t.shape[m]}"
+                    for j, m in enumerate(pig.modes))
+                print(f"  shard {s}: shard-local Π inputs {got:.0f} B "
+                      f"(pi_gather_wire_bound {bound:.0f} at int64 index "
+                      f"maps), touched factor rows {rows_b:.0f} B against "
+                      f"pi_replicated_gather_bytes {repl:.0f} B "
+                      f"({rows_b / repl:.3f}); rows touched {shares}")
+                check(got <= bound, f"mode {n} S={s_count} shard {s}: the "
+                                    f"shard-local Π inputs exceed the bound")
+            if s_count == N_SHARDS:
+                steps = mode_steps[n]
+                print(f"  projection, not a measurement: the S={s_count} "
+                      f"wire over NVLink at {link / 1e9:.0f} GB/s each way "
+                      f"(datasheet): reduce_scatter {1e6 * rs / link:.3f} us, "
+                      f"psum {1e6 * psum / link:.3f} us per combine, beside "
+                      f"14.1's measured one-card fused step (all shards "
+                      f"emulated, graph_ms): reduce_scatter "
+                      f"{steps[f'S={s_count} reduce_scatter']:.4f} ms, psum "
+                      f"{steps[f'S={s_count} psum']:.4f} ms")
+    sl, opart = recorded["layout"], recorded["owner_partition"]
+    for what, log in (("owner", recorded["owner"]),
+                      ("psum", recorded["psum"]),
+                      ("psum_bf16", recorded["psum_bf16"])):
+        cs = comm.collective_stats(log)
+        combine = log[0]
+        model = (opart.scatter_bytes(RANK, combine.itemsize)
+                 if what == "owner"
+                 else D.sharded_combine_bytes(sl, RANK, combine.itemsize))
+        print(f"one-rank NCCL group, mode {recorded['mode']} at S=1, {what} "
+              f"step recorded: " + ", ".join(
+                  f"{c.kind} {c.type} on {c.tag} ({c.group_size} rank)"
+                  for c in log)
+              + f"; counts {cs.by_kind_count}, wire {cs.wire_bytes:.0f} B; "
+              f"combine result {combine.bytes:.0f} B (model {model} B)")
+        want = ({"reduce-scatter": 1, "all-reduce": 1} if what == "owner"
+                else {"all-reduce": 1})
+        check(cs.by_kind_count == want and cs.wire_bytes == 0
+              and combine.bytes == model,
+              f"the one-rank {what} step recorded {log}, expected "
+              f"{want} with a {model} B combine and no wire")
+
+
 def sharded_phase(t, init, mvs, layouts, res, ref, dev, seed: int,
                   timing_iters: int) -> tuple:
     """Phase 14; returns the launch counts of its counted solves and its
     counted CP-APR solve."""
     t0 = time.perf_counter()
-    sharded_kernel_phase(t, init, mvs, layouts, timing_iters)
+    mode_steps = sharded_kernel_phase(t, init, mvs, layouts, timing_iters)
     print(f"14.1 kernels per shard: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     sh, launches = sharded_solve_phase(t, init, layouts, res, ref, dev)
@@ -2265,11 +2497,14 @@ def sharded_phase(t, init, mvs, layouts, res, ref, dev, seed: int,
     launches["mttkrp_blocked"] = sharded_als_phase(t, init, layouts, dev)
     print(f"14.3 sharded CP-ALS: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    nccl_phase(t, init, dev)
+    recorded = nccl_phase(t, init, mvs, layouts, dev)
     print(f"14.4 one-rank NCCL mesh: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     sharded_ladder_phase(t, init, layouts, sh, dev, seed)
     print(f"14.5 ladder, rebalance, resume: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    sharded_wire_phase(t, init, mvs, layouts, mode_steps, recorded)
+    print(f"14.6 communication model: {time.perf_counter() - t0:.1f} s")
     return launches, sh
 
 
@@ -2589,13 +2824,20 @@ def grid_als_phase(t, init, dev) -> int:
     return launches
 
 
-def grid_nccl_phase(t, init, dev) -> None:
+def grid_nccl_phase(t, init, mvs, layouts, dev) -> list:
     """15.4: a (1, 1) grid on a one-rank NCCL process group against the
-    emulated 1 x 1 grid solve."""
+    emulated 1 x 1 grid solve; returns the collectives one fused grid
+    step of mode 0 records there (15.6 reads them)."""
+    import torch
     import torch.distributed as dist
 
+    from repro_torch.core import distributed as D
     from repro_torch.core.cpapr import cpapr_mu
     from repro_torch.core.distributed import make_grid_mesh
+    from repro_torch.core.layout import build_grid_layout
+    from repro_torch.core.phi import expand_to_grid
+    from repro_torch.core.pi import pi_rows
+    from repro_torch.perf.comm import record_collectives
 
     rdv = _work_path("nccl_grid_rendezvous")
     dist.init_process_group("nccl", init_method=f"file://{rdv}", rank=0,
@@ -2616,6 +2858,15 @@ def grid_nccl_phase(t, init, dev) -> None:
         check(got.recoveries is None and emu.recoveries is None
               and err <= LOGLIK_RTOL,
               "the NCCL grid-mesh solve disagrees with the emulated one")
+        g = build_grid_layout(layouts[0], (1, 1))
+        vals_cs, pi_cs = expand_to_grid(
+            g, mvs[0].sorted_vals, pi_rows(mvs[0].sorted_idx, init.factors, 0))
+        b = init.factors[0] * init.lam[None, :]
+        with record_collectives() as log:
+            D.phi_mu_grid_owner(g, vals_cs, pi_cs, D.grid_stack(g, b, mesh),
+                                mesh=mesh, local_strategy="cuda")
+        torch.cuda.synchronize()
+        return log
     finally:
         dist.destroy_process_group()
 
@@ -2670,6 +2921,45 @@ def grid_ladder_phase(t, init, gr, dev) -> None:
           "the resumed grid solve disagrees with the uninterrupted one")
 
 
+def grid_wire_phase(t, mvs, layouts, recorded: list) -> None:
+    """15.6: the explicit and the chosen grid of every mode against the
+    communication model: the column wire is ``grid_combine_wire_bound``,
+    at or above the Ballard/Knight/Rouse bound where the grid has a
+    column axis, and below the S = N_SHARDS 1-D owner wire on grids of
+    two or more rows (1 x B grids are printed); the (1, 1) NCCL grid of
+    15.4 recorded no column collective."""
+    from repro_torch.core import distributed as D
+    from repro_torch.core.layout import build_grid_layout
+    from repro_torch.perf import comm
+
+    for n, (mv, lay) in enumerate(zip(mvs, layouts)):
+        wire_1d = _owner_wire(lay, N_SHARDS)
+        one_d = ("n/a (fewer row blocks than shards)" if math.isnan(wire_1d)
+                 else f"{wire_1d:.0f}")
+        for label, (a, bc) in _grid_shapes(mv, lay):
+            g = build_grid_layout(lay, (a, bc))
+            wire = D.grid_scatter_wire_bytes(g, RANK)
+            model = comm.grid_combine_wire_bound(g.sub_rows, RANK, bc)
+            lower = comm.mttkrp_comm_lower_bound(mv.n_rows, RANK, a * bc)
+            print(f"mode {n} grid {a}x{bc} ({label}): column wire {wire:.0f} B"
+                  f" per device per inner iteration (grid_combine_wire_bound"
+                  f" {model:.0f}), mttkrp_comm_lower_bound {lower:.0f}, 1-D "
+                  f"owner wire at S={N_SHARDS} {one_d}"
+                  + ("" if a >= 2 or math.isnan(wire_1d)
+                     else f" ({wire / wire_1d:.3f}x: a 1 x {bc} grid, "
+                          f"printed only)"))
+            check(wire == model and (bc == 1 or wire >= lower),
+                  f"mode {n} grid {a}x{bc}: wire {wire}, model {model}, "
+                  f"lower bound {lower}")
+            check(a < 2 or wire < wire_1d,
+                  f"mode {n} grid {a}x{bc}: the column wire {wire} is not "
+                  f"below the 1-D owner wire {wire_1d}")
+    print(f"one-rank NCCL (1, 1) grid, mode 0 fused step recorded: "
+          + ", ".join(f"{c.kind} {c.type} on {c.tag}" for c in recorded))
+    check([(c.kind, c.tag) for c in recorded] == [("all-reduce", "world")],
+          f"the (1, 1) grid issued a column collective: {recorded}")
+
+
 def grid_phase(t, init, mvs, layouts, res, ref, sh, dev,
                timing_iters: int) -> dict:
     """Phase 15; returns the launch counts of its counted solves."""
@@ -2690,11 +2980,14 @@ def grid_phase(t, init, mvs, layouts, res, ref, sh, dev,
     launches["mttkrp_blocked"] = grid_als_phase(t, init, dev)
     print(f"15.3 grid CP-ALS: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    grid_nccl_phase(t, init, dev)
+    recorded = grid_nccl_phase(t, init, mvs, layouts, dev)
     print(f"15.4 one-rank NCCL grid mesh: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     grid_ladder_phase(t, init, solves[(1, 4)], dev)
     print(f"15.5 grid ladder, resume: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    grid_wire_phase(t, mvs, layouts, recorded)
+    print(f"15.6 communication model: {time.perf_counter() - t0:.1f} s")
     return launches
 
 

@@ -151,23 +151,37 @@ def _phi_group(mesh) -> tuple:
     return group, dist.get_rank(group)
 
 
-def _all_reduce(x: torch.Tensor, group, op=None) -> torch.Tensor:
+# The active recorder of repro_torch.perf.comm.record_collectives, or None:
+# called as (kind, per-rank result, group, tag) after each collective.
+_recorder = None
+
+
+def _all_reduce(x: torch.Tensor, group, op=None, *,
+                tag: str) -> torch.Tensor:
     dist.all_reduce(x, op=op if op is not None else dist.ReduceOp.SUM,
                     group=group)
+    if _recorder is not None:
+        _recorder("all-reduce", x, group, tag)
     return x
 
 
-def _reduce_scatter(out: torch.Tensor, inp: torch.Tensor, group) -> None:
+def _reduce_scatter(out: torch.Tensor, inp: torch.Tensor, group, *,
+                    tag: str) -> None:
     # newer torch names it *_single and deprecates the *_tensor spelling
     fn = getattr(dist, "reduce_scatter_single", None) \
         or dist.reduce_scatter_tensor
     fn(out, inp, group=group)
+    if _recorder is not None:
+        _recorder("reduce-scatter", out, group, tag)
 
 
-def _all_gather(out: torch.Tensor, inp: torch.Tensor, group) -> None:
+def _all_gather(out: torch.Tensor, inp: torch.Tensor, group, *,
+                tag: str) -> None:
     fn = getattr(dist, "all_gather_single", None) \
         or dist.all_gather_into_tensor
     fn(out, inp, group=group)
+    if _recorder is not None:
+        _recorder("all-gather", out, group, tag)
 
 
 def sharded_combine_bytes(slayout: ShardedBlockedLayout, rank: int,
@@ -246,11 +260,22 @@ def _shard_inputs(slayout: ShardedBlockedLayout, vals_es, pi_es,
     touched, lidx = pig.on(device)
 
     def inputs(s):
-        fg = [factors[m][touched[j][s]] for j, m in enumerate(pig.modes)]
-        return vals_es[s], pi_rows_local(fg, [li[s] for li in lidx],
-                                         valid[s])
+        vals, fg, li, v = _pi_operands(pig, valid, touched, lidx, vals_es,
+                                       factors, s)
+        return vals, pi_rows_local(fg, li, v)
 
     return inputs
+
+
+def _pi_operands(pig: ShardedPiGather, valid, touched, lidx, vals_es,
+                 factors, s: int) -> tuple:
+    """What shard ``s``'s local Π reads: ``(values slice, [the factor rows
+    its nonzeros touch, per gathered mode], [its local index maps],
+    validity mask)``; ``valid`` from the layout's and ``touched``/``lidx``
+    from ``pig``'s ``on(device)``.  Every rank holds the whole factors
+    and gathers its touched rows itself."""
+    fg = [factors[m][touched[j][s]] for j, m in enumerate(pig.modes)]
+    return vals_es[s], fg, [li[s] for li in lidx], valid[s]
 
 
 def _window_fn(slayout: ShardedBlockedLayout, eps: float,
@@ -294,7 +319,7 @@ def _psum_buf(slayout: ShardedBlockedLayout, window, mesh) -> torch.Tensor:
     buf = win.new_zeros((slayout.buf_rows, win.shape[1]))
     r0 = _row0(slayout, s)
     buf[r0:r0 + wr] = win
-    return _all_reduce(buf, group)
+    return _all_reduce(buf, group, tag="data")
 
 
 # ---------------------------------------------------------------------------
@@ -339,7 +364,7 @@ def owner_unstack(opart: OwnerPartition, stacked: torch.Tensor,
         group, _ = _phi_group(mesh)
         full = stacked.new_empty((opart.n_shards * opart.own_rows, r))
         _all_gather(full, stacked.reshape(opart.own_rows, r).contiguous(),
-                    group)
+                    group, tag="data")
         stacked = full.reshape(opart.n_shards, opart.own_rows, r)
     if np.all(np.asarray(opart.row_count) == opart.own_rows):
         return stacked.reshape(opart.n_shards * opart.own_rows, r)[
@@ -456,12 +481,13 @@ def _owner_combined(slayout: ShardedBlockedLayout, opart: OwnerPartition,
     op = win.new_zeros((opart.n_shards * own, win.shape[1]))
     op[s * own:(s + 1) * own] = win
     owned = torch.empty_like(win)
-    _reduce_scatter(owned, op, group)
+    _reduce_scatter(owned, op, group, tag="data")
     owned = owned[None]
     if not fused:
         return owned
     viol = torch.max(torch.abs(torch.minimum(b_own, 1.0 - owned)))
-    viol = _all_reduce(viol.clone(), group, dist.ReduceOp.MAX)
+    viol = _all_reduce(viol.clone(), group, dist.ReduceOp.MAX,
+                       tag="data")
     return torch.where(viol > tol, b_own * owned, b_own), viol
 
 
@@ -728,18 +754,21 @@ def grid_unstack(glayout: GridLayout, stacked: torch.Tensor,
     The once-per-mode-update factor gather of the grid epilogue: under a
     mesh ``stacked`` is this rank's (1, sub_rows, R) cell, gathered over
     the column group into its shard's window and then over the row group
-    into the whole block.
+    into the whole block.  A one-rank axis issues no collective.
     """
     opart = owner_partition(glayout.slayout)
     r = stacked.shape[-1]
     pad = glayout.own_rows_pad
     if mesh is not None:
         col_group, row_group, _ = _grid_cell(glayout, mesh)
-        window = stacked.new_empty((pad, r))
-        _all_gather(window, stacked.reshape(glayout.sub_rows, r).contiguous(),
-                    col_group)
-        stacked = stacked.new_empty((glayout.grid_a * pad, r))
-        _all_gather(stacked, window, row_group)
+        window = stacked.reshape(glayout.sub_rows, r).contiguous()
+        if glayout.grid_b > 1:
+            cell, window = window, window.new_empty((pad, r))
+            _all_gather(window, cell, col_group, tag="col")
+        stacked = window
+        if glayout.grid_a > 1:
+            stacked = window.new_empty((glayout.grid_a * pad, r))
+            _all_gather(stacked, window, row_group, tag="row")
     shards = stacked.reshape(glayout.grid_a, pad, r)
     if pad == opart.own_rows and np.all(np.asarray(opart.row_count)
                                         == opart.own_rows):
@@ -784,7 +813,9 @@ def _grid_combined(glayout: GridLayout, vals_cs, pi_cs, b_own, eps: float,
     partials in cell order: bitwise the ring reduce-scatter at B <= 2
     (two addends commute), equal up to summation order beyond.  Under a
     mesh ``b_own`` and the result are this rank's (1, sub_rows, R) cell;
-    ``vals_cs``/``pi_cs`` hold every cell, and the rank reads its own.
+    ``vals_cs``/``pi_cs`` hold every cell, and the rank reads its own.  A
+    one-rank column (``B = 1``) issues no column collective: its cell's
+    tile is its shard's whole window.
     """
     slayout = glayout.slayout
     bdim, sub = glayout.grid_b, glayout.sub_rows
@@ -821,17 +852,21 @@ def _grid_combined(glayout: GridLayout, vals_cs, pi_cs, b_own, eps: float,
     b_win = None
     if not plain:
         b_c = b_own if b_own.shape[0] == 1 else b_own[f:f + 1]
-        b_full = b_c.new_empty((pad, b_c.shape[-1]))
-        _all_gather(b_full, b_c[0].contiguous(), col_group)
+        b_full = b_c[0]
+        if bdim > 1:
+            b_full = b_c.new_empty((pad, b_c.shape[-1]))
+            _all_gather(b_full, b_c[0].contiguous(), col_group, tag="col")
         b_win = b_full[:own_rows]
     win = window(f, b_win)
-    owned = win.new_empty((sub, win.shape[1]))
-    _reduce_scatter(owned, win.contiguous(), col_group)
+    owned = win
+    if bdim > 1:
+        owned = win.new_empty((sub, win.shape[1]))
+        _reduce_scatter(owned, win.contiguous(), col_group, tag="col")
     owned = owned[None]
     if not fused:
         return owned
     viol = torch.max(torch.abs(torch.minimum(b_c, 1.0 - owned)))
-    viol = _all_reduce(viol.clone(), None, dist.ReduceOp.MAX)
+    viol = _all_reduce(viol.clone(), None, dist.ReduceOp.MAX, tag="world")
     return torch.where(viol > tol, b_c * owned, b_c), viol
 
 
@@ -974,22 +1009,23 @@ def _mode_update_dist(mesh, cfg: DistCPAPRConfig, n: int, n_rows: int,
     without a mesh)."""
     model_group = (mesh.get_group("model")
                    if "model" in _axis_names(mesh) else None)
-    data_groups = [mesh.get_group(a) for a in _data_axes(mesh)] \
+    data_groups = [(a, mesh.get_group(a)) for a in _data_axes(mesh)] \
         if mesh is not None else []
 
     def psum_model(x):
-        return _all_reduce(x, model_group) if model_group is not None else x
+        return _all_reduce(x, model_group, tag="model") \
+            if model_group is not None else x
 
     def psum_data(x):
-        for g in data_groups:
-            x = _all_reduce(x, g)
+        for a, g in data_groups:
+            x = _all_reduce(x, g, tag=a)
         return x
 
     def pmax_all(x):
         if model_group is not None:
-            x = _all_reduce(x, model_group, dist.ReduceOp.MAX)
-        for g in data_groups:
-            x = _all_reduce(x, g, dist.ReduceOp.MAX)
+            x = _all_reduce(x, model_group, dist.ReduceOp.MAX, tag="model")
+        for a, g in data_groups:
+            x = _all_reduce(x, g, dist.ReduceOp.MAX, tag=a)
         return x
 
     def update(rows, idx, vals, factors, lam):
@@ -1115,5 +1151,5 @@ def dist_cpapr_mu(t: SparseTensor, rank: int, mesh, seed: "int | None" = None,
 def _gather_columns(x: torch.Tensor, model: int, group) -> torch.Tensor:
     """(I, R/model) column blocks of the model group -> (I, R)."""
     full = x.new_empty((model * x.shape[1], x.shape[0]))
-    _all_gather(full, x.T.contiguous(), group)
+    _all_gather(full, x.T.contiguous(), group, tag="model")
     return full.T.contiguous()

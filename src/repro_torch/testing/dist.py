@@ -120,7 +120,8 @@ def _np(x):
 
 
 def sharded_mesh_checks(rank: int, world: int, problems: dict, bn: int,
-                        br: int, rank_r: int, dist_cfg: dict) -> dict:
+                        br: int, rank_r: int, dist_cfg: dict,
+                        pi_problem: "dict | None" = None) -> dict:
     """The multi-rank checks of one world size, on one rank.
 
     ``problems`` maps a name to numpy ``shape``/``indices``/``values``/
@@ -129,6 +130,16 @@ def sharded_mesh_checks(rank: int, world: int, problems: dict, bn: int,
       * ``("phi"|"krao", name, mode, combine, local_pi)`` and
         ``("owner_mu", name, mode)``: the sharded entry points over a
         ``("data",)`` mesh of ``world`` ranks;
+      * ``("wire", name, mode)``: the collectives
+        (:func:`repro_torch.perf.comm.record_collectives`) of the fused
+        owner step (``"owner"``) and of ``phi_sharded(combine="psum")``
+        (``"psum"``), and on ``"uniform"``'s mode 0 the same two in bf16
+        (``"owner_bf16"``, ``"psum_bf16"``);
+      * ``"pi_gather"``, given ``pi_problem`` (a problem as above plus
+        its ``bn``/``br``): on mode 0, the per-rank bytes of what this
+        rank's shard-local Π reads (``values``, ``touched`` rows per
+        gathered mode, ``index`` maps, ``valid``) and the collectives of
+        a psum ``phi_sharded`` on that path;
       * ``("cpapr", name, combine)``: a sharded ``cpapr_mu`` over that
         mesh (``rebalance_every=1``);
       * ``("dist", name)``: ``dist_cpapr_mu`` on a ``(world,)`` data mesh
@@ -161,6 +172,7 @@ def sharded_mesh_checks(rank: int, world: int, problems: dict, bn: int,
     from ..core.pi import pi_rows
     from ..core.policy import PhiPolicy
     from ..core.sparse_tensor import sort_mode
+    from ..perf.comm import record_collectives
 
     mesh = make_phi_mesh(world, "cpu")
     out: dict = {}
@@ -174,21 +186,36 @@ def sharded_mesh_checks(rank: int, world: int, problems: dict, bn: int,
             sl = shard_blocked_layout(base, world)
             vals_es, pi_es = expand_to_shards(sl, mv.sorted_vals, pi)
             pig = build_shard_pi_gather(sl, mv.sorted_idx, mode)
+            wire: dict = {}
             for combine in PHI_COMBINES:
                 for local_pi in (False, True):
                     kw = dict(mesh=mesh, combine=combine)
                     if local_pi:
                         kw.update(pi_gather=pig, factors=kt.factors)
-                    out[("phi", name, mode, combine, local_pi)] = _np(
-                        phi_sharded(sl, vals_es, pi_es, b, **kw))
+                    with record_collectives() as log:
+                        out[("phi", name, mode, combine, local_pi)] = _np(
+                            phi_sharded(sl, vals_es, pi_es, b, **kw))
+                    if (combine, local_pi) == ("psum", False):
+                        wire["psum"] = log
                     out[("krao", name, mode, combine, local_pi)] = _np(
                         krao_sharded(sl, vals_es, pi_es, **kw))
             opart = owner_partition(sl)
-            b_own, viol = phi_mu_sharded_owner(
-                sl, opart, vals_es, pi_es, owner_stack(opart, b, mesh),
-                mesh=mesh)
+            with record_collectives() as wire["owner"]:
+                b_own, viol = phi_mu_sharded_owner(
+                    sl, opart, vals_es, pi_es, owner_stack(opart, b, mesh),
+                    mesh=mesh)
             out[("owner_mu", name, mode)] = (
                 _np(owner_unstack(opart, b_own, mesh)), float(viol))
+            if (name, mode) == ("uniform", 0):
+                h = torch.bfloat16
+                vals_h, pi_h, b_h = (x.to(h) for x in (vals_es, pi_es, b))
+                with record_collectives() as wire["psum_bf16"]:
+                    phi_sharded(sl, vals_h, pi_h, b_h, mesh=mesh)
+                with record_collectives() as wire["owner_bf16"]:
+                    phi_mu_sharded_owner(sl, opart, vals_h, pi_h,
+                                         owner_stack(opart, b_h, mesh),
+                                         mesh=mesh)
+            out[("wire", name, mode)] = wire
         for combine in PHI_COMBINES:
             cfg = cpapr.CPAPRConfig(
                 rank=rank_r, max_outer=3, strategy="sharded", mesh=mesh,
@@ -223,12 +250,49 @@ def sharded_mesh_checks(rank: int, world: int, problems: dict, bn: int,
             out[("dist_fallback", name)] = dict(
                 factors=[_np(f) for f in kt_f.factors], kkt=hist_f,
                 warnings=[str(x.message) for x in w])
+    if pi_problem is not None:
+        out["pi_gather"] = _pi_gather_bytes(pi_problem, mesh, world)
     try:
         make_phi_mesh(world + 1, "cpu")
         out["mesh_error"] = None
     except ValueError as e:
         out["mesh_error"] = str(e)
     return out
+
+
+def _pi_gather_bytes(p: dict, mesh, world: int) -> dict:
+    """Mode 0 of ``p`` on the shard-local Π path: the per-rank bytes of
+    the tensors this rank's shard reads, and the collectives of one psum
+    Φ on that path."""
+    from ..core import distributed as D
+    from ..core.layout import (
+        build_blocked_layout,
+        build_shard_pi_gather,
+        shard_blocked_layout,
+    )
+    from ..core.phi import expand_vals_to_shards
+    from ..core.sparse_tensor import sort_mode
+    from ..perf.comm import entry_parameter_bytes, record_collectives
+
+    t, kt = _problem(p)
+    mv = sort_mode(t, 0)
+    sl = shard_blocked_layout(build_blocked_layout(
+        mv.rows.numpy(), mv.n_rows, p["bn"], p["br"]), world)
+    pig = build_shard_pi_gather(sl, mv.sorted_idx, 0)
+    vals_es = expand_vals_to_shards(sl, mv.sorted_vals)
+    touched, lidx = pig.on(vals_es.device)
+    vals, fg, li, valid = D._pi_operands(
+        pig, sl.on(vals_es.device).valid, touched, lidx, vals_es,
+        kt.factors, torch.distributed.get_rank())
+    b = kt.factors[0] * kt.lam[None, :]
+    with record_collectives() as log:
+        D.phi_sharded(sl, vals_es, None, b, mesh=mesh, pi_gather=pig,
+                      factors=kt.factors)
+    return {"values": entry_parameter_bytes([vals])[0],
+            "touched": entry_parameter_bytes(fg),
+            "index": entry_parameter_bytes(li),
+            "valid": entry_parameter_bytes([valid])[0],
+            "collectives": log}
 
 
 def _as_numpy_problem(t, kt) -> dict:
@@ -250,10 +314,11 @@ def grid_mesh_checks(rank: int, world: int, problems: dict, bn: int,
 
       * ``("phi"|"krao", name, mode)`` and ``("mu", name, mode)`` (B' and
         the KKT value): the grid entry points over the mesh;
-      * ``("collectives", name, mode)``: the ``(op, group, per-device
-        wire bytes)`` of the collectives one fused step
-        (``phi_mu_grid_owner``) issued, with ``group`` one of ``"col"``,
-        ``"row"`` and ``"world"``;
+      * ``("collectives", name, mode)``: the collectives one fused step
+        (``phi_mu_grid_owner``) issued, as
+        :func:`repro_torch.perf.comm.record_collectives` logs them;
+      * ``("sx1", name, mode)`` where ``B > 1``: the same step's log and
+        ``phi_grid``'s result on a ``(world, 1)`` grid of the same ranks;
       * ``("cpapr", name)``: a grid ``cpapr_mu`` over the mesh;
       * ``("rung", name)``: the same solve with one injected kernel fault
         on a blocked grid mode, ladder on (the grid -> sharded rung runs
@@ -269,12 +334,12 @@ def grid_mesh_checks(rank: int, world: int, problems: dict, bn: int,
     from ..core.pi import pi_rows
     from ..core.policy import PhiPolicy
     from ..core.sparse_tensor import sort_mode
+    from ..perf.comm import record_collectives
     from . import faults
 
     a, b_ax = (int(x) for x in grid_shape)
     mesh = D.make_grid_mesh(a, b_ax, "cpu")
-    tags = {id(mesh.get_group("col")): "col",
-            id(mesh.get_group("row")): "row", id(None): "world"}
+    mesh_sx1 = D.make_grid_mesh(world, 1, "cpu") if b_ax > 1 else None
     out: dict = {}
     for name, p in problems.items():
         t, kt = _problem(p)
@@ -292,27 +357,18 @@ def grid_mesh_checks(rank: int, world: int, problems: dict, bn: int,
             b_new, viol = D.phi_mu_grid(g, vals_cs, pi_cs, b, mesh=mesh)
             out[("mu", name, mode)] = (_np(b_new), float(viol))
             b_own = D.grid_stack(g, b, mesh)
-            log: list = []
-            wrapped = {}
-            for op in ("_all_gather", "_reduce_scatter", "_all_reduce"):
-                wrapped[op] = getattr(D, op)
-
-                def spy(*args, _op=op, **kw):
-                    group = args[-1] if _op != "_all_reduce" else args[1]
-                    moved = args[1] if _op == "_all_gather" else args[0]
-                    n = torch.distributed.get_world_size(group)
-                    log.append((_op.strip("_"), tags.get(id(group), "?"),
-                                (n - 1) * moved.numel()
-                                * moved.element_size()))
-                    return wrapped[_op](*args, **kw)
-
-                setattr(D, op, spy)
-            try:
+            with record_collectives() as log:
                 D.phi_mu_grid_owner(g, vals_cs, pi_cs, b_own, mesh=mesh)
-            finally:
-                for op, fn in wrapped.items():
-                    setattr(D, op, fn)
             out[("collectives", name, mode)] = log
+            if mesh_sx1 is not None:
+                g1 = build_grid_layout(base, (world, 1))
+                vals_1, pi_1 = expand_to_grid(g1, mv.sorted_vals, pi)
+                with record_collectives() as log:
+                    D.phi_mu_grid_owner(g1, vals_1, pi_1,
+                                        D.grid_stack(g1, b, mesh_sx1),
+                                        mesh=mesh_sx1)
+                out[("sx1", name, mode)] = (log, _np(D.phi_grid(
+                    g1, vals_1, pi_1, b, mesh=mesh_sx1)))
         cfg = dict(rank=rank_r, max_outer=3, strategy="grid", mesh=mesh,
                    grid_shape=(a, b_ax),
                    policy=PhiPolicy(strategy="blocked", block_nnz=bn,

@@ -7,7 +7,10 @@ CP-ALS ``cuda`` and ``dense``) with their launch counts, against the
 ``segment`` solves on the CPU.  The STREAM kernel (``stream.cu``) is held
 bitwise to its plain version on the card.  The row-sharded and N-D grid
 tiers run B2/B3 once per shard and once per grid cell, counted, against
-their plain blocked schedules.  The LM serving path (plain PyTorch, no
+their plain blocked schedules; on a one-rank NCCL group their collectives
+are recorded (``perf.comm.record_collectives``) and held to the
+communication model, and the dense wrappers' operands to
+``dense_input_bytes``.  The LM serving path (plain PyTorch, no
 kernel of the port) runs its ten reduced configs on the card against
 the CPU, crosses the ring cache's window and counts the engine's decode
 steps.  LM training: ``matmul_f32``'s backward on bf16 operands (the
@@ -1265,6 +1268,91 @@ def test_grid_solves_on_the_card(card):
     want = P_cpals.cp_als(t, RANK, n_iters=2, init=kt, strategy="grid",
                           n_shards=4, policy=blocked, device="cpu")[1]
     np.testing.assert_allclose(fits, want, rtol=1e-5, atol=1e-6)
+
+
+# --- the communication model: recorded collectives, dense operands ---------
+
+
+@pytest.mark.cuda
+def test_recorder_on_a_one_rank_nccl_group(card):
+    """On a one-rank NCCL group with the local cuda kernels, under
+    ``perf.comm.record_collectives``: the fused owner step issues one
+    reduce-scatter of the owned slice and a scalar KKT max and no
+    all-gather, the psum Φ one all-reduce of the combine buffer, the
+    (1, 1) grid's fused step the KKT max alone (no column collective);
+    each recorded result has the model's bytes at its own itemsize, and
+    one rank moves no wire."""
+    from repro_torch.core import distributed as D
+    from repro_torch.core.layout import build_grid_layout, owner_partition
+    from repro_torch.core.phi import expand_to_grid
+    from repro_torch.launch.train import process_group
+    from repro_torch.perf import comm
+
+    sl, _, vals_es, pi_es, b, _ = _sharded_inputs("uniform", 0, 1, card)
+    opart = owner_partition(sl)
+    t, kt = fixture("uniform")
+    mv = sort_mode(t, 0)
+    g = build_grid_layout(
+        build_blocked_layout(mv.rows.numpy(), mv.n_rows, BN, BR), (1, 1))
+    vals_cs, pi_cs = (x.to(card) for x in expand_to_grid(
+        g, mv.sorted_vals, pi_rows(mv.sorted_idx, kt.factors, 0)))
+    with process_group(card):
+        mesh = D.make_phi_mesh(1)
+        with comm.record_collectives() as owner:
+            D.phi_mu_sharded_owner(sl, opart, vals_es, pi_es,
+                                   D.owner_stack(opart, b, mesh), mesh=mesh,
+                                   local_strategy="cuda")
+        with comm.record_collectives() as psum:
+            D.phi_sharded(sl, vals_es, pi_es, b, mesh=mesh,
+                          local_strategy="cuda")
+        gmesh = D.make_grid_mesh(1, 1)
+        with comm.record_collectives() as grid:
+            D.phi_mu_grid_owner(g, vals_cs, pi_cs, D.grid_stack(g, b, gmesh),
+                                mesh=gmesh, local_strategy="cuda")
+        torch.cuda.synchronize()
+    assert [(c.kind, c.tag, c.group_size) for c in owner] == [
+        ("reduce-scatter", "data", 1), ("all-reduce", "data", 1)]
+    assert [(c.kind, c.tag) for c in psum] == [("all-reduce", "data")]
+    assert [(c.kind, c.tag) for c in grid] == [("all-reduce", "world")]
+    isz = owner[0].itemsize
+    assert owner[0].bytes == opart.scatter_bytes(RANK, isz)
+    assert psum[0].bytes == D.sharded_combine_bytes(sl, RANK, isz)
+    assert comm.collective_stats(owner + psum + grid).wire_bytes == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+def test_dense_wrappers_hand_their_kernels_dense_input_bytes(card, dtype,
+                                                             monkeypatch):
+    """The operands B4-B6's wrappers hand their kernels' launchers are
+    ``perf.comm.dense_input_bytes`` exactly (unpadded: the port pads
+    nothing), on every mode of the uniform fixture."""
+    from repro_torch.perf import comm
+
+    seen: dict = {}
+    for fn, n_in in (("launch_mttkrp", 3), ("launch_phi", 4),
+                     ("launch_phi_mu", 4)):
+        def spy(*args, _fn=getattr(dense_kernel, fn), _name=fn, _n=n_in,
+                **kw):
+            seen[_name] = sum(comm.entry_parameter_bytes(args[:_n]))
+            return _fn(*args, **kw)
+
+        monkeypatch.setattr(dense_kernel, fn, spy)
+    for mode in MODES:
+        x, c, a, b = (v.to(card) for v in _dense_inputs("uniform", mode,
+                                                        dtype))
+        dense_ops.mttkrp_dense(x, c, a)
+        dense_ops.phi_dense(x, c, a, b)
+        dense_ops.phi_mu_dense(x, c, a, b)
+        torch.cuda.synchronize()
+        k, i, j = x.shape
+        isz = x.element_size()
+        assert seen == {
+            "launch_mttkrp": comm.dense_input_bytes(k, i, j, RANK, isz),
+            "launch_phi": comm.dense_input_bytes(k, i, j, RANK, isz,
+                                                 with_b=True),
+            "launch_phi_mu": comm.dense_input_bytes(k, i, j, RANK, isz,
+                                                    with_b=True)}, mode
 
 
 # ---------------------------------------------------------------------------

@@ -18,7 +18,20 @@ conformance fixtures, handed over as numpy:
     (the JAX package's needs a ``"model"`` axis, so its mesh for the
     port's ``(2,)`` data mesh is ``(2, 1)``); a rank the model axis does
     not divide falls back to one device with a warning;
-  * ``make_phi_mesh`` raises past the world size.
+  * ``make_phi_mesh`` raises past the world size;
+  * the collectives hold to the communication model
+    (``repro_torch.perf.comm``, the port's ``repro/perf/hlo.py``), as
+    ``tests/test_conformance.py``, ``test_sharded_phi.py``,
+    ``test_sharded_pi.py`` and ``test_dense_tier.py`` hold the JAX
+    package's compiled programs: the fused owner step issues one
+    reduce-scatter whose recorded wire is ``owner_scatter_wire_bytes``,
+    the psum Φ one all-reduce of ``allreduce_wire_bytes`` of the combine
+    buffer at the recorded operand's itemsize, within
+    ``phi_combine_wire_bound``; ``preferred_combine`` follows the two
+    recorded wires; the shard-local Π inputs of the reference's clustered
+    tensor stay within ``pi_gather_wire_bound``.  The port has no
+    compiler between it and its collectives, so the recorded wire equals
+    the model exactly where the reference allows XLA 10% slack.
 """
 import functools
 import json
@@ -42,6 +55,7 @@ from repro_torch.core.phi import expand_to_shards
 from repro_torch.core.pi import pi_rows
 from repro_torch.core.policy import PhiPolicy
 from repro_torch.core.sparse_tensor import sort_mode
+from repro_torch.perf import comm as P_comm
 from repro_torch.testing import dist as dist_harness
 
 from test_conformance import BN, BR, FIXTURES, RANK, TOL, make_fixture
@@ -55,6 +69,31 @@ SPAWN_TIMEOUT = 400  # seconds for all checks of one world size
 def _numpy_problems() -> dict:
     return {kind: dist_harness._as_numpy_problem(*make_fixture(kind))
             for kind in FIXTURES}
+
+
+PI_BN, PI_BR = 64, 8  # the reference's blocking of its clustered tensor
+
+
+def _pi_problem() -> dict:
+    """The reference's clustered tensor (``tests/test_sharded_pi.py``),
+    built by the JAX package: each row-block shard touches only a slice
+    of the other modes' rows."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.core.sparse_tensor import SparseTensor, random_ktensor
+
+    rng = np.random.default_rng(0)
+    nnz, i0_n, i1_n, i2_n = 2400, 64, 120, 100
+    i0 = np.sort(rng.integers(0, i0_n, nnz)).astype(np.int32)
+    i1 = ((i0 * i1_n // i0_n) + rng.integers(0, 8, nnz)) % i1_n
+    i2 = ((i0 * i2_n // i0_n) + rng.integers(0, 8, nnz)) % i2_n
+    idx = np.stack([i0, i1.astype(np.int32), i2.astype(np.int32)], 1)
+    t = SparseTensor(shape=(i0_n, i1_n, i2_n), indices=jnp.asarray(idx),
+                     values=jnp.asarray((rng.poisson(1.0, nnz) + 1.0)
+                                        .astype(np.float32)))
+    kt = random_ktensor(jax.random.PRNGKey(0), t.shape, RANK)
+    return dict(dist_harness._as_numpy_problem(t, kt), bn=PI_BN, br=PI_BR)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -79,8 +118,8 @@ def mesh_results(tmp_path_factory):
             work = tmp_path_factory.mktemp(f"ranks{world}")
             cache[world] = dist_harness.run_ranks(
                 world, "sharded_mesh_checks",
-                (_numpy_problems(), BN, BR, RANK, DIST_CFG), str(work),
-                timeout=SPAWN_TIMEOUT)
+                (_numpy_problems(), BN, BR, RANK, DIST_CFG, _pi_problem()),
+                str(work), timeout=SPAWN_TIMEOUT)
         return cache[world]
 
     return get
@@ -263,3 +302,151 @@ def test_rank_failure_and_timeout_are_reported(tmp_path):
     with pytest.raises(TimeoutError, match="still running"):
         dist_harness.run_ranks(2, "idle", (600.0,), str(tmp_path / "hang"),
                                timeout=20)
+
+
+# ---------------------------------------------------------------------------
+# The communication model against the recorded collectives
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def sharded_layout(kind: str, mode: int, world: int) -> tuple:
+    """(n_rows, layout, owner partition) of one fixture mode at ``world``
+    shards, as the ranks build them."""
+    t, _ = port_problem(kind)
+    mv = sort_mode(t, mode)
+    sl = shard_blocked_layout(
+        build_blocked_layout(mv.rows.numpy(), mv.n_rows, BN, BR), world)
+    return mv.n_rows, sl, owner_partition(sl)
+
+
+def _wires(got: dict, kind: str, mode: int, tier: str = "") -> tuple:
+    """(owner step's stats, psum Φ's stats) of one rank's records."""
+    rec = got[("wire", kind, mode)]
+    return (P_comm.collective_stats(rec["owner" + tier]),
+            P_comm.collective_stats(rec["psum" + tier]))
+
+
+@pytest.mark.parametrize("kind", FIXTURES)
+@pytest.mark.parametrize("world", WORLDS)
+def test_owner_step_is_one_reduce_scatter_of_the_model_wire(mesh_results,
+                                                            world, kind):
+    """The fused owner step: exactly one reduce-scatter over the data
+    group, no all-gather, one scalar KKT max; its recorded wire is
+    ``owner_scatter_wire_bytes`` exactly."""
+    for got in mesh_results(world):
+        for mode in range(3):
+            _, sl, opart = sharded_layout(kind, mode, world)
+            log = got[("wire", kind, mode)]["owner"]
+            assert [(c.kind, c.tag, c.group_size) for c in log] == [
+                ("reduce-scatter", "data", world),
+                ("all-reduce", "data", world)], log
+            assert log[1].type == "f32[]"
+            rs, _ = _wires(got, kind, mode)
+            assert rs.by_kind_count.get("all-gather", 0) == 0
+            assert rs.by_kind_wire["reduce-scatter"] == \
+                P_dist.owner_scatter_wire_bytes(opart, RANK) > 0
+
+
+@pytest.mark.parametrize("kind", FIXTURES)
+@pytest.mark.parametrize("world", WORLDS)
+def test_psum_wire_is_the_combine_buffer_within_bound(mesh_results, world,
+                                                      kind):
+    """``phi_sharded(combine="psum")``: one all-reduce of the combine
+    buffer, ``allreduce_wire_bytes(sharded_combine_bytes(sl, R, itemsize),
+    S)`` at the recorded operand's itemsize, within the O(I_n * R)
+    ``phi_combine_wire_bound``."""
+    for got in mesh_results(world):
+        for mode in range(3):
+            n_rows, sl, _ = sharded_layout(kind, mode, world)
+            (c,) = got[("wire", kind, mode)]["psum"]
+            assert (c.kind, c.tag, c.group_size) == ("all-reduce", "data",
+                                                     world)
+            _, ps = _wires(got, kind, mode)
+            wire = ps.by_kind_wire["all-reduce"]
+            assert wire == P_comm.allreduce_wire_bytes(
+                P_dist.sharded_combine_bytes(sl, RANK, c.itemsize), world)
+            assert 0 < wire <= P_comm.phi_combine_wire_bound(
+                n_rows, RANK, world, block_rows=BR)
+
+
+@pytest.mark.parametrize("kind", FIXTURES)
+@pytest.mark.parametrize("world", WORLDS)
+def test_preferred_combine_follows_the_recorded_wire(mesh_results, world,
+                                                     kind):
+    """``preferred_combine`` picks the reduce-scatter exactly where its
+    recorded wire is at most the psum's; on the balanced ``uniform``
+    split it is strictly below the psum's and within
+    ``phi_reduce_scatter_wire_bound``; on every fixture the owned slice
+    is smaller than the replicated combine window."""
+    for got in mesh_results(world):
+        for mode in range(3):
+            n_rows, sl, opart = sharded_layout(kind, mode, world)
+            rs, ps = (w.by_kind_wire[k] for w, k in zip(
+                _wires(got, kind, mode), ("reduce-scatter", "all-reduce")))
+            pref = P_dist.preferred_combine(sl, RANK)
+            assert (pref == "reduce_scatter") == (rs <= ps), (mode, rs, ps)
+            if kind == "uniform":
+                assert 0 < rs < ps, (mode, rs, ps)
+                assert rs <= P_comm.phi_reduce_scatter_wire_bound(
+                    n_rows, RANK, world, block_rows=BR), mode
+            assert opart.scatter_bytes(RANK) < \
+                P_dist.sharded_combine_bytes(sl, RANK)
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_combine_wire_tracks_the_operand_itemsize(mesh_results, world):
+    """Under a bf16 tier the blocked shard windows are bf16, and so are
+    both combine operands (XLA promotes a bf16 all-reduce to f32, the
+    port does not): the model at the recorded itemsize is the wire, half
+    the f32 wire."""
+    _, sl, opart = sharded_layout("uniform", 0, world)
+    for got in mesh_results(world):
+        rec = got[("wire", "uniform", 0)]
+        assert [c.type.split("[")[0] for c in rec["psum_bf16"]] == ["bf16"]
+        assert rec["owner_bf16"][0].itemsize == 2
+        rs, ps = _wires(got, "uniform", 0, "_bf16")
+        rs32, ps32 = _wires(got, "uniform", 0)
+        assert ps.wire_bytes == P_comm.allreduce_wire_bytes(
+            P_dist.sharded_combine_bytes(sl, RANK, 2), world) \
+            == ps32.wire_bytes / 2
+        assert rs.by_kind_wire["reduce-scatter"] == \
+            P_dist.owner_scatter_wire_bytes(opart, RANK, itemsize=2) \
+            == rs32.by_kind_wire["reduce-scatter"] / 2
+
+
+@functools.lru_cache(maxsize=None)
+def pi_layout(world: int) -> tuple:
+    p = _pi_problem()
+    t = sparse_tensor_from_numpy(p["shape"], p["indices"], p["values"],
+                                 device="cpu")
+    mv = sort_mode(t, 0)
+    sl = shard_blocked_layout(build_blocked_layout(
+        mv.rows.numpy(), mv.n_rows, PI_BN, PI_BR), world)
+    return t.shape, sl, build_shard_pi_gather(sl, mv.sorted_idx, 0)
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_pi_gather_bytes_within_bound(mesh_results, world):
+    """On every rank, what the shard-local Π reads of the clustered
+    tensor (its values slice, validity, local index maps and touched
+    factor rows; no combine operand is among them) stays within
+    ``pi_gather_wire_bound`` at the port's int64 index maps; the touched
+    rows stay below the replicated factors, each mode's below its whole
+    (I_m, R); the psum path issues exactly one all-reduce."""
+    shape, sl, pig = pi_layout(world)
+    slot = sl.n_grid_shard * sl.block_nnz
+    for got in mesh_results(world):
+        pg = got["pi_gather"]
+        assert pg["values"] == slot * 4 and pg["valid"] == slot
+        assert pg["index"] == [slot * 8.0] * (len(shape) - 1)
+        measured = pg["values"] + pg["valid"] + sum(pg["index"]) \
+            + sum(pg["touched"])
+        assert measured <= P_comm.pi_gather_wire_bound(
+            slot, pig.touched_rows_pad, RANK, len(shape), idx_itemsize=8)
+        assert sum(pg["touched"]) == pig.gather_bytes(RANK) < \
+            P_comm.pi_replicated_gather_bytes(shape, 0, RANK)
+        for fg, m in zip(pg["touched"], pig.modes):
+            assert fg < shape[m] * RANK * 4, m
+        assert [(c.kind, c.tag) for c in pg["collectives"]] == [
+            ("all-reduce", "data")]

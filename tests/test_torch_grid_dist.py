@@ -10,11 +10,17 @@ a 2 x 2 grid and 1 as a 1 x 1 grid.
     ``("row", "col")`` mesh are bitwise, on every rank, the port's
     one-device emulation at B <= 2 (a two-addend column sum is the same
     in either order); the 1 x 1 mesh also meets the dense f64 oracle;
-  * one fused step (``phi_mu_grid_owner``) issues exactly one all-gather
-    and one reduce-scatter on the ``"col"`` group and one MAX all-reduce,
-    nothing on the ``"row"`` group, and its column wire bytes equal
-    ``grid_scatter_wire_bytes`` (this stands in for the JAX package's
-    HLO collective count);
+  * one fused step (``phi_mu_grid_owner``), recorded by
+    ``repro_torch.perf.comm.record_collectives`` (the port's counterpart
+    of the JAX package's HLO collective count), issues exactly one
+    all-gather and one reduce-scatter on the ``"col"`` group and one MAX
+    all-reduce of a scalar, nothing on the ``"row"`` group; its column
+    wire is ``grid_combine_wire_bound`` (= ``grid_scatter_wire_bytes``),
+    at or above the Ballard/Knight/Rouse ``mttkrp_comm_lower_bound`` and,
+    on grids of two or more rows, below the 1-D owner scatter's wire;
+  * an S x 1 grid (1 x 1 here, and 2 x 1 and 4 x 1 meshes of the 2 and
+    4 ranks) issues no column collective, and its Φ is bitwise the
+    emulation's;
   * a grid ``cpapr_mu(mesh=...)`` is bitwise the emulated solve, and so
     is the same solve after the ladder's grid -> sharded rung, which
     runs the 1-D path on the mesh's ``"row"`` sub-mesh;
@@ -28,11 +34,17 @@ import pytest
 from repro_torch.core import cpapr as P_cpapr
 from repro_torch.core import distributed as P_dist
 from repro_torch.core.convert import ktensor_from_numpy, sparse_tensor_from_numpy
-from repro_torch.core.layout import build_blocked_layout, build_grid_layout
+from repro_torch.core.layout import (
+    build_blocked_layout,
+    build_grid_layout,
+    owner_partition,
+    shard_blocked_layout,
+)
 from repro_torch.core.phi import expand_to_grid
 from repro_torch.core.pi import pi_rows
 from repro_torch.core.policy import PhiPolicy
 from repro_torch.core.sparse_tensor import sort_mode
+from repro_torch.perf import comm as P_comm
 from repro_torch.testing import dist as dist_harness
 from repro_torch.testing import faults
 
@@ -126,8 +138,8 @@ def test_grid_mesh_ops_are_bitwise_the_emulation(mesh_results, world, kind,
 
 @pytest.mark.parametrize("kind", FIXTURES)
 def test_single_cell_grid_mesh_vs_oracle(mesh_results, kind):
-    """A 1 x 1 grid on a one-rank mesh: both column collectives are the
-    identity and the result meets the dense f64 oracle."""
+    """A 1 x 1 grid on a one-rank mesh, which issues no column
+    collective: the result meets the dense f64 oracle."""
     (got,) = mesh_results(1)
     for mode in range(3):
         mv, pi, b, *_ = mode_inputs(kind, mode, (1, 1))
@@ -150,18 +162,60 @@ def test_single_cell_grid_mesh_vs_oracle(mesh_results, kind):
 @pytest.mark.parametrize("world", (2, 4))
 def test_fused_step_collectives_are_one_column_pair(mesh_results, world):
     """One all-gather and one reduce-scatter on the column group, one MAX
-    all-reduce over the mesh, none on the row group; the column wire is
-    ``grid_scatter_wire_bytes``."""
+    all-reduce of a scalar over the mesh, none on the row group; the
+    column wire is ``grid_combine_wire_bound`` exactly (there is no
+    compiler's slack to allow), at or above ``mttkrp_comm_lower_bound``,
+    and, on mode 0 as the JAX package asserts it, below the 1-D owner
+    scatter's wire at the same world on an A >= 2 grid.  Elsewhere it is
+    printed: a 1 x B grid's can be larger, and the 2 x 2 grid of hub's
+    and empty_row's mode 2 splits its 4 row blocks 1 + 3, so its owner
+    window pads to 12 rows and its wire ties the 1-D one."""
+    a, b_ax = GRIDS[world]
     for got in mesh_results(world):
         for kind in FIXTURES:
             for mode in range(3):
                 log = got[("collectives", kind, mode)]
-                assert [(op, grp) for op, grp, _ in log] == [
-                    ("all_gather", "col"), ("reduce_scatter", "col"),
-                    ("all_reduce", "world")], log
-                g = mode_inputs(kind, mode, GRIDS[world])[3]
-                wire = sum(w for _, grp, w in log if grp == "col")
-                assert wire == P_dist.grid_scatter_wire_bytes(g, RANK) > 0
+                assert [(c.kind, c.tag, c.group_size) for c in log] == [
+                    ("all-gather", "col", b_ax),
+                    ("reduce-scatter", "col", b_ax),
+                    ("all-reduce", "world", world)], log
+                mv, _, _, g, _, _ = mode_inputs(kind, mode, GRIDS[world])
+                cs = P_comm.collective_stats(log[:2])
+                wire = cs.wire_bytes
+                assert wire == P_comm.grid_combine_wire_bound(
+                    g.sub_rows, RANK, b_ax) \
+                    == P_dist.grid_scatter_wire_bytes(g, RANK) > 0
+                assert wire >= P_comm.mttkrp_comm_lower_bound(
+                    mv.n_rows, RANK, world)
+                assert P_comm.collective_stats(log[2:]).wire_bytes <= 64
+                wire_1d = P_dist.owner_scatter_wire_bytes(owner_partition(
+                    shard_blocked_layout(build_blocked_layout(
+                        mv.rows.numpy(), mv.n_rows, BN, BR), world)), RANK)
+                print(f"{kind} mode {mode} grid {a}x{b_ax}: column wire "
+                      f"{wire:.0f}, 1-D owner wire {wire_1d:.0f}")
+                if a >= 2 and mode == 0:
+                    assert wire < wire_1d, (kind, mode, wire, wire_1d)
+
+
+@pytest.mark.parametrize("world", sorted(GRIDS))
+def test_s_by_1_grid_issues_no_column_collective(mesh_results, world):
+    """A grid of one column has nothing to gather or scatter over it: its
+    fused step issues the scalar KKT max alone, and its Φ is bitwise the
+    emulated S x 1 grid's."""
+    for got in mesh_results(world):
+        for kind in FIXTURES:
+            for mode in range(3):
+                if world == 1:
+                    log, phi = got[("collectives", kind, mode)], None
+                else:
+                    log, phi = got[("sx1", kind, mode)]
+                assert [(c.kind, c.tag) for c in log] == [
+                    ("all-reduce", "world")], (kind, mode, log)
+                if phi is not None:
+                    _, _, b, g, vals_cs, pi_cs = mode_inputs(kind, mode,
+                                                             (world, 1))
+                    np.testing.assert_array_equal(
+                        phi, P_dist.phi_grid(g, vals_cs, pi_cs, b).numpy())
 
 
 @functools.lru_cache(maxsize=None)
