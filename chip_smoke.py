@@ -694,8 +694,8 @@ def kernel_phase(t, init, mvs, layouts, timing_iters: int) -> dict:
         phi_k = ops.phi_blocked(lay, vals_e, pi_e, b)
         mu_k, viol_k = ops.phi_mu_blocked(lay, vals_e, pi_e, b)
         torch.cuda.synchronize()
-        phi_p = ref.phi_blocked_ref(*plain_args, **kw)
-        mu_p, viol_p = ref.phi_mu_blocked_ref(*plain_args, **kw)
+        phi_p = ref.phi_blocked_arrays_ref(*plain_args, **kw)
+        mu_p, viol_p = ref.phi_mu_blocked_arrays_ref(*plain_args, **kw)
 
         # bytes each call must move: per nonzero its value, local row and
         # Π row; B read once; Φ (f32) or B*Φ + viol written once
@@ -712,14 +712,14 @@ def kernel_phase(t, init, mvs, layouts, timing_iters: int) -> dict:
             "phi_blocked": (
                 cuda_ms(ops.phi_blocked, lay, vals_e, pi_e, b,
                         iters=timing_iters),
-                cuda_ms(ref.phi_blocked_ref, *plain_args, **kw,
+                cuda_ms(ref.phi_blocked_arrays_ref, *plain_args, **kw,
                         iters=timing_iters),
                 cuda_ms(phi_from_rows, *seg, strategy="segment", device=dev,
                         iters=timing_iters)),
             "phi_mu_blocked": (
                 cuda_ms(ops.phi_mu_blocked, lay, vals_e, pi_e, b,
                         iters=timing_iters),
-                cuda_ms(ref.phi_mu_blocked_ref, *plain_args, **kw,
+                cuda_ms(ref.phi_mu_blocked_arrays_ref, *plain_args, **kw,
                         iters=timing_iters),
                 cuda_ms(phi_mu_step, *seg, strategy="segment", device=dev,
                         iters=timing_iters)),
@@ -762,7 +762,7 @@ def mttkrp_phase(t, init, mvs, layouts, timing_iters: int) -> dict:
                   n_rows_pad=lay.n_rows_pad)
         got = ops.mttkrp_blocked(lay, vals_e, kr_e)
         torch.cuda.synchronize()
-        want = ref.mttkrp_blocked_ref(*plain_args, **kw)
+        want = ref.mttkrp_blocked_arrays_ref(*plain_args, **kw)
         # per nonzero its value, local row and Khatri-Rao row (~72 bytes
         # at R = 16, f32); the f32 window written once
         isz = kr_e.element_size()
@@ -772,7 +772,7 @@ def mttkrp_phase(t, init, mvs, layouts, timing_iters: int) -> dict:
         times = (
             cuda_ms(ops.mttkrp_blocked, lay, vals_e, kr_e,
                     iters=timing_iters),
-            cuda_ms(ref.mttkrp_blocked_ref, *plain_args, **kw,
+            cuda_ms(ref.mttkrp_blocked_arrays_ref, *plain_args, **kw,
                     iters=timing_iters),
             cuda_ms(krao_reduce_rows, *seg, strategy="segment", device=dev,
                     iters=timing_iters))
@@ -1379,7 +1379,7 @@ from repro_torch.core.cpapr import CPAPRConfig, cpapr_mu
 from repro_torch.core.resilience import classify_failure
 from repro_torch.core.sparse_tensor import random_poisson_tensor
 from repro_torch.kernels.phi import kernel
-t, _ = random_poisson_tensor((40, 30, 25), nnz=1500, rank=4, seed=0,
+t, _ = random_poisson_tensor(0, (40, 30, 25), nnz=1500, rank=4,
                              device="cuda")
 lib = kernel.load_library()
 class NullPagePi:
@@ -1649,8 +1649,8 @@ def bucket_tier_part(dev, seed: int) -> None:
         shape = tuple(int(rng.integers(lo, hi + 1))
                       for lo, hi in SERVICE_EXTENTS)
         nnz = int(rng.integers(SERVICE_NNZ[0], SERVICE_NNZ[1] + 1))
-        tj, _ = random_poisson_tensor(shape, nnz=nnz, rank=SERVICE_RANK,
-                                      seed=1000 * seed + j, device=dev)
+        tj, _ = random_poisson_tensor(1000 * seed + j, shape, nnz=nnz,
+                                      rank=SERVICE_RANK, device=dev)
         jobs.append(DecompJob(f"job{j}", tj, SERVICE_RANK, seed=seed + j))
     svc = DecompService(autotune_path=_work_path("service_buckets.json"),
                         device=dev, **SERVICE_CFG)
@@ -1734,8 +1734,8 @@ def large_tenant_part(svc, t, truth, init, name: str, dev, seed: int,
                   _launch_counts(), ("phi_blocked", "phi_mu_blocked"), dense,
                   total)
     extra, _ = random_poisson_tensor(
-        t.shape, nnz=int(APPEND_FRAC * t.nnz), rank=RANK,
-        seed=tensor_seed(name, seed) + 1, seed_ktensor=truth, device=dev)
+        tensor_seed(name, seed) + 1, t.shape, nnz=int(APPEND_FRAC * t.nnz),
+        rank=RANK, seed_ktensor=truth, device=dev)
     _reset_counts()
     t0 = time.perf_counter()
     warm = svc.append(name, extra.indices, extra.values)
@@ -1814,8 +1814,9 @@ def dense_cut_part(svc, dev, seed: int, total: dict) -> None:
 
     shape = NEAR_DENSE_SHAPE
     cells = math.prod(shape)
-    base, _ = random_poisson_tensor(shape, nnz=int(DENSE_CUT_BASE * cells),
-                                    rank=RANK, seed=seed + 7, device=dev)
+    base, _ = random_poisson_tensor(seed + 7, shape,
+                                    nnz=int(DENSE_CUT_BASE * cells),
+                                    rank=RANK, device=dev)
     rng = np.random.default_rng([seed, 133])
     k = int(DENSE_CUT_APPEND * cells)
     idx = np.stack([rng.integers(0, s, size=k) for s in shape], axis=1)
@@ -2329,7 +2330,7 @@ def skewed_rebalance_part(dev, seed: int) -> None:
                              for d in SKEW_OTHER], 1)
     vals = rng.poisson(2.0, rows.size).astype(np.float32) + 1.0
     st = sparse_tensor_from_numpy(shape, idx, vals, device=dev)
-    sinit = random_ktensor(shape, RANK, seed=seed, device=dev).normalize()
+    sinit = random_ktensor(seed, shape, RANK, device=dev).normalize()
     pol = PhiPolicy(strategy="cuda", block_nnz=64, block_rows=8)
     kw = dict(n_shards=2, policy=pol)
     moved = []
@@ -4563,7 +4564,7 @@ def main(argv=None) -> int:
                            seed=args.seed, device=dev)
     print(f"{args.tensor}: shape {t.shape}, nnz {t.nnz} (scale {args.scale}, "
           f"seed {args.seed}), made in {time.perf_counter() - t0:.1f} s")
-    init = random_ktensor(t.shape, RANK, seed=args.seed,
+    init = random_ktensor(args.seed, t.shape, RANK,
                           device=dev).normalize()
     mvs = [sort_mode(t, n) for n in range(t.ndim)]
     pol = default_policy(RANK)
@@ -4637,7 +4638,7 @@ def main(argv=None) -> int:
     print(f"near-dense tensor: shape {dt.shape}, nnz {dt.nnz} (fill "
           f"{NEAR_DENSE_FILL}, seed {args.seed}), made in "
           f"{time.perf_counter() - t0:.1f} s")
-    dinit = random_ktensor(dt.shape, RANK, seed=args.seed,
+    dinit = random_ktensor(args.seed, dt.shape, RANK,
                            device=dev).normalize()
     dense_rows, dense_first = dense_kernel_phase(dt, dinit, TIMING_ITERS)
     rows.update(dense_rows)

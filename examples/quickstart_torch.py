@@ -23,8 +23,8 @@ def main(argv=None) -> int:
     dev = resolve_device(args.device)
 
     # 1. synthesize a sparse Poisson tensor from a planted rank-4 model
-    tensor, truth = random_poisson_tensor((200, 150, 120), nnz=30_000,
-                                          rank=4, seed=0, device=dev)
+    tensor, truth = random_poisson_tensor(0, (200, 150, 120), nnz=30_000,
+                                          rank=4, device=dev)
     print(f"tensor {tensor.shape}, nnz={tensor.nnz} "
           f"(density {tensor.density():.2e})")
 

@@ -180,7 +180,7 @@ def cp_als(
     if validate:
         resilience.validate_decomposition_inputs(t, rank, where="cp_als")
     if init is None:
-        init = random_ktensor(t.shape, rank, seed=0 if seed is None else seed,
+        init = random_ktensor(0 if seed is None else seed, t.shape, rank,
                               device=dev)
     init = init.to(dev)
     factors = [init.factors[0] * init.lam[None, :]] + list(init.factors[1:])
@@ -190,9 +190,9 @@ def cp_als(
     ]
     ones = torch.ones((rank,), dtype=factors[0].dtype, device=dev)
     strategies, layouts, _, locals_ = resolve_mode_policies(
-        mvs, rank=rank, strategy=strategy, policy=policy, shape=t.shape,
-        factors=factors, lam=ones, autotuner=autotuner, mesh=mesh,
-        n_shards=n_shards, combine=combine, device=dev)
+        mvs, factors, ones, rank=rank, strategy=strategy, policy=policy,
+        shape=t.shape, autotuner=autotuner, mesh=mesh, n_shards=n_shards,
+        combine=combine, device=dev)
     pigs = [mode_pi_gather(mvs[n], layouts[n], shard_pi)
             for n in range(t.ndim)]
     updates = [

@@ -222,8 +222,6 @@ class CPAPRResult:
     inner_iters: list  # per outer iter: total inner iterations
     converged: bool
     seconds: float
-    # per outer iter run in this process: host seconds of the sweep
-    sweep_seconds: list
     policies: list | None = None  # per-mode PhiPolicy, blocked/cuda/dense
     # per rebalance event: {"outer", "mode", "rb_start_old", "rb_start_new",
     # "imbalance_old", "imbalance_new"} (nnz max/mean over shards)
@@ -231,6 +229,8 @@ class CPAPRResult:
     # RecoveryEvents (numerical-guard restores, degradation-ladder
     # demotions, checkpoint quarantine/resume), in order
     recoveries: list | None = None
+    # per outer iter run in this process: host seconds of the sweep
+    sweep_seconds: list = dataclasses.field(default_factory=list)
 
 
 @dataclasses.dataclass
@@ -538,19 +538,19 @@ def _blocked_layout(mv: ModeView, pol: PhiPolicy) -> BlockedLayout:
 
 def resolve_mode_policies(
     mvs: Sequence[ModeView],
+    factors: Sequence[torch.Tensor],
+    lam: torch.Tensor,
     *,
     rank: int,
     strategy: str,
     policy: "PhiPolicy | str | None" = None,
-    shape: "tuple | None" = None,
-    factors: "Sequence[torch.Tensor] | None" = None,
-    lam: "torch.Tensor | None" = None,
     autotuner: "object | None" = None,
     mesh: "object | None" = None,
     n_shards: "int | None" = None,
     combine: str = "auto",
     grid_shape: "tuple | None" = None,
-    device="cpu",
+    shape: "tuple | None" = None,
+    device="cuda",
 ) -> tuple:
     """Per-mode ``(strategies, layouts, policies, locals)`` lists.
 
@@ -583,6 +583,7 @@ def resolve_mode_policies(
     first update, where the degradation ladder's ``policy`` rung catches
     it when the caller has turned the ladder on.
     """
+    dev = resolve_device(device)
     n_modes = len(mvs)
     layouts: list = [None] * n_modes
     policies: list = [None] * n_modes
@@ -592,8 +593,7 @@ def resolve_mode_policies(
     sharded = strategy == "sharded"
     grid = strategy == "grid"
     eff_combine = resolve_combine(combine, strategy)
-    eff_shards = (_effective_shard_count(mesh, n_shards,
-                                         torch.device(device))
+    eff_shards = (_effective_shard_count(mesh, n_shards, dev)
                   if sharded or grid else 1)
     strategies = [strategy] * n_modes
     # per-mode (A, B): grid_shape pins it; None asks choose_grid_shape
@@ -998,7 +998,7 @@ def cpapr_mu(
         resilience.validate_decomposition_inputs(t, rank, where="cpapr_mu")
     n_modes = t.ndim
     if init is None:
-        init = random_ktensor(t.shape, rank, seed=0 if seed is None else seed,
+        init = random_ktensor(0 if seed is None else seed, t.shape, rank,
                               device=dev)
     kt = init.to(dev).normalize()
     factors = list(kt.factors)
@@ -1020,8 +1020,8 @@ def cpapr_mu(
     rebalances: list = []
     if resume_state is None:
         strategies, layouts, policies, locals_ = resolve_mode_policies(
-            mvs, rank=rank, strategy=cfg.strategy, policy=cfg.policy,
-            shape=t.shape, factors=factors, lam=lam,
+            mvs, factors, lam, rank=rank, strategy=cfg.strategy,
+            policy=cfg.policy, shape=t.shape,
             autotuner=cfg.autotuner, mesh=cfg.mesh, n_shards=cfg.n_shards,
             combine=cfg.combine, grid_shape=cfg.grid_shape, device=dev)
         # per-mode effective config: the kappa ladder and the combine

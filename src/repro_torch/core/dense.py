@@ -54,6 +54,10 @@ class DenseModeData:
     def n_rows(self) -> int:
         return self.x.shape[1]
 
+    def with_x(self, x) -> "DenseModeData":
+        """Same metadata around another ``x`` (e.g. the bf16 tier's cast)."""
+        return dataclasses.replace(self, x=x)
+
 
 def build_dense_mode(idx, vals, shape, mode: int,
                      max_elems: int = DENSE_MAX_ELEMS,

@@ -1110,7 +1110,7 @@ def dist_cpapr_mu(t: SparseTensor, rank: int, mesh, seed: "int | None" = None,
     t = t.to(dev)
     n_modes = t.ndim
     if init is None:
-        init = random_ktensor(t.shape, rank, seed=0 if seed is None else seed,
+        init = random_ktensor(0 if seed is None else seed, t.shape, rank,
                               device=dev)
     kt = init.to(dev).normalize()
 

@@ -546,13 +546,13 @@ def phi_from_rows(
     perturb: str | None = None,
     vals_e: torch.Tensor | None = None,
     pi_e: torch.Tensor | None = None,
-    device="cuda",
-    dense=None,
-    factors=None,
     mesh=None,
     local_strategy: str = "blocked",
     pi_gather=None,
+    factors=None,
     combine: str = "psum",
+    dense=None,
+    device="cuda",
 ) -> torch.Tensor:
     """Φ^(n) from pre-gathered Π rows.  ``rows`` sorted unless 'scatter'.
 
@@ -635,13 +635,13 @@ def phi_mu_step(
     layout: BlockedLayout | None = None,
     vals_e: torch.Tensor | None = None,
     pi_e: torch.Tensor | None = None,
-    device="cuda",
-    dense=None,
-    factors=None,
     mesh=None,
     local_strategy: str = "blocked",
     pi_gather=None,
+    factors=None,
     combine: str = "psum",
+    dense=None,
+    device="cuda",
 ) -> tuple:
     """One fused CP-APR inner MU step: ``(B', viol)``.
 
@@ -703,14 +703,14 @@ def krao_reduce_rows(
     layout: BlockedLayout | None = None,
     vals_e: torch.Tensor | None = None,
     kr_e: torch.Tensor | None = None,
-    sorted_rows: bool = True,
-    device="cuda",
-    dense=None,
-    factors=None,
     mesh=None,
     local_strategy: str = "blocked",
     pi_gather=None,
+    factors=None,
+    sorted_rows: bool = True,
     combine: str = "psum",
+    dense=None,
+    device="cuda",
 ) -> torch.Tensor:
     """Shared segmented Khatri-Rao reduction: ``out[i] = sum x_j * kr_j``.
 

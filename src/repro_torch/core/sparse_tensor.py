@@ -67,6 +67,9 @@ class SparseTensor:
         full = float(np.prod([float(s) for s in self.shape]))
         return self.nnz / full
 
+    def mode_view(self, n: int) -> "ModeView":
+        return sort_mode(self, n)
+
     def to(self, device) -> "SparseTensor":
         return SparseTensor(self.shape, self.indices.to(device),
                             self.values.to(device))
@@ -159,8 +162,8 @@ class KTensor:
 
 
 def random_ktensor(
-    shape: Sequence[int], rank: int, seed: int = 0,
-    dtype=torch.float32, device="cuda",
+    seed: int, shape: Sequence[int], rank: int, dtype=torch.float32,
+    device="cuda",
 ) -> KTensor:
     """Random non-negative Kruskal tensor with unit-sum columns.
 
@@ -203,12 +206,12 @@ def _unique_coo(idx: np.ndarray, vals: np.ndarray, shape) -> tuple:
 
 
 def random_poisson_tensor(
+    seed: int,
     shape: Sequence[int],
     nnz: int,
     rank: int = 4,
-    seed: int = 0,
-    device="cuda",
     seed_ktensor: KTensor | None = None,
+    device="cuda",
 ) -> tuple:
     """Sample a sparse Poisson count tensor from a low-rank model.
 
@@ -223,7 +226,7 @@ def random_poisson_tensor(
     dev = resolve_device(device)
     shape = tuple(int(s) for s in shape)
     kt = (seed_ktensor if seed_ktensor is not None
-          else random_ktensor(shape, rank, seed=seed, device="cpu"))
+          else random_ktensor(seed, shape, rank, device="cpu"))
     rng = np.random.default_rng([int(seed), 1])
     lam = kt.lam.detach().cpu().double().numpy()
     comp = rng.choice(len(lam), size=nnz, p=lam / lam.sum())

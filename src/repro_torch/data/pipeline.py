@@ -28,8 +28,8 @@ class TokenPipeline:
     cfg: ArchConfig
     shape: ShapeConfig
     seed: int = 0
-    device: str = "cuda"
     shardings: dict | None = None  # name -> NamedSharding (optional)
+    device: str = "cuda"
 
     def __post_init__(self):
         self._dev = resolve_device(self.device)

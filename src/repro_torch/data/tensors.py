@@ -54,8 +54,8 @@ def make_tensor(name: str, scale: float = 0.01, rank: int = 8,
     dev = resolve_device(device)
     dims, nnz = FROSTT[name]
     n = max(int(nnz * scale), 1_000)
-    return random_poisson_tensor(dims, nnz=n, rank=rank,
-                                 seed=tensor_seed(name, seed), device=dev)
+    return random_poisson_tensor(tensor_seed(name, seed), dims, nnz=n,
+                                 rank=rank, device=dev)
 
 
 def make_near_dense(shape=NEAR_DENSE_SHAPE, fill: float = NEAR_DENSE_FILL,

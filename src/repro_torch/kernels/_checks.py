@@ -13,7 +13,7 @@ import torch
 from .dtypes import check_kernel_dtype
 
 __all__ = ["CardLimitError", "MAX_RANK", "SMEM_LIMIT", "check_card_limits",
-           "check_layout_operands"]
+           "check_layout_operands", "runs_plain"]
 
 MAX_RANK = 1024  # the largest rank the CUDA kernels take
 SMEM_LIMIT = 232_448  # bytes of shared memory a block may use on Hopper
@@ -25,16 +25,47 @@ class CardLimitError(ValueError):
     The JAX package's kernel tier fails the same cases at compile time."""
 
 
+def runs_plain(name: str, device: torch.device,
+               interpret: "bool | None") -> bool:
+    """Whether a wrapper computes its kernel's plain version: only when the
+    operands lie on the CPU, where no kernel runs.
+
+    ``interpret`` has the JAX package's slot and is checked against the
+    operands, never used to pick a path: ``None`` takes the operands'
+    device (the kernel on CUDA tensors, the plain version on CPU tensors);
+    ``True`` (the plain version) is allowed only on CPU tensors and
+    ``False`` (the kernel) only on CUDA tensors; the other pairs raise.
+    Any other device raises.
+    """
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: no kernel for device {device}")
+    if device.type == "cpu":
+        if interpret is False:
+            raise ValueError(
+                f"{name}: interpret=False asks for the CUDA kernel, but the "
+                f"operands lie on the CPU; pass CUDA tensors, or "
+                f"interpret=None/True for the plain version")
+        return True
+    if interpret:
+        raise ValueError(
+            f"{name}: interpret=True asks for the plain version, but the "
+            f"operands lie on the card, where the wrapper runs its CUDA "
+            f"kernel; pass CPU tensors, or interpret=None/False")
+    return False
+
+
 def check_layout_operands(name: str, grid_rb, vals_e, local_rows, rows_e,
                           n_rows_pad: int, *windows, block_nnz: int,
-                          block_rows: int,
-                          smem_bytes: Callable[[int], int]) -> torch.dtype:
-    """Validate layout-expanded kernel operands; returns the element dtype.
+                          block_rows: int, smem_bytes: Callable[[int], int],
+                          interpret: "bool | None" = None) -> tuple:
+    """Validate layout-expanded kernel operands; returns ``(dtype, plain)``:
+    the element dtype, and whether the plain version runs
+    (:func:`runs_plain`).
 
     ``rows_e`` is the (n_grid*block_nnz, R) expanded Π or Khatri-Rao rows;
     each of ``windows`` must be an (n_rows_pad, R) window (the B window of
     the Φ kernels).  ``smem_bytes(R)`` is the kernel's shared memory per
-    block, checked against Hopper's limit when the operands are on a card.
+    block, checked against Hopper's limit when the kernel is to run.
     """
     dt = check_kernel_dtype(name, vals_e, rows_e, *windows)
     g = grid_rb.shape[0] if grid_rb.dim() else -1
@@ -60,13 +91,11 @@ def check_layout_operands(name: str, grid_rb, vals_e, local_rows, rows_e,
         raise ValueError(f"{name}: operands on several devices {devs}")
     if not all(t.is_contiguous() for t in ops):
         raise ValueError(f"{name}: operands must be contiguous")
-    dev = rows_e.device
-    if dev.type == "cuda":
+    plain = runs_plain(name, rows_e.device, interpret)
+    if not plain:
         check_card_limits(name, r, block_nnz=block_nnz,
                           block_rows=block_rows, smem_bytes=smem_bytes)
-    elif dev.type != "cpu":
-        raise ValueError(f"{name}: no kernel for device {dev}")
-    return dt
+    return dt, plain
 
 
 def check_card_limits(name: str, rank: int, *, block_nnz: int,

@@ -11,14 +11,17 @@ each call is one kernel launch (the fused step also zeroes its 4-byte
 viol), and its results are bitwise the same from run to run.
 
 A wrapper given tensors on the CPU computes the kernel's plain version
-(``ref.py``); given CUDA tensors it launches the kernel or raises.  Each
-launch adds one to :data:`launch_counts` under the kernel's name.
+(``ref.py``); given CUDA tensors it launches the kernel or raises.
+``interpret`` is the JAX package's parameter, checked against the
+operands' device as
+:func:`repro_torch.kernels._checks.runs_plain`.  Each launch adds one to
+:data:`launch_counts` under the kernel's name.
 """
 from __future__ import annotations
 
 import torch
 
-from .._checks import MAX_RANK, SMEM_LIMIT, CardLimitError
+from .._checks import MAX_RANK, SMEM_LIMIT, CardLimitError, runs_plain
 from ..dtypes import ACC_DTYPE, check_kernel_dtype
 from . import kernel, ref
 
@@ -44,7 +47,7 @@ def default_block_k(dt=torch.float32) -> int:
     return 2
 
 
-def _prep(name, x, c, a, b, block_k) -> tuple:
+def _prep(name, x, c, a, b, block_k, interpret) -> tuple:
     dt = check_kernel_dtype(name, x, c, a, b)
     ops = [t for t in (x, c, a, b) if t is not None]
     if x.dim() != 3 or c.dim() != 2 or a.dim() != 2:
@@ -67,10 +70,8 @@ def _prep(name, x, c, a, b, block_k) -> tuple:
     block_k = default_block_k(dt) if block_k is None else int(block_k)
     if block_k < 1:
         raise ValueError(f"{name}: block_k must be >= 1, got {block_k}")
-    if x.device.type == "cpu":
+    if runs_plain(name, x.device, interpret):
         return dt, None
-    if x.device.type != "cuda":
-        raise ValueError(f"{name}: no kernel for device {x.device}")
     if r > MAX_RANK:
         raise CardLimitError(f"{name}: rank {r} outside 1..{MAX_RANK}")
     shape = kernel.launch_shape(k, i, j, r, dt, name)
@@ -85,10 +86,11 @@ def _window(x, c) -> torch.Tensor:
                        device=x.device)
 
 
-def mttkrp_dense(x, c, a, *, block_k: int | None = None) -> torch.Tensor:
+def mttkrp_dense(x, c, a, *, block_k: int | None = None,
+                 interpret: bool | None = None) -> torch.Tensor:
     """Matrix-free dense MTTKRP: ``M = sum_k (x[k] @ c) * a[k]``, (I, R)
     in the caller's element dtype."""
-    dt, shape = _prep("dense_mttkrp", x, c, a, None, block_k)
+    dt, shape = _prep("dense_mttkrp", x, c, a, None, block_k, interpret)
     if shape is None:
         return ref.mttkrp_dense_ref(x, c, a).to(dt)
     out = _window(x, c)
@@ -98,12 +100,12 @@ def mttkrp_dense(x, c, a, *, block_k: int | None = None) -> torch.Tensor:
     return out.to(dt)
 
 
-def phi_dense(x, c, a, b, *, eps: float = 1e-10,
-              block_k: int | None = None) -> torch.Tensor:
+def phi_dense(x, c, a, b, *, eps: float = 1e-10, block_k: int | None = None,
+              interpret: bool | None = None) -> torch.Tensor:
     """Dense Φ^(n): Poisson weights against the model slices formed
     in-kernel.  Zero entries contribute zero weight, so it equals the
     sparse strategies' Φ.  Returns (I, R) in the caller's dtype."""
-    dt, shape = _prep("dense_phi", x, c, a, b, block_k)
+    dt, shape = _prep("dense_phi", x, c, a, b, block_k, interpret)
     if shape is None:
         return ref.phi_dense_ref(x, c, a, b, float(eps)).to(dt)
     phi = _window(x, c)
@@ -114,11 +116,12 @@ def phi_dense(x, c, a, b, *, eps: float = 1e-10,
 
 
 def phi_mu_dense(x, c, a, b, *, eps: float = 1e-10,
-                 block_k: int | None = None) -> tuple:
+                 block_k: int | None = None,
+                 interpret: bool | None = None) -> tuple:
     """Fused dense MU step: ``(mu, viol)`` with ``mu = B * Φ`` (I, R) in
     the caller's dtype and ``viol`` the 0-d f32 KKT violation
     ``max |min(B, 1 - Φ)|``."""
-    _, shape = _prep("dense_phi_mu", x, c, a, b, block_k)
+    _, shape = _prep("dense_phi_mu", x, c, a, b, block_k, interpret)
     if shape is None:
         return ref.phi_mu_dense_ref(x, c, a, b, float(eps))
     mu = torch.empty_like(b)

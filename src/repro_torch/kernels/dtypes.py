@@ -25,15 +25,16 @@ SUPPORTED_KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 ACC_DTYPE = torch.float32
 
 
-def check_kernel_dtype(name: str, *tensors) -> torch.dtype:
-    """Common element dtype of ``tensors``, validated for the kernel tier.
+def check_kernel_dtype(name: str, *arrays) -> torch.dtype:
+    """Common element dtype of ``arrays`` (tensors), validated for the
+    kernel tier.
 
     Returns the shared dtype; raises ``ValueError`` when operands mix
     dtypes (the caller must state the precision tier explicitly), when
     the dtype is f64 (no silent downcast — use a plain strategy), or when
     the dtype is outside :data:`SUPPORTED_KERNEL_DTYPES`.
     """
-    dts = {t.dtype for t in tensors if t is not None}
+    dts = {t.dtype for t in arrays if t is not None}
     if len(dts) != 1:
         raise ValueError(
             f"{name}: operands must share one element dtype, got "

@@ -10,9 +10,10 @@ from __future__ import annotations
 
 import torch
 
+from ...core.layout import BlockedLayout
 from ..phi.ref import _acc, _global_rows
 
-__all__ = ["mttkrp_ref", "mttkrp_blocked_ref"]
+__all__ = ["mttkrp_ref", "mttkrp_blocked_ref", "mttkrp_blocked_arrays_ref"]
 
 
 def mttkrp_ref(rows, vals, kr, n_rows: int) -> torch.Tensor:
@@ -24,10 +25,21 @@ def mttkrp_ref(rows, vals, kr, n_rows: int) -> torch.Tensor:
     return out.index_add_(0, rows, contrib)
 
 
-def mttkrp_blocked_ref(grid_rb, vals_e, local_rows, kr_e, *, block_nnz: int,
-                       block_rows: int, n_rows_pad: int) -> torch.Tensor:
-    """MTTKRP on layout-expanded inputs: the padded (n_rows_pad, R)
-    window, accumulator dtype (the plain version of ``mttkrp_blocked``).
-    Padding slots carry x = 0 and add exactly 0."""
+def mttkrp_blocked_arrays_ref(grid_rb, vals_e, local_rows, kr_e, *,
+                              block_nnz: int, block_rows: int,
+                              n_rows_pad: int) -> torch.Tensor:
+    """MTTKRP on raw layout tensors: the padded (n_rows_pad, R) window,
+    accumulator dtype (the plain version of ``mttkrp_blocked``).  Padding
+    slots carry x = 0 and add exactly 0."""
     rows = _global_rows(grid_rb, local_rows, block_nnz, block_rows)
     return mttkrp_ref(rows, vals_e, kr_e, n_rows_pad)
+
+
+def mttkrp_blocked_ref(layout: BlockedLayout, vals_e, kr_e) -> torch.Tensor:
+    """MTTKRP on layout-expanded inputs: the padded (n_rows_pad, R) window
+    (:func:`mttkrp_blocked_arrays_ref` on the layout's tensors)."""
+    lt = layout.on(kr_e.device)
+    return mttkrp_blocked_arrays_ref(lt.grid_rb, vals_e, lt.local_rows, kr_e,
+                                     block_nnz=layout.block_nnz,
+                                     block_rows=layout.block_rows,
+                                     n_rows_pad=layout.n_rows_pad)

@@ -12,9 +12,11 @@ from __future__ import annotations
 
 import torch
 
+from ...core.layout import BlockedLayout
 from ..dtypes import ACC_DTYPE
 
-__all__ = ["phi_ref", "phi_blocked_ref", "phi_mu_ref", "phi_mu_blocked_ref"]
+__all__ = ["phi_ref", "phi_blocked_ref", "phi_mu_ref",
+           "phi_blocked_arrays_ref", "phi_mu_blocked_arrays_ref"]
 
 
 def _acc(dtype: torch.dtype) -> torch.dtype:
@@ -39,13 +41,24 @@ def _global_rows(grid_rb, local_rows, block_nnz: int, block_rows: int):
             + local_rows.long())
 
 
-def phi_blocked_ref(grid_rb, vals_e, local_rows, pi_e, b_win, *,
-                    block_nnz: int, block_rows: int,
-                    eps: float) -> torch.Tensor:
-    """Φ on layout-expanded inputs: the padded (n_rows_pad, R) window,
+def phi_blocked_arrays_ref(grid_rb, vals_e, local_rows, pi_e, b_win, *,
+                           block_nnz: int, block_rows: int,
+                           eps: float) -> torch.Tensor:
+    """Φ on raw layout tensors: the padded (n_rows_pad, R) window,
     accumulator dtype (the plain version of the ``phi_blocked`` kernel)."""
     rows = _global_rows(grid_rb, local_rows, block_nnz, block_rows)
     return phi_ref(rows, vals_e, pi_e, b_win, b_win.shape[0], eps)
+
+
+def phi_blocked_ref(layout: BlockedLayout, vals_e, pi_e, b_pad,
+                    eps: float) -> torch.Tensor:
+    """Φ on layout-expanded inputs and the padded (n_rows_pad, R) B;
+    returns the padded Φ window (:func:`phi_blocked_arrays_ref` on the
+    layout's tensors)."""
+    lt = layout.on(b_pad.device)
+    return phi_blocked_arrays_ref(lt.grid_rb, vals_e, lt.local_rows, pi_e,
+                                  b_pad, block_nnz=layout.block_nnz,
+                                  block_rows=layout.block_rows, eps=eps)
 
 
 def _mu_epilogue_ref(b, phi) -> tuple:
@@ -59,12 +72,13 @@ def phi_mu_ref(rows, vals, pi, b, n_rows: int, eps: float) -> tuple:
     return _mu_epilogue_ref(b, phi_ref(rows, vals, pi, b, n_rows, eps))
 
 
-def phi_mu_blocked_ref(grid_rb, vals_e, local_rows, pi_e, b_win, *,
-                       block_nnz: int, block_rows: int,
-                       eps: float) -> tuple:
+def phi_mu_blocked_arrays_ref(grid_rb, vals_e, local_rows, pi_e, b_win, *,
+                              block_nnz: int, block_rows: int,
+                              eps: float) -> tuple:
     """Plain version of the ``phi_mu_blocked`` kernel: ``(mu, viol)``
     with ``mu = B*Φ`` over the padded window in B's dtype and ``viol``
     the f32 KKT violation (padded rows have B = 0 and add exactly 0)."""
-    phi = phi_blocked_ref(grid_rb, vals_e, local_rows, pi_e, b_win,
-                          block_nnz=block_nnz, block_rows=block_rows, eps=eps)
+    phi = phi_blocked_arrays_ref(grid_rb, vals_e, local_rows, pi_e, b_win,
+                                 block_nnz=block_nnz, block_rows=block_rows,
+                                 eps=eps)
     return _mu_epilogue_ref(b_win, phi)

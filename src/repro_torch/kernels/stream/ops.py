@@ -7,13 +7,17 @@ and of ``b``'s shape for add and triad, and the element dtype (f32 or
 bf16; f64 raises).  The output is a fresh tensor in the input dtype.
 
 Given tensors on the CPU it computes the plain version (``ref.py``);
-given CUDA tensors it launches the kernel or raises.  Each launch adds
-one to :data:`launch_counts` under ``stream_<op>``.
+given CUDA tensors it launches the kernel or raises.  ``interpret`` is
+the JAX package's parameter, checked against the
+operands' device as
+:func:`repro_torch.kernels._checks.runs_plain`.  Each launch adds one to
+:data:`launch_counts` under ``stream_<op>``.
 """
 from __future__ import annotations
 
 import torch
 
+from .._checks import runs_plain
 from ..dtypes import check_kernel_dtype
 from . import kernel, ref
 from .kernel import STREAM_OPS
@@ -30,7 +34,8 @@ def reset_launch_counts() -> None:
 
 
 def stream_op(op: str, b: torch.Tensor, c: torch.Tensor | None = None,
-              block_rows: int = 256, s: float = 3.0) -> torch.Tensor:
+              block_rows: int = 256, s: float = 3.0,
+              interpret: bool | None = None) -> torch.Tensor:
     """One STREAM op.  Input length must be a multiple of 128*block_rows
     (benchmarks size arrays accordingly)."""
     if op not in STREAM_OPS:
@@ -73,10 +78,8 @@ def stream_op(op: str, b: torch.Tensor, c: torch.Tensor | None = None,
     check_kernel_dtype("stream_op", b, c_in)
     if c_in.device != b.device:
         raise ValueError(f"stream_op: b on {b.device} but c on {c_in.device}")
-    if b.device.type == "cpu":
+    if runs_plain("stream_op", b.device, interpret):
         return ref.stream_ref(op, b, c_in if needs_c else None, s)
-    if b.device.type != "cuda":
-        raise ValueError(f"stream_op: no kernel for device {b.device}")
     for name, x in (("b", b), ("c", c_in)):
         if not x.is_contiguous() or x.data_ptr() % 16:
             raise ValueError(

@@ -298,10 +298,13 @@ def _fake_tree(specs, shardings):
                     shardings)
 
 
-def lower_cell(arch: str, shape_name: str, mesh):
+def lower_cell(arch: str, shape_name: str, mesh, *, verbose: bool = True):
     """Build one cell's step and its fake inputs (call under
     ``FakeTensorMode``).  Returns (fn, args, meta): ``fn(*args)`` runs the
-    step; ``meta`` holds the cell's counts from its specs."""
+    step; ``meta`` holds the cell's counts from its specs.  ``verbose`` is
+    the JAX package's flag, which its ``lower_cell`` takes and does not
+    read either: neither prints here; the ``[dryrun]`` progress lines come
+    from :func:`run_cell`."""
     cfg = get_arch(arch)
     shape = SHAPES[shape_name]
     # the zero3 profile targets training (decode batches don't divide all

@@ -79,8 +79,8 @@ def _drive(args, dev, cache: str) -> int:
     shape = tuple(args.shape)
     jobs, kts = [], {}
     for j in range(args.jobs):
-        t, kt = random_poisson_tensor(shape, nnz=args.nnz, rank=args.rank,
-                                      seed=args.seed + j, device=dev)
+        t, kt = random_poisson_tensor(args.seed + j, shape, nnz=args.nnz,
+                                      rank=args.rank, device=dev)
         jobs.append(DecompJob(tenant=f"tenant{j}", tensor=t, rank=args.rank))
         kts[f"tenant{j}"] = kt
     t0 = time.perf_counter()
@@ -96,8 +96,9 @@ def _drive(args, dev, cache: str) -> int:
     tenant = jobs[0].tenant
     st = svc.tenant(tenant)
     extra, _ = random_poisson_tensor(
-        shape, nnz=max(1, int(args.append_frac * st.tensor.nnz)),
-        rank=args.rank, seed=args.seed + 1000, device=dev,
+        args.seed + 1000, shape,
+        nnz=max(1, int(args.append_frac * st.tensor.nnz)),
+        rank=args.rank, device=dev,
         seed_ktensor=kts[tenant])
     warm = svc.append(tenant, extra.indices, extra.values)
     cold = cpapr_mu(

@@ -171,6 +171,10 @@ class Model:
             specs = cast_specs(specs, torch.float32)
         return specs
 
+    def abstract_caches(self, batch: int, cache_len: int):
+        """The cache tree as meta tensors (shapes and dtypes, no storage)."""
+        return abstract_params(self.cache_specs(batch, cache_len))
+
     @torch.inference_mode()
     def init_caches(self, batch: int, cache_len: int, device="cuda"):
         """Empty caches: zeros, with every ``kv_pos`` slot at -1."""

@@ -58,6 +58,11 @@ class ParamSpec:
     init: str = "normal"  # normal | zeros | ones
     scale: float = 1.0  # stddev multiplier for 'normal'
 
+    def struct(self) -> torch.Tensor:
+        """A meta tensor of this shape and dtype (no storage): the port's
+        ``jax.ShapeDtypeStruct``."""
+        return torch.empty(self.shape, dtype=self.dtype, device="meta")
+
 
 # logical axis -> mesh axis (or tuple).  'fsdp' is resolved by mesh axes
 # present: ('pod','data') on the multi-pod mesh, ('data',) on single-pod.
@@ -234,8 +239,7 @@ def tree_leaves(tree) -> list:
 def abstract_params(tree):
     """ParamSpec tree -> tree of meta-device tensors (shapes and dtypes,
     no storage)."""
-    return tree_map(
-        lambda s: torch.empty(s.shape, dtype=s.dtype, device="meta"), tree)
+    return tree_map(lambda s: s.struct(), tree)
 
 
 def _init_leaf(spec: ParamSpec, gen: torch.Generator,

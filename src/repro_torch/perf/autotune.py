@@ -595,12 +595,17 @@ class Autotuner:
             "model_served": self.n_model_served,
         }
 
-    def hardware_spec(self, platform: str):
+    def hardware_spec(self, platform: str | None = None):
         """The roofline HardwareSpec the model scores against: the card's
         for ``"cuda"``; on the CPU the paper's CPU system stands in (the
-        model's scale is calibrated away, only its ranking is read)."""
+        model's scale is calibrated away, only its ranking is read).
+        ``platform`` defaults to the tuner's own, else the card where one
+        is present, else the CPU."""
         from .roofline import HARDWARE, detect_hardware_spec
 
+        if platform is None:
+            platform = self.platform or (
+                "cuda" if torch.cuda.is_available() else "cpu")
         if platform == "cpu":
             return HARDWARE["e5_2690v4_dual"]
         return detect_hardware_spec(platform)

@@ -38,7 +38,7 @@ def job_tensors() -> list:
     """The on-card test's three jobs, on the CPU."""
     from ..core.sparse_tensor import random_poisson_tensor
 
-    return [random_poisson_tensor(SHAPE, nnz=NNZ, rank=RANK, seed=s,
+    return [random_poisson_tensor(s, SHAPE, nnz=NNZ, rank=RANK,
                                   device="cpu")[0] for s in SEEDS]
 
 

@@ -33,11 +33,34 @@ __all__ = [
 
 @dataclasses.dataclass(frozen=True)
 class HardwareSpec:
+    """One device's roofline rates.
+
+    ``op_overhead_s``, ``serial_instr_s`` and ``scatter_elem_s`` are the
+    JAX package's small-problem overhead coefficients (seconds per kernel
+    dispatch, per serial loop step, per scattered element), which its
+    autotuner adds to the roofline terms.  They keep the JAX package's
+    slots, but the port's autotuner scores from its own analytic counts
+    and does not model them, and nothing has measured them on the card:
+    so they must stay 0.0, and a non-zero value raises rather than being
+    dropped.
+    """
+
     name: str
     peak_flops: float  # FLOP/s per chip (f32 outside the tensor cores on the H100)
     hbm_bw: float  # bytes/s per chip
     link_bw: float = 0.0  # bytes/s per link, each way (0 = single device)
     vmem_bytes: int = 0  # on-chip memory one block may use (shared memory)
+    op_overhead_s: float = 0.0
+    serial_instr_s: float = 0.0
+    scatter_elem_s: float = 0.0
+
+    def __post_init__(self):
+        for f in ("op_overhead_s", "serial_instr_s", "scatter_elem_s"):
+            if getattr(self, f):
+                raise ValueError(
+                    f"HardwareSpec.{f}={getattr(self, f)!r}: the port's "
+                    f"autotuner does not model small-problem overheads; "
+                    f"leave it 0.0")
 
     @property
     def balance(self) -> float:

@@ -88,7 +88,7 @@ def main(argv=None) -> None:
     r = args.rank
     t, _ = make_tensor(args.tensor, scale=args.scale, rank=r, seed=args.seed,
                        device=dev)
-    init = random_ktensor(t.shape, r, seed=args.seed, device=dev).normalize()
+    init = random_ktensor(args.seed, t.shape, r, device=dev).normalize()
     pol = PhiPolicy(strategy="cuda", block_nnz=256, block_rows=256)
 
     def cfg(**kw):

@@ -149,7 +149,7 @@ def padded_init(seed: int, true_shape, bucket: Bucket,
     """Random init drawn from ``seed`` on the *true* shape (the model
     ``cpapr_mu(seed=seed)`` starts from), zero-padded to the bucket."""
     return padded_init_from(
-        random_ktensor(tuple(true_shape), bucket.rank, seed=seed,
+        random_ktensor(seed, tuple(true_shape), bucket.rank,
                        device=device), bucket)
 
 

@@ -48,15 +48,16 @@ class Engine:
         return torch.multinomial(probs, 1, generator=gen)[:, 0]
 
     @torch.inference_mode()
-    def generate(self, batch: dict, seed: int = 0) -> torch.Tensor:
+    def generate(self, batch: dict, seed: int | None = None) -> torch.Tensor:
         """batch: a prompt batch (``Model.input_specs`` of kind
         ``prefill``) on the engine's device.  Returns the generated tokens
         (B, max_new_tokens), int64.  Temperature sampling draws from a
-        generator on the device seeded with ``seed``."""
+        generator on the device seeded with ``seed`` (None: 0, as the JAX
+        package's ``key=None`` is ``PRNGKey(0)``)."""
         check_on_device("Engine.generate batch", self.device,
                         *batch.values())
         gen = torch.Generator(device=self.device)
-        gen.manual_seed(seed)
+        gen.manual_seed(0 if seed is None else seed)
         prompt_len = batch["tokens"].shape[1]
         patches = batch.get("patches")
         extra = patches.shape[1] if patches is not None else 0

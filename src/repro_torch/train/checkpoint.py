@@ -144,7 +144,7 @@ def latest_step(ckpt_dir: str) -> int | None:
 
 
 def restore(ckpt_dir: str, tree_like, step: int | None = None,
-            device="cuda", shardings=None):
+            shardings=None, device="cuda"):
     """(tree, step): the checkpoint at ``step`` (default: the latest) on
     the structure of ``tree_like`` (tensors giving shapes and dtypes,
     e.g. meta tensors from ``abstract_params(state_specs(...))``), every
@@ -197,9 +197,9 @@ class Checkpointer:
         if not _sharded(tree) or dist.get_rank() == 0:
             self._gc()
 
-    def restore(self, tree_like, device="cuda", step=None, shardings=None):
-        return restore(self.dir, tree_like, step=step, device=device,
-                       shardings=shardings)
+    def restore(self, tree_like, shardings=None, step=None, device="cuda"):
+        return restore(self.dir, tree_like, step=step, shardings=shardings,
+                       device=device)
 
     def latest_step(self):
         return latest_step(self.dir)

@@ -47,7 +47,7 @@ class TrainLoopConfig:
 
 class TrainLoop:
     def __init__(self, train_step: Callable, make_batch: Callable,
-                 cfg: TrainLoopConfig, device="cuda", state_shardings=None):
+                 cfg: TrainLoopConfig, state_shardings=None, device="cuda"):
         self.train_step = train_step
         self.make_batch = make_batch
         self.cfg = cfg

@@ -385,7 +385,7 @@ def test_entry_points_default_to_cuda_and_raise(no_card, entry):
         "phi_mu_step": lambda: P_phi.phi_mu_step(
             x.long(), x, x[:, None], x[:, None], 3),
         "decompose": lambda: decompose("uber", scale=0.0),
-        "random_poisson_tensor": lambda: random_poisson_tensor((3, 3), 5),
+        "random_poisson_tensor": lambda: random_poisson_tensor(0, (3, 3), 5),
         "model_init": lambda: model.init(0),
         "make_batch": lambda: model.make_batch(
             0, ShapeConfig("p", 8, 1, "prefill")),

@@ -90,8 +90,8 @@ def fixture(kind: str):
     """(SparseTensor, KTensor) on the CPU, shaped as the conformance
     fixtures are."""
     if kind == "uniform":
-        return random_poisson_tensor((40, 30, 25), nnz=1500, rank=RANK,
-                                     seed=0, device="cpu")
+        return random_poisson_tensor(0, (40, 30, 25), nnz=1500, rank=RANK,
+                                     device="cpu")
     shape = (48, 20, 16)
     rng = np.random.RandomState(3 if kind == "hub" else 7)
     nnz = 1200
@@ -102,7 +102,7 @@ def fixture(kind: str):
         idx[:, 0] = idx[:, 0] % (shape[0] // 3)
     vals = rng.poisson(2.0, size=nnz).astype(np.float32) + 1.0
     t = sparse_tensor_from_numpy(shape, idx, vals, device="cpu")
-    return t, random_ktensor(shape, RANK, seed=11, device="cpu")
+    return t, random_ktensor(11, shape, RANK, device="cpu")
 
 
 def _inputs(kind, mode, dtype):
@@ -209,8 +209,8 @@ def _check_accum(card, lay, args, tol, what):
     """Both C entry points against the plain versions."""
     kw = dict(block_nnz=lay.block_nnz, block_rows=lay.block_rows, eps=1e-10)
     d = [a.to(card) for a in args]
-    want = phi_ref.phi_blocked_ref(*args, **kw)
-    mu_w, viol_w = phi_ref.phi_mu_blocked_ref(*args, **kw)
+    want = phi_ref.phi_blocked_arrays_ref(*args, **kw)
+    mu_w, viol_w = phi_ref.phi_mu_blocked_arrays_ref(*args, **kw)
     phi = torch.zeros(d[4].shape, dtype=torch.float32, device=card)
     phi_kernel.launch_phi(*d, phi, **kw)
     phi2 = torch.zeros_like(phi)
@@ -373,8 +373,9 @@ def _check_mttkrp(card, lay, args, tol, what):
     as _random_layout's (the Π rows serve as Khatri-Rao rows, B unused)."""
     grid_rb, vals, lrow, kr, _ = args
     kw = dict(block_nnz=lay.block_nnz, block_rows=lay.block_rows)
-    want = mttkrp_ref.mttkrp_blocked_ref(grid_rb, vals, lrow, kr,
-                                         n_rows_pad=lay.n_rows_pad, **kw)
+    want = mttkrp_ref.mttkrp_blocked_arrays_ref(grid_rb, vals, lrow, kr,
+                                                n_rows_pad=lay.n_rows_pad,
+                                                **kw)
     d = [t.to(card) for t in (grid_rb, vals, lrow, kr)]
     out = torch.zeros((lay.n_rows_pad, kr.shape[1]), dtype=torch.float32,
                       device=card)
@@ -458,6 +459,68 @@ def test_mttkrp_smem_bytes_equals_the_kernels(card, dtype):
         for rank in (1, 3, 16, 64, 200, 1024):
             assert mttkrp_kernel.library_smem_bytes(bn, br, rank, dtype) == \
                 mttkrp_ops.smem_bytes(bn, br, rank, dtype), (bn, br, rank)
+
+
+def _interpret_calls():
+    """{wrapper: (launch-count dict, count key, call(device, interpret))}
+    for the wrappers that take the reference's ``interpret=``."""
+    lay, vals_e, pi_e, b = _inputs("hub", 0, torch.float32)
+    dense = _dense_inputs("hub", 0, torch.float32)
+    rng = np.random.RandomState(3)
+    sb, sc = (torch.from_numpy(rng.standard_normal(128 * 256 * 2)
+                               .astype(np.float32)) for _ in range(2))
+
+    def on(dev, *ts):
+        return [t.to(dev) for t in ts]
+
+    return {
+        "phi_blocked": (ops.launch_counts, "phi_blocked", lambda d, i:
+                        ops.phi_blocked(lay, *on(d, vals_e, pi_e, b), 1e-10,
+                                        i)),
+        "phi_mu_blocked": (ops.launch_counts, "phi_mu_blocked", lambda d, i:
+                           ops.phi_mu_blocked(lay, *on(d, vals_e, pi_e, b),
+                                              1e-10, i)),
+        "mttkrp_blocked": (mttkrp_ops.launch_counts, "mttkrp_blocked",
+                           lambda d, i: mttkrp_ops.mttkrp_blocked(
+                               lay, *on(d, vals_e, pi_e), i)),
+        "mttkrp_dense": (dense_ops.launch_counts, "dense_mttkrp", lambda d, i:
+                         dense_ops.mttkrp_dense(*on(d, *dense[:3]),
+                                                interpret=i)),
+        "phi_dense": (dense_ops.launch_counts, "dense_phi", lambda d, i:
+                      dense_ops.phi_dense(*on(d, *dense), interpret=i)),
+        "phi_mu_dense": (dense_ops.launch_counts, "dense_phi_mu", lambda d, i:
+                         dense_ops.phi_mu_dense(*on(d, *dense), interpret=i)),
+        "stream_op": (stream_ops.launch_counts, "stream_triad", lambda d, i:
+                      stream_ops.stream_op("triad", *on(d, sb, sc), 256, 3.0,
+                                           i)),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wrapper", ("phi_blocked", "phi_mu_blocked",
+                                     "mttkrp_blocked", "mttkrp_dense",
+                                     "phi_dense", "phi_mu_dense",
+                                     "stream_op"))
+def test_interpret_on_the_card_launches_the_kernel(card, wrapper):
+    """On CUDA tensors ``interpret=None`` and ``interpret=False`` launch the
+    kernel once each, with the CPU's plain result; ``interpret=True``
+    (the plain version) raises before any launch."""
+    counts, key, call = _interpret_calls()[wrapper]
+    want = call("cpu", None)
+    want = want if isinstance(want, tuple) else (want,)
+    before = counts[key]
+    with pytest.raises(ValueError, match="interpret=True"):
+        call(card, True)
+    assert counts[key] == before, wrapper
+    for interpret in (None, False):
+        before = counts[key]
+        got = call(card, interpret)
+        torch.cuda.synchronize()
+        assert counts[key] == before + 1, (wrapper, interpret)
+        got = got if isinstance(got, tuple) else (got,)
+        for g, w in zip(got, want):
+            assert g.device.type == "cuda"
+            _close(g, w, TOL, f"{wrapper} interpret={interpret}")
 
 
 # --- the dense tier (dense.cu) ---------------------------------------------
@@ -797,8 +860,8 @@ def test_card_limit_refusal_demotes_cuda_to_blocked(card):
     solve finishes on the card."""
     from repro_torch.core.sparse_tensor import random_poisson_tensor as rpt
 
-    t, _ = rpt((12, 10, 8), nnz=200, rank=4, seed=5, device="cpu")
-    kt = random_ktensor(t.shape, 1025, seed=6, device="cpu")
+    t, _ = rpt(5, (12, 10, 8), nnz=200, rank=4, device="cpu")
+    kt = random_ktensor(6, t.shape, 1025, device="cpu")
     ops.reset_launch_counts()
     res = P_cpapr.cpapr_mu(t, 1025, init=kt, device=card,
                            config=P_cpapr.CPAPRConfig(
@@ -818,8 +881,8 @@ def test_card_limit_refusal_raises_without_the_ladder(card):
     from repro_torch.core.sparse_tensor import random_poisson_tensor as rpt
     from repro_torch.kernels._checks import CardLimitError
 
-    t, _ = rpt((12, 10, 8), nnz=200, rank=4, seed=5, device="cpu")
-    kt = random_ktensor(t.shape, 1025, seed=6, device="cpu")
+    t, _ = rpt(5, (12, 10, 8), nnz=200, rank=4, device="cpu")
+    kt = random_ktensor(6, t.shape, 1025, device="cpu")
     ops.reset_launch_counts()
     with pytest.raises(CardLimitError, match="rank 1025 outside 1..1024"):
         P_cpapr.cpapr_mu(t, 1025, init=kt, device=card,
@@ -974,7 +1037,7 @@ def test_batched_tier_cohort_independent_on_the_card(card):
     from repro_torch.serve.batch import batched_cpapr_mu
 
     rank = 3
-    ts = [random_poisson_tensor((17, 11, 9), nnz=500, rank=rank, seed=20 + j,
+    ts = [random_poisson_tensor(20 + j, (17, 11, 9), nnz=500, rank=rank,
                                 device="cpu")[0] for j in range(3)]
     cfg = P_cpapr.CPAPRConfig(rank=rank, max_outer=12, tol=1e-3,
                               track_loglik=False)
@@ -1005,8 +1068,8 @@ def test_service_warm_append_runs_the_phi_kernels_counted(card, tmp_path):
     t, kt = fixture("uniform")
     svc = DecompService(autotune_path=str(tmp_path / "at.json"),
                         max_outer=3, device=card)
-    extra, _ = random_poisson_tensor(t.shape, nnz=t.nnz // 10, rank=RANK,
-                                     seed=9, device="cpu", seed_ktensor=kt)
+    extra, _ = random_poisson_tensor(9, t.shape, nnz=t.nnz // 10, rank=RANK,
+                                     seed_ktensor=kt, device="cpu")
     for step in ("submit", "append"):
         ops.reset_launch_counts()
         got = (svc.submit("a", t, RANK, init=kt) if step == "submit"

@@ -313,7 +313,8 @@ def test_dense_strategy_needs_mode_data():
                             strategy="dense", factors=pkt.factors,
                             device="cpu")
     with pytest.raises(ValueError, match="shape"):
-        P_cpapr.resolve_mode_policies([], rank=RANK, strategy="dense")
+        P_cpapr.resolve_mode_policies([], None, None, rank=RANK,
+                                      strategy="dense", device="cpu")
 
 
 def test_make_near_dense():

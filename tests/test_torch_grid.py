@@ -454,9 +454,9 @@ def test_resolve_mode_policies_picks_the_references_grids():
             with warnings.catch_warnings(record=True) as pw:
                 warnings.simplefilter("always")
                 ps, pl, _, ploc = P_cpapr.resolve_mode_policies(
-                    pmvs, rank=RANK, strategy="grid", policy=pol,
-                    n_shards=n_shards, grid_shape=gs, shape=pt.shape,
-                    factors=pkt.factors, lam=pkt.lam, device="cpu")
+                    pmvs, pkt.factors, pkt.lam, rank=RANK, strategy="grid",
+                    policy=pol, n_shards=n_shards, grid_shape=gs,
+                    shape=pt.shape, device="cpu")
             assert ps == rs and ploc == rloc, (kind, n_shards, gs)
             assert len(pw) == len(rw)
             for a, b in zip(pl, rl):

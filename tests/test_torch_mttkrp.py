@@ -327,10 +327,10 @@ def test_blocked_plain_version_matches_unblocked(kind):
     pmv, lay = port["mv"], port["layout"]
     _, vals_e, kr_e = _kernel_inputs(kind)
     lt = lay.on("cpu")
-    pad = P_ref.mttkrp_blocked_ref(lt.grid_rb, vals_e, lt.local_rows, kr_e,
-                                   block_nnz=lay.block_nnz,
-                                   block_rows=lay.block_rows,
-                                   n_rows_pad=lay.n_rows_pad)
+    pad = P_ref.mttkrp_blocked_arrays_ref(lt.grid_rb, vals_e, lt.local_rows,
+                                          kr_e, block_nnz=lay.block_nnz,
+                                          block_rows=lay.block_rows,
+                                          n_rows_pad=lay.n_rows_pad)
     raw = P_ref.mttkrp_ref(pmv.rows, pmv.sorted_vals, port["kr"], pmv.n_rows)
     np.testing.assert_allclose(pad[:pmv.n_rows].numpy(), raw.numpy(), **TOL)
     assert not pad[pmv.n_rows:].any()

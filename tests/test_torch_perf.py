@@ -75,6 +75,20 @@ def test_h100_spec():
     assert P_roof.roofline_terms(67e12, 0.0, 0.0, 1).compute_s == 1.0
 
 
+@pytest.mark.parametrize("field", ("op_overhead_s", "serial_instr_s",
+                                   "scatter_elem_s"))
+def test_overhead_coefficients_are_refused_not_dropped(field):
+    """The reference's overhead slots bind, but the port's autotuner does
+    not model them: its host spec's non-zero coefficient raises, 0.0
+    builds."""
+    value = getattr(R_roof.HARDWARE["host_cpu"], field)
+    assert value > 0.0
+    with pytest.raises(ValueError, match=field):
+        P_roof.HardwareSpec("test", 1e9, 1e9, **{field: value})
+    assert getattr(P_roof.HardwareSpec("test", 1e9, 1e9, **{field: 0.0}),
+                   field) == 0.0
+
+
 @pytest.mark.parametrize("word_bytes", (4, 8))
 @pytest.mark.parametrize("variant", ("gpu", "cpu"))
 @pytest.mark.parametrize("rank", (1, 4, 16, 200, 10_000))

@@ -342,15 +342,16 @@ def test_blocked_plain_versions_match_unblocked(kind):
     lt = lay.on("cpu")
     b_pad = torch.cat([b, b.new_zeros(lay.n_rows_pad - b.shape[0], RANK)])
     kw = dict(block_nnz=lay.block_nnz, block_rows=lay.block_rows, eps=1e-10)
-    phi_pad = P_ref.phi_blocked_ref(lt.grid_rb, vals_e, lt.local_rows, pi_e,
-                                    b_pad, **kw)
+    phi_pad = P_ref.phi_blocked_arrays_ref(lt.grid_rb, vals_e, lt.local_rows,
+                                           pi_e, b_pad, **kw)
     phi = P_ref.phi_ref(pmv.rows, pmv.sorted_vals, port["pi"], port["b"],
                         pmv.n_rows, 1e-10)
     np.testing.assert_allclose(phi_pad[:pmv.n_rows].numpy(), phi.numpy(),
                                **TOL)
     assert torch.equal(phi_pad[pmv.n_rows:], torch.zeros_like(phi_pad[pmv.n_rows:]))
-    mu, viol = P_ref.phi_mu_blocked_ref(lt.grid_rb, vals_e, lt.local_rows,
-                                        pi_e, b_pad, **kw)
+    mu, viol = P_ref.phi_mu_blocked_arrays_ref(lt.grid_rb, vals_e,
+                                               lt.local_rows, pi_e, b_pad,
+                                               **kw)
     mu_u, viol_u = P_ref.phi_mu_ref(pmv.rows, pmv.sorted_vals, port["pi"],
                                     port["b"], pmv.n_rows, 1e-10)
     np.testing.assert_allclose(mu[:pmv.n_rows].numpy(), mu_u.numpy(), **TOL)

@@ -172,17 +172,17 @@ def test_random_poisson_tensor_samples_from_the_given_model():
     """With ``seed_ktensor`` the given model is sampled and returned; the
     model ``seed`` would draw gives the tensor the seed alone gives."""
     shape = (12, 10, 8)
-    t0, kt0 = P_st.random_poisson_tensor(shape, 400, rank=3, seed=5,
+    t0, kt0 = P_st.random_poisson_tensor(5, shape, 400, rank=3,
                                          device="cpu")
-    model = P_st.random_ktensor(shape, 3, seed=5, device="cpu")
-    t1, kt1 = P_st.random_poisson_tensor(shape, 400, rank=3, seed=5,
+    model = P_st.random_ktensor(5, shape, 3, device="cpu")
+    t1, kt1 = P_st.random_poisson_tensor(5, shape, 400, rank=3,
                                          device="cpu", seed_ktensor=model)
     np.testing.assert_array_equal(t1.indices.numpy(), t0.indices.numpy())
     np.testing.assert_array_equal(t1.values.numpy(), t0.values.numpy())
     for a, b in zip(kt1.factors, model.factors):
         assert torch.equal(a, b)
-    other = P_st.random_ktensor(shape, 3, seed=6, device="cpu")
-    t2, kt2 = P_st.random_poisson_tensor(shape, 400, rank=3, seed=5,
+    other = P_st.random_ktensor(6, shape, 3, device="cpu")
+    t2, kt2 = P_st.random_poisson_tensor(5, shape, 400, rank=3,
                                          device="cpu", seed_ktensor=other)
     assert torch.equal(kt2.lam, other.lam)
     assert not torch.equal(t2.indices[: t0.nnz // 2],
@@ -339,7 +339,7 @@ def test_padding_rejects_what_does_not_fit():
         P_batch.pad_tensor(t, P_batch.Bucket((8, 8, 8), 128, 2))
     with pytest.raises(ValueError, match="exceeds bucket nnz"):
         P_batch.pad_tensor(t, P_batch.Bucket((16, 8, 8), 64, 2))
-    kt = P_st.random_ktensor((10, 8, 6), 2, seed=0, device="cpu")
+    kt = P_st.random_ktensor(0, (10, 8, 6), 2, device="cpu")
     with pytest.raises(ValueError, match="does not fit bucket extent"):
         P_batch.padded_init_from(kt, P_batch.Bucket((8, 8, 8), 128, 2))
     with pytest.raises(ValueError, match="no tensors"):
