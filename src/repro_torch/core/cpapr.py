@@ -18,7 +18,9 @@ scooch runs the dense Φ kernel and every inner iteration the fused dense
 Φ -> MU kernels.  The inner loop reads the KKT violation on the host
 after every iteration to decide whether to go on; the iteration that
 finds viol <= tol is counted and leaves B unchanged, as in the JAX
-package's ``lax.while_loop``.
+package's ``lax.while_loop``.  While ``torch.profiler`` runs, flat host
+spans (:mod:`repro_torch.spans`) mark the preparation's phases, each
+step of the mode update, and every host read of a device value.
 
 Strategy + blocking policy is the paper's "parallel policy": implicit
 (``CPAPRConfig.strategy`` with default block sizes), explicit (a
@@ -71,6 +73,19 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..spans import (
+    PREP_LAYOUT,
+    PREP_SORT,
+    PREP_VALIDATE,
+    SWEEP_GUARD,
+    SWEEP_INPUTS,
+    SWEEP_LOGLIK,
+    SWEEP_RENORM,
+    SWEEP_SCOOCH,
+    SWEEP_STEP,
+    SWEEP_SYNC,
+    span,
+)
 from . import resilience
 from .convert import policy_from_dict
 from .dense import DenseModeData, build_dense_mode
@@ -260,6 +275,15 @@ def _as_tensor(x) -> torch.Tensor:
                         else torch.float64)
 
 
+def _tripped(ok) -> bool:
+    """Whether a mode's guard flag is set and false: one host read of the
+    device flag (a host sync) where there is a flag."""
+    if ok is None:
+        return False
+    with span(SWEEP_SYNC):
+        return not bool(ok)
+
+
 def sweep_step(carry, batch, guard: bool = False) -> SweepOutcome:
     """One CP-APR outer sweep as a pure ``(carry, batch) -> outcome`` step.
 
@@ -284,9 +308,7 @@ def sweep_step(carry, batch, guard: bool = False) -> SweepOutcome:
         a_new, lam_new, viol, n_inner, ok = mode_fn(factors, lam)
         viol = _as_tensor(viol)
         if guard and not math.isfinite(float(viol.max())):
-            bad = [m for m in range(n)
-                   if ok_flags[m] is not None and not bool(ok_flags[m])] \
-                or [n]
+            bad = [m for m in range(n) if _tripped(ok_flags[m])] or [n]
             break
         factors[n] = a_new
         lam = lam_new
@@ -294,8 +316,7 @@ def sweep_step(carry, batch, guard: bool = False) -> SweepOutcome:
         worst = viol if worst is None else torch.maximum(worst, viol)
         inner_total = inner_total + _as_tensor(n_inner)
     if guard and not bad:
-        bad = [n for n in range(n_modes)
-               if ok_flags[n] is not None and not bool(ok_flags[n])]
+        bad = [n for n in range(n_modes) if _tripped(ok_flags[n])]
     return SweepOutcome(factors=factors, lam=lam, worst=worst,
                         inner_total=inner_total, bad=bad)
 
@@ -783,29 +804,34 @@ def _stacked_mode_update(mv: ModeView, cfg: CPAPRConfig, strategy: str,
     n = mv.mode
 
     def update(factors, lam):
-        _, vals_e, pi_e = hoisted_mode_inputs(mv, factors, strategy, layout,
-                                              pig)
-        a_own = stack(factors[n])
-        lam_b = lam[None, None, :]
+        with span(SWEEP_INPUTS):
+            _, vals_e, pi_e = hoisted_mode_inputs(mv, factors, strategy,
+                                                  layout, pig)
 
         # --- scooch: lift inadmissible zeros (Alg. 1 line 3), local
-        phi0_own = phi_own(vals_e, pi_e, a_own * lam_b, factors)
-        s = torch.where((a_own < cfg.kappa_tol) & (phi0_own > 1.0),
-                        torch.full_like(a_own, cfg.kappa),
-                        torch.zeros_like(a_own))
-        b_own = (a_own + s) * lam_b
+        with span(SWEEP_SCOOCH):
+            a_own = stack(factors[n])
+            lam_b = lam[None, None, :]
+            phi0_own = phi_own(vals_e, pi_e, a_own * lam_b, factors)
+            s = torch.where((a_own < cfg.kappa_tol) & (phi0_own > 1.0),
+                            torch.full_like(a_own, cfg.kappa),
+                            torch.zeros_like(a_own))
+            b_own = (a_own + s) * lam_b
 
         # --- fused inner MU loop (Alg. 1 lines 5-8), stacked carry
         i, viol = 0, math.inf
         while i < cfg.max_inner and viol > cfg.tol:
-            b_own, viol_t = step_own(vals_e, pi_e, b_own, factors)
-            viol = float(viol_t)  # host sync: decides the next iteration
+            with span(SWEEP_STEP):
+                b_own, viol_t = step_own(vals_e, pi_e, b_own, factors)
+            with span(SWEEP_SYNC):  # decides the next iteration
+                viol = float(viol_t)
             i += 1
 
         # --- renormalize (Alg. 1 lines 9-10) on the reassembled factor
-        b = unstack(b_own)
-        lam_new = torch.sum(b, dim=0)
-        a_new = b / torch.clamp_min(lam_new, cfg.eps)
+        with span(SWEEP_RENORM):
+            b = unstack(b_own)
+            lam_new = torch.sum(b, dim=0)
+            a_new = b / torch.clamp_min(lam_new, cfg.eps)
         return a_new, lam_new, viol, i
 
     return update
@@ -891,26 +917,31 @@ def _make_mode_update(mv: ModeView, cfg: CPAPRConfig, strategy: str,
 
     def update(factors, lam):
         a_n = factors[n]
-        phi, step = _hoisted_steps(mv, cfg, strategy, layout, device, factors,
-                                   local_strategy, pig)
+        with span(SWEEP_INPUTS):
+            phi, step = _hoisted_steps(mv, cfg, strategy, layout, device,
+                                       factors, local_strategy, pig)
 
         # --- scooch: lift inadmissible zeros (Alg. 1 line 3) --------------
-        phi0 = phi(a_n * lam[None, :])
-        s = torch.where((a_n < cfg.kappa_tol) & (phi0 > 1.0),
-                        torch.full_like(a_n, cfg.kappa),
-                        torch.zeros_like(a_n))
-        b = (a_n + s) * lam[None, :]
+        with span(SWEEP_SCOOCH):
+            phi0 = phi(a_n * lam[None, :])
+            s = torch.where((a_n < cfg.kappa_tol) & (phi0 > 1.0),
+                            torch.full_like(a_n, cfg.kappa),
+                            torch.zeros_like(a_n))
+            b = (a_n + s) * lam[None, :]
 
         # --- fused inner MU loop (Alg. 1 lines 5-8) ------------------------
         i, viol = 0, math.inf
         while i < cfg.max_inner and viol > cfg.tol:
-            b, viol_t = step(b)
-            viol = float(viol_t)  # host sync: decides the next iteration
+            with span(SWEEP_STEP):
+                b, viol_t = step(b)
+            with span(SWEEP_SYNC):  # decides the next iteration
+                viol = float(viol_t)
             i += 1
 
         # --- renormalize (Alg. 1 lines 9-10) -------------------------------
-        lam_new = torch.sum(b, dim=0)
-        a_new = b / torch.clamp_min(lam_new, cfg.eps)
+        with span(SWEEP_RENORM):
+            lam_new = torch.sum(b, dim=0)
+            a_new = b / torch.clamp_min(lam_new, cfg.eps)
         return a_new, lam_new, viol, i
 
     return update
@@ -995,7 +1026,9 @@ def cpapr_mu(
     canonical_strategy(cfg.strategy)  # an unknown one raises before any work
     t = t.to(dev)
     if cfg.validate:
-        resilience.validate_decomposition_inputs(t, rank, where="cpapr_mu")
+        with span(PREP_VALIDATE):
+            resilience.validate_decomposition_inputs(t, rank,
+                                                     where="cpapr_mu")
     n_modes = t.ndim
     if init is None:
         init = random_ktensor(0 if seed is None else seed, t.shape, rank,
@@ -1004,9 +1037,10 @@ def cpapr_mu(
     factors = list(kt.factors)
     lam = kt.lam
 
-    mvs = list(mode_views) if mode_views is not None else [
-        sort_mode(t, n) for n in range(n_modes)
-    ]
+    with span(PREP_SORT):
+        mvs = list(mode_views) if mode_views is not None else [
+            sort_mode(t, n) for n in range(n_modes)
+        ]
     recoveries: list = []
     fp = _ckpt_fingerprint(t, cfg)
     resume_state = None
@@ -1019,11 +1053,13 @@ def cpapr_mu(
     inner_hist: list = []
     rebalances: list = []
     if resume_state is None:
-        strategies, layouts, policies, locals_ = resolve_mode_policies(
-            mvs, factors, lam, rank=rank, strategy=cfg.strategy,
-            policy=cfg.policy, shape=t.shape,
-            autotuner=cfg.autotuner, mesh=cfg.mesh, n_shards=cfg.n_shards,
-            combine=cfg.combine, grid_shape=cfg.grid_shape, device=dev)
+        with span(PREP_LAYOUT):
+            strategies, layouts, policies, locals_ = resolve_mode_policies(
+                mvs, factors, lam, rank=rank, strategy=cfg.strategy,
+                policy=cfg.policy, shape=t.shape,
+                autotuner=cfg.autotuner, mesh=cfg.mesh,
+                n_shards=cfg.n_shards, combine=cfg.combine,
+                grid_shape=cfg.grid_shape, device=dev)
         # per-mode effective config: the kappa ladder and the combine
         # demotion mutate these without touching the caller's cfg
         mode_cfgs = [cfg] * n_modes
@@ -1056,11 +1092,12 @@ def cpapr_mu(
         recoveries.append(RecoveryEvent(
             "resume", outer=start_outer, detail={"path": resume_from}))
 
-    pigs = [mode_pi_gather(mvs[n], layouts[n], cfg.shard_pi)
-            for n in range(n_modes)]
-    updates = [_make_mode_update(mvs[n], mode_cfgs[n], strategies[n],
-                                 layouts[n], dev, locals_[n], pigs[n])
-               for n in range(n_modes)]
+    with span(PREP_LAYOUT):
+        pigs = [mode_pi_gather(mvs[n], layouts[n], cfg.shard_pi)
+                for n in range(n_modes)]
+        updates = [_make_mode_update(mvs[n], mode_cfgs[n], strategies[n],
+                                     layouts[n], dev, locals_[n], pigs[n])
+                   for n in range(n_modes)]
 
     def _rebuild(n: int) -> None:
         """Re-derive mode ``n``'s gather maps and update from its current
@@ -1090,7 +1127,10 @@ def cpapr_mu(
         if resilience.have_post_update_hooks():
             a_new, lam_new = resilience.apply_post_update_hooks(
                 ctx, a_new, lam_new)
-        ok = resilience.guard_ok(a_new, lam_new) if cfg.guard else None
+        ok = None
+        if cfg.guard:
+            with span(SWEEP_GUARD):
+                ok = resilience.guard_ok(a_new, lam_new)
         return a_new, lam_new, viol, n_inner, ok
 
     def _demote_sharded(n: int, kind: str) -> "str | None":
@@ -1335,8 +1375,11 @@ def cpapr_mu(
             inner_total = int(out.inner_total)
             if not bad:
                 if cfg.track_loglik:
-                    ll = float(poisson_loglik(
-                        t, KTensor(lam, tuple(factors)), cfg.eps))
+                    with span(SWEEP_LOGLIK):
+                        ll_t = poisson_loglik(t, KTensor(lam, tuple(factors)),
+                                              cfg.eps)
+                    with span(SWEEP_SYNC):
+                        ll = float(ll_t)
                 if not cfg.guard or ll is None or math.isfinite(ll):
                     break
                 # whole-sweep guard: per-mode states passed but the joint

@@ -126,8 +126,9 @@ class RecoveryEvent:
 
 def guard_ok(a: torch.Tensor, lam: torch.Tensor, viol=None) -> torch.Tensor:
     """0-d bool tensor on the device: ``a`` and ``lam`` finite and
-    nonnegative, and ``viol`` (when given) finite.  The solver reads it
-    once at sweep end, not per mode."""
+    nonnegative, and ``viol`` (when given) finite.  The solver computes
+    one per mode update and reads them on the host at sweep end, one read
+    (a host sync) per mode: N per sweep."""
     ok = (torch.isfinite(a).all() & (a >= 0).all()
           & torch.isfinite(lam).all() & (lam >= 0).all())
     if viol is not None:

@@ -20,7 +20,11 @@ Then:
   union of all device intervals).
 
 The idle share is ``1 - busy / steady sweep seconds``: the part of a
-sweep the card spends waiting for the host.  ``--json`` also writes the
+sweep the card spends waiting for the host.  For ``cpapr_mu`` the same
+two profiles give the device time under each of the solve's spans
+(:mod:`repro_torch.spans`), with the kernels that make it up: the
+preparation's spans per solve, the sweep's per steady sweep (the
+difference).  ``cp_als`` records no spans.  ``--json`` also writes the
 numbers to a file.
 """
 from __future__ import annotations
@@ -36,8 +40,9 @@ from ..core.cpals import cp_als
 from ..core.cpapr import CPAPRConfig, cpapr_mu
 from ..data.tensors import TENSOR_NAMES, make_near_dense, make_tensor
 from ..device import resolve_device
+from ..spans import SPANS
 
-__all__ = ["busy_us", "main", "sweep_breakdown"]
+__all__ = ["busy_us", "main", "span_kernels_us", "sweep_breakdown"]
 
 
 def busy_us(intervals: list) -> float:
@@ -66,8 +71,28 @@ def _solver(solver: str, rank: int, seed: int, max_inner: int,
                            strategy=strategy))
 
 
+def span_kernels_us(events) -> dict:
+    """``{span: {kernel name: µs}}``: the device time of the kernels
+    launched under each of the solve's spans, from the profiler's event
+    tree (``prof.events()``; a kernel hangs under the operator that
+    launched it)."""
+    out: dict = {}
+    for e in events:
+        if e.name not in SPANS:
+            continue
+        by_kernel = out.setdefault(e.name, {})
+        stack = [e]
+        while stack:
+            ev = stack.pop()
+            for k in ev.kernels:
+                by_kernel[k.name] = by_kernel.get(k.name, 0.0) + k.duration
+            stack.extend(ev.cpu_children)
+    return out
+
+
 def _profiled(run, t, n: int, dev) -> tuple:
-    """(device busy µs, {kernel name: µs}) of one solve of ``n`` sweeps."""
+    """(device busy µs, {kernel name: µs}, :func:`span_kernels_us`) of one
+    solve of ``n`` sweeps."""
     acts = [torch.profiler.ProfilerActivity.CPU]
     if dev.type == "cuda":
         acts.append(torch.profiler.ProfilerActivity.CUDA)
@@ -80,8 +105,24 @@ def _profiled(run, t, n: int, dev) -> tuple:
     by_name: dict = {}
     for e in on_device:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-    spans = [(e.time_range.start, e.time_range.end) for e in on_device]
-    return busy_us(spans), by_name
+    intervals = [(e.time_range.start, e.time_range.end) for e in on_device]
+    return busy_us(intervals), by_name, span_kernels_us(prof.events())
+
+
+def _per_span(s1: dict, s_n: dict, sweeps: int) -> dict:
+    """``{span: {kernel name: s}}``: a preparation span's seconds per solve
+    (the longer solve's), a sweep span's per steady sweep (the longer
+    solve's less the 1-sweep solve's, over ``sweeps``)."""
+    out = {}
+    for span, kernels in s_n.items():
+        if span.startswith("cpapr.sweep."):
+            base = s1.get(span, {})
+            sec = {k: (us - base.get(k, 0.0)) / sweeps / 1e6
+                   for k, us in kernels.items()}
+        else:
+            sec = {k: us / 1e6 for k, us in kernels.items()}
+        out[span] = dict(sorted(sec.items(), key=lambda kv: -kv[1]))
+    return out
 
 
 def _host_s(run, t, n: int, dev) -> float:
@@ -104,10 +145,11 @@ def _breakdown(t, rank: int, seed: int, sweeps: int, max_inner: int,
         res = run(t, 1 + sweeps)
         steady_s = statistics.median(res.sweep_seconds[1:])
         out["inner_iters"] = res.inner_iters
-    busy1, k1 = _profiled(run, t, 1, dev)
-    busy_n, k_n = _profiled(run, t, 1 + sweeps, dev)
+    busy1, k1, s1 = _profiled(run, t, 1, dev)
+    busy_n, k_n, s_n = _profiled(run, t, 1 + sweeps, dev)
     per_sweep = {name: (us - k1.get(name, 0.0)) / sweeps / 1e6
                  for name, us in k_n.items()}
+    out["span_kernel_s"] = _per_span(s1, s_n, sweeps)
     busy_s = (busy_n - busy1) / sweeps / 1e6
     return {
         **out,
@@ -162,6 +204,11 @@ def main(argv=None) -> None:
           f"{out['device_idle_share']:.3f}")
     for name, s in list(out["kernel_s_per_sweep"].items())[:15]:
         print(f"  {s * 1e3:10.4f} ms/sweep  {name[:100]}")
+    for span, kernels in out["span_kernel_s"].items():
+        per = "sweep" if span.startswith("cpapr.sweep.") else "solve"
+        print(f"  {sum(kernels.values()) * 1e3:10.4f} ms/{per:5s}  {span}")
+        for name, s in list(kernels.items())[:4]:
+            print(f"  {s * 1e3:16.4f}  {name[:90]}")
     if args.json:
         with open(args.json, "w") as f:
             json.dump(out, f, indent=1)
