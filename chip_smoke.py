@@ -4568,7 +4568,7 @@ def main(argv=None) -> int:
                           device=dev).normalize()
     mvs = [sort_mode(t, n) for n in range(t.ndim)]
     pol = default_policy(RANK)
-    layouts = [build_blocked_layout(mv.rows.cpu().numpy(), mv.n_rows,
+    layouts = [build_blocked_layout(mv.rows, mv.n_rows,
                                     pol.block_nnz, pol.block_rows)
                for mv in mvs]
 

@@ -553,8 +553,8 @@ def _mode_row_width(shape, n: int) -> int:
 
 
 def _blocked_layout(mv: ModeView, pol: PhiPolicy) -> BlockedLayout:
-    return build_blocked_layout(mv.rows.detach().cpu().numpy(), mv.n_rows,
-                                pol.block_nnz, pol.block_rows)
+    return build_blocked_layout(mv.rows, mv.n_rows, pol.block_nnz,
+                                pol.block_rows)
 
 
 def resolve_mode_policies(

@@ -13,10 +13,13 @@ Row blocks with zero nonzeros still get one (all-padding) grid step, and
 inside each grid step the valid slots form a prefix (padding sits at the
 tail of its row block).  The CUDA kernels rely on both facts.
 
-``build_blocked_layout`` runs on host numpy once per mode, and its arrays
-are equal, element for element, to the JAX package's
-``repro.core.layout``; the device copies the kernels read are made once
-per layout and device (:meth:`BlockedLayout.on`).
+``build_blocked_layout`` runs once per mode on the device the sorted rows
+lie on (the card, on the solver's path: the layout never visits the
+host), in a few vectorised passes over the nonzeros, and its arrays are
+equal, element for element, to the JAX package's ``repro.core.layout``;
+copies to another device are made once per layout and device
+(:meth:`BlockedLayout.on`), and copies to host numpy are counted
+(:func:`host_copies`).
 
 The row-sharded (1-D) multi-device tier partitions a blocked layout into
 contiguous row-block shards (:class:`ShardedBlockedLayout`,
@@ -26,8 +29,9 @@ shard ownership of its window of the combine buffer
 rows they touch (:class:`ShardedPiGather`).  The N-D grid tier refines
 a row-shard split over an ``A x B`` device grid (:class:`GridLayout`,
 :func:`build_grid_layout`, :func:`choose_grid_shape`): each shard's
-nonzero stream is cut into ``B`` cells.  All host numpy, array-equal to
-the JAX package's.
+nonzero stream is cut into ``B`` cells.  These run on host numpy, from
+the blocked layout's arrays copied down, array-equal to the JAX
+package's.
 """
 from __future__ import annotations
 
@@ -53,6 +57,7 @@ __all__ = [
     "choose_grid_shape",
     "fill_stats",
     "grid_factor_pairs",
+    "host_copies",
     "mode_run_stats",
     "owner_partition",
     "pad_rows",
@@ -181,7 +186,37 @@ class LayoutTensors:
     grid_rb: torch.Tensor  # (n_grid,) int32
 
 
-@dataclasses.dataclass(frozen=True, eq=False)
+# host materialisations of a BlockedLayout's arrays (its numpy properties,
+# or its on("cpu") when it was built on the card), over the process
+_host_copies = 0
+
+
+def host_copies() -> int:
+    """How many times a :class:`BlockedLayout`'s arrays were brought to
+    host numpy (at most once per layout): a solve whose layouts never
+    leave the card leaves it unchanged."""
+    return _host_copies
+
+
+def _device_key(device) -> str:
+    """One cache key per device: ``"cuda"``, ``"cuda:0"`` and
+    ``torch.device("cuda", 0)`` name the same card."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return str(device)
+
+
+def _as_tensor(x) -> torch.Tensor:
+    """``x`` as a tensor: a tensor as it is, a numpy array (or sequence) as
+    a CPU tensor sharing its memory (a read-only array is copied first, as
+    torch cannot share one)."""
+    if isinstance(x, torch.Tensor):
+        return x.detach()
+    a = np.ascontiguousarray(x)
+    return torch.from_numpy(a if a.flags.writeable else a.copy())
+
+
 class BlockedLayout:
     """Static schedule for a blocked segmented reduction.
 
@@ -198,98 +233,148 @@ class BlockedLayout:
                    block (padding slots -> 0).
       grid_rb:     (n_grid,) int32 row block per grid step (non-decreasing).
       pad_fraction: padding overhead.
+
+    The four arrays are held as tensors on the device they were built on,
+    which :meth:`on` returns without a copy.  Their numpy properties copy
+    them down once, on first access (a view for a layout on the CPU), and
+    count it in :func:`host_copies`.
     """
 
-    block_nnz: int
-    block_rows: int
-    n_rows: int
-    n_rows_pad: int
-    n_grid: int
-    gather: np.ndarray
-    valid: np.ndarray
-    local_rows: np.ndarray
-    grid_rb: np.ndarray
-    pad_fraction: float
-    # device copies, made once per device by on(); the dict is mutated in
-    # place so the frozen layout can cache them
-    _device_copies: dict = dataclasses.field(default_factory=dict,
-                                             repr=False)
+    def __init__(self, block_nnz: int, block_rows: int, n_rows: int,
+                 n_rows_pad: int, n_grid: int, gather, valid, local_rows,
+                 grid_rb, pad_fraction: float):
+        self.block_nnz = block_nnz
+        self.block_rows = block_rows
+        self.n_rows = n_rows
+        self.n_rows_pad = n_rows_pad
+        self.n_grid = n_grid
+        self.pad_fraction = pad_fraction
+        built = LayoutTensors(
+            gather=_as_tensor(gather).to(torch.int64),
+            valid=_as_tensor(valid).to(torch.bool),
+            local_rows=_as_tensor(local_rows).to(torch.int32),
+            grid_rb=_as_tensor(grid_rb).to(torch.int32),
+        )
+        self._built = built
+        self._device_copies = {_device_key(built.gather.device): built}
+        self._host = None
 
     @property
     def n_row_blocks(self) -> int:
         return self.n_rows_pad // self.block_rows
 
+    def _host_arrays(self) -> tuple:
+        """(gather, valid, local_rows, grid_rb) as numpy, made once."""
+        global _host_copies
+        if self._host is None:
+            b = self._built
+            self._host = tuple(t.cpu().numpy() for t in
+                               (b.gather, b.valid, b.local_rows, b.grid_rb))
+            _host_copies += 1
+        return self._host
+
+    @property
+    def gather(self) -> np.ndarray:
+        return self._host_arrays()[0]
+
+    @property
+    def valid(self) -> np.ndarray:
+        return self._host_arrays()[1]
+
+    @property
+    def local_rows(self) -> np.ndarray:
+        return self._host_arrays()[2]
+
+    @property
+    def grid_rb(self) -> np.ndarray:
+        return self._host_arrays()[3]
+
     def on(self, device) -> LayoutTensors:
-        """The layout's index arrays as tensors on ``device`` (cached)."""
-        return _layout_tensors(self, device)
+        """The layout's index arrays as tensors on ``device``: the built
+        tensors on their own device, else a copy made once per device."""
+        key = _device_key(device)
+        lt = self._device_copies.get(key)
+        if lt is None:
+            if key == "cpu":
+                lt = LayoutTensors(*map(torch.from_numpy,
+                                        self._host_arrays()))
+            else:
+                b = self._built
+                lt = LayoutTensors(b.gather.to(key), b.valid.to(key),
+                                   b.local_rows.to(key), b.grid_rb.to(key))
+            self._device_copies[key] = lt
+        return lt
 
 
 def _layout_tensors(layout, device) -> LayoutTensors:
-    """``layout``'s gather/valid/local_rows/grid_rb arrays (flat, or
-    stacked per shard) as tensors on ``device``, made once per device."""
-    device = torch.device(device)
-    key = str(device)
+    """A sharded or grid layout's stacked gather/valid/local_rows/grid_rb
+    arrays as tensors on ``device``, made once per device."""
+    key = _device_key(device)
     lt = layout._device_copies.get(key)
     if lt is None:
         lt = LayoutTensors(
             gather=torch.as_tensor(layout.gather, dtype=torch.int64,
-                                   device=device),
-            valid=torch.as_tensor(layout.valid, device=device),
+                                   device=key),
+            valid=torch.as_tensor(layout.valid, device=key),
             local_rows=torch.as_tensor(layout.local_rows, dtype=torch.int32,
-                                       device=device),
+                                       device=key),
             grid_rb=torch.as_tensor(layout.grid_rb, dtype=torch.int32,
-                                    device=device),
+                                    device=key),
         )
         layout._device_copies[key] = lt
     return lt
 
 
 def build_blocked_layout(
-    rows_sorted: np.ndarray, n_rows: int, block_nnz: int, block_rows: int
+    rows_sorted, n_rows: int, block_nnz: int, block_rows: int
 ) -> BlockedLayout:
-    """Build the static schedule from sorted mode-n coordinates.
+    """Build the static schedule from sorted mode-n coordinates, on their
+    device.
 
     Args:
-      rows_sorted: (nnz,) ascending mode-n coordinates.
+      rows_sorted: (nnz,) ascending mode-n coordinates: a tensor on any
+        device, where the layout is then built and kept, or a numpy array,
+        taken as a CPU tensor that shares its memory.
       n_rows: I_n.
       block_nnz / block_rows: the parallel policy (paper's vector/team).
+
+    Each row block's nonzeros fill its slots from the block's padded
+    start, so nonzero ``i`` lands in slot ``i`` plus the padding of every
+    row block before its own: the slots rise with ``i``, and the three
+    scatters are in order.
     """
-    rows_sorted = np.asarray(rows_sorted)
-    if rows_sorted.size and not np.all(np.diff(rows_sorted) >= 0):
+    rows = _as_tensor(rows_sorted)
+    if bool((rows[1:] < rows[:-1]).any()):
         raise ValueError("rows_sorted must be ascending (use ModeView.rows)")
-    nnz = int(rows_sorted.shape[0])
+    dev = rows.device
+    rows = rows.to(torch.int64)
+    nnz = int(rows.shape[0])
     n_rows_pad = round_up(max(n_rows, block_rows), block_rows)
     n_rb = n_rows_pad // block_rows
 
-    rb_of_nnz = rows_sorted // block_rows
-    counts = np.bincount(rb_of_nnz, minlength=n_rb)
+    bounds = torch.arange(n_rb + 1, device=dev) * block_rows
+    counts = torch.diff(torch.searchsorted(rows, bounds))
+    # >= 1 grid step per row block
+    padded = ((counts + block_nnz - 1) // block_nnz * block_nnz).clamp_(
+        min=block_nnz)
+    steps = padded // block_nnz
+    n_grid = int(steps.sum())
+    pad = padded - counts
+    shift = pad.cumsum(0) - pad  # padding slots before each row block
 
-    gather_parts = []
-    valid_parts = []
-    lrow_parts = []
-    grid_rb_parts = []
-    start = 0
-    for rb in range(n_rb):
-        c = int(counts[rb])
-        c_pad = max(round_up(c, block_nnz), block_nnz)  # >=1 grid step per rb
-        g = np.zeros(c_pad, dtype=np.int64)
-        v = np.zeros(c_pad, dtype=bool)
-        g[:c] = np.arange(start, start + c)
-        v[:c] = True
-        lr = np.zeros(c_pad, dtype=np.int32)
-        lr[:c] = rows_sorted[start : start + c] - rb * block_rows
-        gather_parts.append(g)
-        valid_parts.append(v)
-        lrow_parts.append(lr)
-        grid_rb_parts.append(np.full(c_pad // block_nnz, rb, dtype=np.int32))
-        start += c
-
-    gather = np.concatenate(gather_parts) if gather_parts else np.zeros(0, np.int64)
-    valid = np.concatenate(valid_parts) if valid_parts else np.zeros(0, bool)
-    local_rows = np.concatenate(lrow_parts) if lrow_parts else np.zeros(0, np.int32)
-    grid_rb = np.concatenate(grid_rb_parts) if grid_rb_parts else np.zeros(0, np.int32)
-    n_grid = int(grid_rb.shape[0])
+    idx = torch.arange(nnz, device=dev)
+    slot = shift[torch.div(rows, block_rows, rounding_mode="floor")]
+    slot += idx
     total = n_grid * block_nnz
+    gather = torch.zeros(total, dtype=torch.int64, device=dev)
+    gather[slot] = idx
+    valid = torch.zeros(total, dtype=torch.bool, device=dev)
+    valid[slot] = True
+    local_rows = torch.zeros(total, dtype=torch.int32, device=dev)
+    local_rows[slot] = torch.remainder(rows, block_rows).to(torch.int32)
+    grid_rb = torch.repeat_interleave(
+        torch.arange(n_rb, dtype=torch.int32, device=dev), steps,
+        output_size=n_grid)
     pad_fraction = 0.0 if nnz == 0 else 1.0 - nnz / max(total, 1)
 
     return BlockedLayout(

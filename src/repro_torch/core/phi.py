@@ -310,8 +310,8 @@ def _resolve_layout(rows, n_rows, layout, vals, pi, vals_e, pi_e):
     pass through untouched so the solver's inner loop never re-gathers.
     """
     if layout is None:
-        rows_np = rows.detach().cpu().numpy()
         if pi.device.type == "cpu":
+            rows_np = rows.detach().cpu().numpy()
             pol = heuristic_policy(
                 int(rows_np.shape[0]), n_rows, int(pi.shape[1]),
                 platform="cpu", stats=mode_run_stats(rows_np, n_rows),
@@ -319,7 +319,7 @@ def _resolve_layout(rows, n_rows, layout, vals, pi, vals_e, pi_e):
         else:
             pol = default_policy(int(pi.shape[1]))
         layout = build_blocked_layout(
-            rows_np, n_rows, block_nnz=pol.block_nnz, block_rows=pol.block_rows
+            rows, n_rows, block_nnz=pol.block_nnz, block_rows=pol.block_rows
         )
         vals_e = pi_e = None  # any pre-expansion matched a different layout
     if vals_e is None or pi_e is None:
@@ -362,7 +362,7 @@ def _resolve_sharded(rows, n_rows, layout, mesh, vals, pi, vals_e, pi_e):
     if layout is None:
         n_shards = _default_shard_count(mesh, pi.device)
         base = build_blocked_layout(
-            rows.detach().cpu().numpy(), n_rows, block_nnz=256,
+            rows, n_rows, block_nnz=256,
             block_rows=_sharded_block_rows(n_rows, n_shards))
         if n_shards > base.n_row_blocks:
             warnings.warn(
@@ -405,7 +405,7 @@ def _resolve_grid(rows, n_rows, layout, mesh, vals, pi, vals_e, pi_e,
                 n_rows, _sharded_block_rows(n_rows, n_shards), rank,
                 n_shards)
         base = build_blocked_layout(
-            rows.detach().cpu().numpy(), n_rows, block_nnz=256,
+            rows, n_rows, block_nnz=256,
             block_rows=_sharded_block_rows(n_rows, shape[0]))
         try:
             layout = build_grid_layout(base, shape)

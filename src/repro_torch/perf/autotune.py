@@ -619,8 +619,7 @@ class Autotuner:
         layout = vals_e = pi_e = None
         slots = int(rows.shape[0])
         if pol.strategy in ("blocked", "cuda"):
-            layout = build_blocked_layout(rows.detach().cpu().numpy(),
-                                          n_rows, pol.block_nnz,
+            layout = build_blocked_layout(rows, n_rows, pol.block_nnz,
                                           pol.block_rows)
             vals_e, pi_e = expand_to_layout(layout, vals, pi)
             slots = layout.n_grid * layout.block_nnz

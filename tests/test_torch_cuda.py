@@ -47,7 +47,7 @@ from repro_torch.core import cpals as P_cpals
 from repro_torch.core import cpapr as P_cpapr
 from repro_torch.core.convert import sparse_tensor_from_numpy
 from repro_torch.core.dense import build_dense_mode
-from repro_torch.core.layout import build_blocked_layout, pad_rows
+from repro_torch.core.layout import build_blocked_layout, host_copies, pad_rows
 from repro_torch.core.phi import _dense_operands, expand_to_layout
 from repro_torch.core.pi import pi_rows
 from repro_torch.core.policy import PhiPolicy
@@ -172,6 +172,38 @@ def test_kernels_on_an_empty_mode(card):
     mu, viol = ops.phi_mu_blocked(lay, vals_e, pi_e, b)
     assert not phi.any() and not mu.any()
     assert float(viol) == pytest.approx(float(b.max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", FIXTURES)
+def test_layout_built_on_the_card(card, kind):
+    """A layout built from the card's rows equals the CPU build of the same
+    rows (which the CPU tests hold to the JAX package's), is cached under
+    every name of the card, and a ``cuda`` solve never copies one down."""
+    t, kt = fixture(kind)
+    for mode in MODES:
+        mv = sort_mode(t, mode)
+        for bn, br in ((BN, BR), (256, 256), (7, 3)):
+            want = build_blocked_layout(mv.rows, mv.n_rows, bn, br)
+            before = host_copies()
+            got = build_blocked_layout(mv.rows.to(card), mv.n_rows, bn, br)
+            lt = got.on("cuda")
+            assert got.on("cuda:0") is lt
+            assert got.on(torch.device("cuda", 0)) is lt
+            assert lt.gather.device.type == "cuda"
+            assert host_copies() == before
+            for f in ("n_rows_pad", "n_grid", "pad_fraction"):
+                assert getattr(got, f) == getattr(want, f), f
+            for f in ("gather", "valid", "local_rows", "grid_rb"):
+                x, y = getattr(lt, f), getattr(want.on("cpu"), f)
+                assert x.dtype == y.dtype, f
+                assert torch.equal(x.cpu(), y), f"{kind} mode {mode} {f}"
+    before = host_copies()
+    res = P_cpapr.cpapr_mu(t, RANK, init=kt, device=card,
+                           config=P_cpapr.CPAPRConfig(
+                               rank=RANK, strategy="cuda", max_outer=2))
+    assert res.n_outer == 2
+    assert host_copies() == before
 
 
 @pytest.mark.cuda

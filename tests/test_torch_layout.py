@@ -152,9 +152,76 @@ def test_empty_mode_layout_equal():
         R_layout.mode_run_stats(rows, 13).__dict__
 
 
+def _edge_rows(case):
+    """(rows, n_rows, block_nnz, block_rows) of one corner of the build."""
+    if case == "no_nonzeros":
+        return np.zeros(0, np.int64), 13, 8, 4
+    if case == "fewer_rows_than_a_block":
+        return np.array([0, 0, 2, 4]), 5, 4, 16
+    if case == "block_exactly_full":  # row block 1 holds block_nnz nonzeros
+        return np.array([0, 4, 4, 5, 5, 6, 7, 7, 7, 9]), 12, 8, 4
+    if case == "one_row_holds_all":
+        return np.full(37, 6, np.int64), 20, 8, 4
+    if case == "trailing_empty_blocks":
+        return np.array([0, 1, 1, 3, 5, 5, 6]), 40, 4, 4
+    raise ValueError(case)
+
+
+EDGE_CASES = ("no_nonzeros", "fewer_rows_than_a_block", "block_exactly_full",
+              "one_row_holds_all", "trailing_empty_blocks")
+
+
+@pytest.mark.parametrize("as_tensor", (False, True), ids=("numpy", "tensor"))
+@pytest.mark.parametrize("case", EDGE_CASES)
+def test_blocked_layout_edge_cases_equal(case, as_tensor):
+    rows, n_rows, bn, br = _edge_rows(case)
+    ref = R_layout.build_blocked_layout(rows, n_rows, bn, br)
+    port = P_layout.build_blocked_layout(
+        torch.from_numpy(rows) if as_tensor else rows, n_rows, bn, br)
+    _assert_layout_equal(ref, port)
+    lt = port.on("cpu")
+    assert (lt.gather.dtype, lt.valid.dtype, lt.local_rows.dtype,
+            lt.grid_rb.dtype) == (torch.int64, torch.bool, torch.int32,
+                                  torch.int32)
+
+
 def test_unsorted_rows_rejected():
-    with pytest.raises(ValueError, match="ascending"):
-        P_layout.build_blocked_layout(np.array([2, 1, 3]), 4, 64, 4)
+    for rows in (np.array([2, 1, 3]), torch.tensor([2, 1, 3])):
+        with pytest.raises(ValueError, match="ascending"):
+            P_layout.build_blocked_layout(rows, 4, 64, 4)
+
+
+def test_layout_stays_on_its_device_until_read():
+    """``on`` of the rows' own device hands back the built tensors, with
+    no host copy; the first numpy read makes one, cached after."""
+    _, pmv, _ = views("hub", 0)
+    lay = P_layout.build_blocked_layout(pmv.rows, pmv.n_rows, BN, BR)
+    before = P_layout.host_copies()
+    lt = lay.on(pmv.rows.device)
+    assert lay.on("cpu") is lt and lay.on(torch.device("cpu")) is lt
+    assert P_layout.host_copies() == before
+    gather = lay.gather
+    assert P_layout.host_copies() == before + 1
+    assert np.shares_memory(gather, lt.gather.numpy())
+    assert lay.gather is gather
+    np.testing.assert_array_equal(lay.valid, lt.valid.numpy())
+    assert P_layout.host_copies() == before + 1
+
+
+def test_blocked_solve_keeps_its_layouts_off_the_host():
+    """A blocked CP-APR solve reads its layouts only through ``on``, as
+    the ``cuda`` strategy does on the card."""
+    from repro_torch.core import cpapr as P_cpapr
+
+    t, _ = make_fixture("hub")
+    pt = sparse_tensor_from_numpy(t.shape, np.asarray(t.indices),
+                                  np.asarray(t.values), device="cpu")
+    before = P_layout.host_copies()
+    res = P_cpapr.cpapr_mu(pt, RANK, seed=0, device="cpu",
+                           config=P_cpapr.CPAPRConfig(
+                               rank=RANK, strategy="blocked", max_outer=2))
+    assert res.n_outer == 2
+    assert P_layout.host_copies() == before
 
 
 def test_layout_device_copies_cached():
