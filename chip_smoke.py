@@ -352,8 +352,9 @@ RANK, MAX_OUTER, MAX_INNER = 16, 5, 10  # the solve the smoke test drives
 ALS_ITERS = 10  # CP-ALS iterations of phases 5 and 6
 TIMED_ITERS = 100  # extra CP-ALS iterations of the seconds-per-iteration runs
 # CP-ALS fits, kernel path vs segment on the card.  A fit is
-# 1 - sqrt(|X|^2 - 2<X, M> + |M|^2) / |X| in f32: near 1 - 1.7e-4 on uber,
-# so its resolution is one f32 ulp of 1.0 (6e-8).  The kernel's per-call
+# 1 - sqrt(|X|^2 - 2<X, M> + |M|^2) / |X| in f32: near 1.7e-4 on uber
+# (the residual ratio near 0.99983), so its resolution is one f32 ulp of
+# 1.0 (6e-8), that of the ratio it is taken from.  The kernel's per-call
 # differences from reordered sums (at most KERNEL_RTOL, measured ~1e-5)
 # pass through 10 x ndim ridge solves of the (R, R) normal equations; 1e-6
 # (16 ulps) bounds that and is still far below the fit's own change over

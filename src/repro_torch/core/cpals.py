@@ -23,6 +23,13 @@ MTTKRP kernel B3 once per shard for a ``cuda`` policy), over a
 ``strategy="grid"`` runs each mode's MTTKRP over an ``A x B`` device grid
 chosen per mode by :func:`repro_torch.core.layout.choose_grid_shape` (B3
 once per cell), emulated on one device as in the JAX package.
+
+Host spans (:data:`repro_torch.spans.ALS_SPANS`, recorded only while
+``torch.profiler`` runs) mark the preparation's three phases and each
+step of an iteration; none is opened inside another.  Each
+``cpals.iter.sync`` event is one host read of a device value: every
+ridge solve (``torch.linalg.solve`` synchronises with the host for CUDA
+inputs, to check the factorisation) and the fit's ``float``.
 """
 from __future__ import annotations
 
@@ -31,6 +38,17 @@ from typing import Sequence
 import torch
 
 from ..device import resolve_device
+from ..spans import (
+    ALS_ITER_FIT,
+    ALS_ITER_INPUTS,
+    ALS_ITER_MTTKRP,
+    ALS_ITER_SOLVE,
+    ALS_ITER_SYNC,
+    ALS_PREP_LAYOUT,
+    ALS_PREP_SORT,
+    ALS_PREP_VALIDATE,
+    span,
+)
 from . import resilience
 from .cpapr import (
     effective_mode_combine,
@@ -98,35 +116,43 @@ def _make_als_mode_update(mv: ModeView, rank: int, strategy: str, layout,
                           mesh=None, pig=None, combine: str = "psum"):
     """Per-mode ALS update ``factors -> A_n'``: one Khatri-Rao gather and
     layout expansion (or, for ``dense``, one set of dense operands), the
-    MTTKRP, then the ridge-regularized Gram solve.  A sharded mode reduces
-    every shard (``local_strategy``) and meets in one ``combine``; with
-    ``pig`` the shards build their own Khatri-Rao rows."""
+    MTTKRP, then the ridge-regularized Gram solve, each step in its own
+    span.  A sharded mode reduces every shard (``local_strategy``) and
+    meets in one ``combine``; with ``pig`` the shards build their own
+    Khatri-Rao rows."""
     shard_kw = dict(mesh=mesh, local_strategy=local_strategy, pi_gather=pig,
                     combine=combine) \
         if strategy in ("sharded", "grid") else {}
     n = mv.mode
 
     def gram_solve(factors, m_n):
-        gram = torch.ones((rank, rank), dtype=m_n.dtype, device=m_n.device)
-        for m, f in enumerate(factors):
-            if m != n:
-                gram = gram * (f.T @ f)
-        eye = torch.eye(rank, dtype=gram.dtype, device=gram.device)
-        return torch.linalg.solve(gram + _RIDGE * eye, m_n.T).T
+        with span(ALS_ITER_SOLVE):
+            gram = torch.ones((rank, rank), dtype=m_n.dtype,
+                              device=m_n.device)
+            for m, f in enumerate(factors):
+                if m != n:
+                    gram = gram * (f.T @ f)
+            eye = torch.eye(rank, dtype=gram.dtype, device=gram.device)
+        with span(ALS_ITER_SYNC):  # the solve reads its pivots' status
+            return torch.linalg.solve(gram + _RIDGE * eye, m_n.T).T
 
     def update(factors):
         if strategy == "dense":  # the DenseModeData rides the layouts slot
-            m_n = krao_reduce_rows(None, None, None, mv.n_rows,
-                                   strategy="dense", device=device,
-                                   dense=layout, factors=factors)
+            with span(ALS_ITER_MTTKRP):
+                m_n = krao_reduce_rows(None, None, None, mv.n_rows,
+                                       strategy="dense", device=device,
+                                       dense=layout, factors=factors)
         else:
-            kr, vals_e, kr_e = hoisted_mode_inputs(mv, factors, strategy,
-                                                   layout, pig)
-            m_n = krao_reduce_rows(mv.rows, mv.sorted_vals, kr, mv.n_rows,
-                                   strategy=strategy, layout=layout,
-                                   vals_e=vals_e, kr_e=kr_e, device=device,
-                                   factors=factors if pig is not None
-                                   else None, **shard_kw)
+            with span(ALS_ITER_INPUTS):
+                kr, vals_e, kr_e = hoisted_mode_inputs(mv, factors, strategy,
+                                                       layout, pig)
+            with span(ALS_ITER_MTTKRP):
+                m_n = krao_reduce_rows(mv.rows, mv.sorted_vals, kr,
+                                       mv.n_rows, strategy=strategy,
+                                       layout=layout, vals_e=vals_e,
+                                       kr_e=kr_e, device=device,
+                                       factors=factors if pig is not None
+                                       else None, **shard_kw)
         return gram_solve(factors, m_n)
 
     return update
@@ -178,32 +204,35 @@ def cp_als(
     canonical_strategy(strategy)  # an unknown one raises before any work
     t = t.to(dev)
     if validate:
-        resilience.validate_decomposition_inputs(t, rank, where="cp_als")
+        with span(ALS_PREP_VALIDATE):
+            resilience.validate_decomposition_inputs(t, rank, where="cp_als")
     if init is None:
         init = random_ktensor(0 if seed is None else seed, t.shape, rank,
                               device=dev)
     init = init.to(dev)
     factors = [init.factors[0] * init.lam[None, :]] + list(init.factors[1:])
 
-    mvs = list(mode_views) if mode_views is not None else [
-        sort_mode(t, n) for n in range(t.ndim)
-    ]
-    ones = torch.ones((rank,), dtype=factors[0].dtype, device=dev)
-    strategies, layouts, _, locals_ = resolve_mode_policies(
-        mvs, factors, ones, rank=rank, strategy=strategy, policy=policy,
-        shape=t.shape, autotuner=autotuner, mesh=mesh, n_shards=n_shards,
-        combine=combine, device=dev)
-    pigs = [mode_pi_gather(mvs[n], layouts[n], shard_pi)
-            for n in range(t.ndim)]
-    updates = [
-        _make_als_mode_update(
-            mvs[n], rank, strategies[n], layouts[n], dev, locals_[n],
-            mesh if strategies[n] == "sharded" else None, pigs[n],
-            combine=effective_mode_combine(
-                combine, strategies[n], layouts[n], rank,
-                itemsize=factors[n].element_size()))
-        for n in range(t.ndim)
-    ]
+    with span(ALS_PREP_SORT):
+        mvs = list(mode_views) if mode_views is not None else [
+            sort_mode(t, n) for n in range(t.ndim)
+        ]
+    with span(ALS_PREP_LAYOUT):
+        ones = torch.ones((rank,), dtype=factors[0].dtype, device=dev)
+        strategies, layouts, _, locals_ = resolve_mode_policies(
+            mvs, factors, ones, rank=rank, strategy=strategy, policy=policy,
+            shape=t.shape, autotuner=autotuner, mesh=mesh, n_shards=n_shards,
+            combine=combine, device=dev)
+        pigs = [mode_pi_gather(mvs[n], layouts[n], shard_pi)
+                for n in range(t.ndim)]
+        updates = [
+            _make_als_mode_update(
+                mvs[n], rank, strategies[n], layouts[n], dev, locals_[n],
+                mesh if strategies[n] == "sharded" else None, pigs[n],
+                combine=effective_mode_combine(
+                    combine, strategies[n], layouts[n], rank,
+                    itemsize=factors[n].element_size()))
+            for n in range(t.ndim)
+        ]
 
     def _demote_mode(n: int, it: int, exc: BaseException) -> None:
         """One-rung degradation ladder: a classified runtime failure
@@ -244,7 +273,10 @@ def cp_als(
             except Exception as e:
                 _demote_mode(n, it, e)
                 factors[n] = updates[n](factors)
-        fits.append(float(fit_score(t, factors, norm_x)))
+        with span(ALS_ITER_FIT):
+            fit = fit_score(t, factors, norm_x)
+        with span(ALS_ITER_SYNC):
+            fits.append(float(fit))
     lam = torch.ones((rank,), dtype=factors[0].dtype, device=dev)
     return KTensor(lam=lam, factors=tuple(factors)).normalize(), fits
 

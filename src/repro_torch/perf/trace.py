@@ -20,12 +20,12 @@ Then:
   union of all device intervals).
 
 The idle share is ``1 - busy / steady sweep seconds``: the part of a
-sweep the card spends waiting for the host.  For ``cpapr_mu`` the same
-two profiles give the device time under each of the solve's spans
-(:mod:`repro_torch.spans`), with the kernels that make it up: the
-preparation's spans per solve, the sweep's per steady sweep (the
-difference).  ``cp_als`` records no spans.  ``--json`` also writes the
-numbers to a file.
+sweep the card spends waiting for the host.  The same two profiles give
+the device time under each of the solve's spans (:mod:`repro_torch.spans`:
+``SPANS`` for ``cpapr_mu``, ``ALS_SPANS`` for ``cp_als``), with the
+kernels that make it up: the preparation's spans per solve, the sweep's
+(an iteration's) per steady sweep (the difference).  ``--json`` also
+writes the numbers to a file.
 """
 from __future__ import annotations
 
@@ -40,9 +40,13 @@ from ..core.cpals import cp_als
 from ..core.cpapr import CPAPRConfig, cpapr_mu
 from ..data.tensors import TENSOR_NAMES, make_near_dense, make_tensor
 from ..device import resolve_device
-from ..spans import SPANS
+from ..spans import ALS_SPANS, SPANS
 
 __all__ = ["busy_us", "main", "span_kernels_us", "sweep_breakdown"]
+
+_NAMES = frozenset(SPANS + ALS_SPANS)
+#: prefixes of the spans that recur every sweep (or iteration)
+_PER_SWEEP = ("cpapr.sweep.", "cpals.iter.")
 
 
 def busy_us(intervals: list) -> float:
@@ -78,7 +82,7 @@ def span_kernels_us(events) -> dict:
     launched it)."""
     out: dict = {}
     for e in events:
-        if e.name not in SPANS:
+        if e.name not in _NAMES:
             continue
         by_kernel = out.setdefault(e.name, {})
         stack = [e]
@@ -115,7 +119,7 @@ def _per_span(s1: dict, s_n: dict, sweeps: int) -> dict:
     solve's less the 1-sweep solve's, over ``sweeps``)."""
     out = {}
     for span, kernels in s_n.items():
-        if span.startswith("cpapr.sweep."):
+        if span.startswith(_PER_SWEEP):
             base = s1.get(span, {})
             sec = {k: (us - base.get(k, 0.0)) / sweeps / 1e6
                    for k, us in kernels.items()}
@@ -205,7 +209,7 @@ def main(argv=None) -> None:
     for name, s in list(out["kernel_s_per_sweep"].items())[:15]:
         print(f"  {s * 1e3:10.4f} ms/sweep  {name[:100]}")
     for span, kernels in out["span_kernel_s"].items():
-        per = "sweep" if span.startswith("cpapr.sweep.") else "solve"
+        per = "sweep" if span.startswith(_PER_SWEEP) else "solve"
         print(f"  {sum(kernels.values()) * 1e3:10.4f} ms/{per:5s}  {span}")
         for name, s in list(kernels.items())[:4]:
             print(f"  {s * 1e3:16.4f}  {name[:90]}")
