@@ -45,6 +45,7 @@ from __future__ import annotations
 import dataclasses
 import io
 import json
+import math
 import os
 import tempfile
 import time
@@ -69,6 +70,7 @@ __all__ = [
     "classify_failure",
     "config_fingerprint",
     "guard_ok",
+    "host_copies",
     "load_checkpoint",
     "quarantine_checkpoint",
     "save_checkpoint",
@@ -354,11 +356,30 @@ def quarantine_checkpoint(path: str) -> str:
 # ---------------------------------------------------------------------------
 
 
+# torch tensors' arrays copied to host numpy by the input checks, over the
+# process
+_host_copies = 0
+
+
+def host_copies() -> int:
+    """How many times the input checks copied a torch tensor's array to
+    host numpy: :func:`validate_append_batch` does, twice a call;
+    :func:`validate_decomposition_inputs` checks a tensor on its own
+    device, so a solve leaves it unchanged."""
+    return _host_copies
+
+
+def _numpy(x: torch.Tensor) -> np.ndarray:
+    x = x.detach().cpu()
+    # numpy has no bf16: the checks read it exactly as f32
+    return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
+
+
 def _host(x) -> np.ndarray:
+    global _host_copies
     if isinstance(x, torch.Tensor):
-        x = x.detach().cpu()
-        # numpy has no bf16: the checks read it exactly as f32
-        return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
+        _host_copies += 1
+        return _numpy(x)
     return np.asarray(x)
 
 
@@ -369,25 +390,72 @@ def validate_decomposition_inputs(t, rank: int, where: str = "cpapr_mu",
 
     Checks: ``rank`` positive; indices shaped (nnz, ndim) and in-range
     per mode; values finite; values nonnegative (Poisson count data) when
-    ``nonneg``.  One host pass over the nonzeros, once per solve.
+    ``nonneg``.  Torch tensors are checked on their own device, by two
+    reductions read on the host once per solve; numpy arrays on the host.
     """
     if not isinstance(rank, (int, np.integer)) or rank <= 0:
         raise ValueError(f"{where}: rank must be a positive integer, "
                          f"got {rank!r}")
-    idx = _host(t.indices)
-    vals = _host(t.values)
+    idx, vals = t.indices, t.values
+    tensors = isinstance(idx, torch.Tensor) and isinstance(vals, torch.Tensor)
+    if not tensors:
+        idx, vals = _host(idx), _host(vals)
     ndim = len(t.shape)
     if idx.ndim != 2 or idx.shape[1] != ndim:
         raise ValueError(
             f"{where}: indices must have shape (nnz, {ndim}) for a "
-            f"{ndim}-mode tensor, got {idx.shape}"
+            f"{ndim}-mode tensor, got {tuple(idx.shape)}"
         )
-    if vals.shape != (idx.shape[0],):
+    if tuple(vals.shape) != (idx.shape[0],):
         raise ValueError(
             f"{where}: values must have shape ({idx.shape[0]},) to match "
-            f"indices, got {vals.shape}"
+            f"indices, got {tuple(vals.shape)}"
         )
-    _check_indices_values(where, t.shape, idx, vals, nonneg)
+    check = _check_on_device if tensors else _check_indices_values
+    check(where, t.shape, idx, vals, nonneg)
+
+
+def _check_on_device(where, shape, idx: torch.Tensor, vals: torch.Tensor,
+                     nonneg) -> None:
+    """:func:`_check_indices_values` on the tensors' device: each mode's
+    min and max and the values' min and max (NaN propagates, so non-finite
+    values show at an end), read on the host as one small tensor.  Only a
+    failing check looks for its first offender, with the same message."""
+    if idx.shape[0] == 0:
+        return
+    lo, hi = torch.aminmax(idx, dim=0)
+    # float64 orders int64 indices against dims below 2**53 exactly
+    ends = torch.cat([lo.double(), hi.double(),
+                      torch.stack(torch.aminmax(vals)).double()]).tolist()
+    n_modes = len(shape)
+    for n, dim in enumerate(shape):
+        if ends[n] < 0 or ends[n_modes + n] >= dim:
+            col = idx[:, n]
+            j = _first((col < 0) | (col >= dim))
+            raise ValueError(
+                f"{where}: mode {n} has out-of-range index {int(col[j])} at "
+                f"nonzero {j} (valid range [0, {int(dim)}))"
+            )
+    vlo, vhi = ends[-2:]
+    if not (math.isfinite(vlo) and math.isfinite(vhi)):
+        j = _first(~torch.isfinite(vals))
+        raise ValueError(
+            f"{where}: non-finite nonzero value {_numpy(vals[j])[()]!r} at "
+            f"position {j}"
+        )
+    if nonneg and vlo < 0:
+        j = _first(vals < 0)
+        raise ValueError(
+            f"{where}: negative nonzero value {_numpy(vals[j])[()]!r} at "
+            f"position {j}; the solvers assume nonnegative (Poisson count) "
+            f"data"
+        )
+
+
+def _first(mask: torch.Tensor) -> int:
+    """The position of the first True of a mask that has one (argmax
+    returns the first of equal maxima; it takes no bool)."""
+    return int(mask.to(torch.uint8).argmax())
 
 
 def _check_indices_values(where, shape, idx, vals, nonneg) -> None:

@@ -39,7 +39,9 @@ from repro_torch.core.convert import (
     sparse_tensor_from_numpy,
 )
 from repro_torch.core.policy import PhiPolicy as PPolicy
+from repro_torch.core.sparse_tensor import SparseTensor
 
+import invalid_inputs
 from test_conformance import BN, BR, FIXTURES, RANK, TOL, make_fixture
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -267,21 +269,16 @@ def test_checkpoint_resume_and_auto_run(tmp_path, case):
         assert [e.kind for e in res2.recoveries] == ["resume"]
 
 
-@pytest.mark.parametrize("bad", ("index", "negative", "nan", "rank"))
+@pytest.mark.parametrize("bad", invalid_inputs.CASES)
 def test_invalid_inputs_raise_like_reference(bad):
     t, _ = make_fixture("uniform")
-    idx = np.array(t.indices)
-    vals = np.array(t.values)
-    rank = RANK
-    if bad == "index":
-        idx[3, 1] = t.shape[1]
-    elif bad == "negative":
-        vals[5] = -1.0
-    elif bad == "nan":
-        vals[2] = np.nan
-    else:
-        rank = 0
+    idx, vals, rank, bf16 = invalid_inputs.corrupt(
+        bad, t.shape, t.indices, t.values, RANK)
     pt = sparse_tensor_from_numpy(t.shape, idx, vals, "cpu")
+    if bf16:
+        # the reference is handed the values the port holds, widened to f32
+        pt = SparseTensor(pt.shape, pt.indices, pt.values.bfloat16())
+        vals = pt.values.float().numpy()
     with pytest.raises(ValueError) as got:
         P_res.validate_decomposition_inputs(pt, rank)
 
@@ -290,6 +287,16 @@ def test_invalid_inputs_raise_like_reference(bad):
     with pytest.raises(ValueError) as want:
         R_res.validate_decomposition_inputs(_T, rank)
     assert str(got.value) == str(want.value)
+
+
+def test_empty_tensor_passes_like_reference():
+    """A tensor with no nonzeros passes both packages' checks."""
+    class _T:
+        shape = (4, 3, 2)
+        indices, values = np.zeros((0, 3), np.int64), np.zeros(0, np.float32)
+    R_res.validate_decomposition_inputs(_T, RANK)
+    P_res.validate_decomposition_inputs(
+        sparse_tensor_from_numpy(_T.shape, _T.indices, _T.values, "cpu"), RANK)
 
 
 @pytest.mark.parametrize("case", ("ok", "nan", "negative", "inf_lam"))

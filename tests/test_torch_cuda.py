@@ -5,7 +5,9 @@ and the dense tier's Φ, fused step and MTTKRP (``dense.cu``), each in f32
 and bf16, then the solves that run them (CP-APR ``cuda`` and ``dense``,
 CP-ALS ``cuda`` and ``dense``) with their launch counts, against the
 ``segment`` solves on the CPU.  The STREAM kernel (``stream.cu``) is held
-bitwise to its plain version on the card.  The row-sharded and N-D grid
+bitwise to its plain version on the card.  The solvers' input check runs
+on the card: each invalid input raises the text the same tensor raises
+on the CPU, and a ``cuda`` solve copies none of its tensor to the host.  The row-sharded and N-D grid
 tiers run B2/B3 once per shard and once per grid cell, counted, against
 their plain blocked schedules; on a one-rank NCCL group their collectives
 are recorded (``perf.comm.record_collectives``) and held to the
@@ -45,6 +47,7 @@ import torch
 
 from repro_torch.core import cpals as P_cpals
 from repro_torch.core import cpapr as P_cpapr
+from repro_torch.core import resilience
 from repro_torch.core.convert import sparse_tensor_from_numpy
 from repro_torch.core.dense import build_dense_mode
 from repro_torch.core.layout import build_blocked_layout, host_copies, pad_rows
@@ -52,6 +55,7 @@ from repro_torch.core.phi import _dense_operands, expand_to_layout
 from repro_torch.core.pi import pi_rows
 from repro_torch.core.policy import PhiPolicy
 from repro_torch.core.sparse_tensor import (
+    SparseTensor,
     random_ktensor,
     random_poisson_tensor,
     sort_mode,
@@ -68,6 +72,8 @@ from repro_torch.kernels.phi import ref as phi_ref
 from repro_torch.kernels.stream import ops as stream_ops
 from repro_torch.kernels.stream.ref import stream_ref
 from repro_torch.perf import roofline
+
+import invalid_inputs
 
 RANK = 4
 BN, BR = 64, 4
@@ -204,6 +210,60 @@ def test_layout_built_on_the_card(card, kind):
                                rank=RANK, strategy="cuda", max_outer=2))
     assert res.n_outer == 2
     assert host_copies() == before
+
+
+def _check_outcome(t, rank):
+    """The input check's message on ``t``, or None when it passes."""
+    try:
+        resilience.validate_decomposition_inputs(t, rank)
+    except ValueError as e:
+        return str(e)
+    return None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", invalid_inputs.CASES)
+def test_invalid_inputs_raise_on_the_card_as_on_the_cpu(card, bad):
+    """The input check of a card tensor raises the text the same tensor
+    raises on the CPU (which the CPU tests hold to the JAX package's),
+    without copying its arrays to host numpy."""
+    t, _ = fixture("uniform")
+    idx, vals, rank, bf16 = invalid_inputs.corrupt(
+        bad, t.shape, t.indices.numpy(), t.values.numpy(), RANK)
+    cpu = sparse_tensor_from_numpy(t.shape, idx, vals, device="cpu")
+    if bf16:
+        cpu = SparseTensor(cpu.shape, cpu.indices, cpu.values.bfloat16())
+    want = _check_outcome(cpu, rank)
+    assert want is not None
+    before = resilience.host_copies()
+    assert _check_outcome(cpu.to(card), rank) == want
+    assert resilience.host_copies() == before
+
+
+@pytest.mark.cuda
+def test_empty_tensor_passes_on_the_card(card):
+    t = SparseTensor((4, 3, 2), torch.zeros((0, 3), dtype=torch.int64,
+                                            device=card),
+                     torch.zeros(0, device=card))
+    assert _check_outcome(t, RANK) is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ("cpapr_mu", "cp_als"))
+def test_solves_check_their_inputs_on_the_card(card, solver):
+    """A ``cuda`` solve of either solver validates its inputs on the card:
+    no array of the tensor is copied to host numpy."""
+    t, kt = fixture("uniform")
+    before = resilience.host_copies()
+    if solver == "cpapr_mu":
+        res = P_cpapr.cpapr_mu(t, RANK, init=kt, device=card,
+                               config=P_cpapr.CPAPRConfig(
+                                   rank=RANK, strategy="cuda", max_outer=2))
+        assert res.n_outer == 2
+    else:
+        P_cpals.cp_als(t, RANK, n_iters=2, init=kt, strategy="cuda",
+                       device=card)
+    assert resilience.host_copies() == before
 
 
 @pytest.mark.cuda

@@ -25,6 +25,7 @@ from repro.core import resilience as R_res
 from repro.testing import faults as R_faults
 
 from repro_torch.core import resilience
+from repro_torch.core.convert import sparse_tensor_from_numpy
 from repro_torch.core.policy import PhiPolicy, grid_search
 from repro_torch.kernels import _build
 from repro_torch.kernels._checks import SMEM_LIMIT, CardLimitError, check_card_limits
@@ -399,6 +400,19 @@ def test_validate_append_batch_like_reference(case):
     want = outcome(R_res.validate_append_batch, idx, vals)
     assert got == want
     assert (got is None) == (case == "ok")
+
+
+def test_input_checks_count_host_copies():
+    """The solvers' check reads a torch tensor on its own device, with no
+    copy of its arrays to host numpy; the append batch's, which checks
+    dtypes too, copies both arrays."""
+    t = sparse_tensor_from_numpy(SHAPE, GOOD_IDX, GOOD_VALS, "cpu")
+    before = resilience.host_copies()
+    resilience.validate_decomposition_inputs(t, 2)
+    assert resilience.host_copies() == before
+    resilience.validate_append_batch(SHAPE, torch.as_tensor(GOOD_IDX),
+                                     torch.as_tensor(GOOD_VALS))
+    assert resilience.host_copies() == before + 2
 
 
 # ---------------------------------------------------------------------------
