@@ -3,7 +3,8 @@
 MTTKRP for mode n:  M[i, :] = sum_{j: idx[j,n]=i} x_j * KRrow_j
 where KRrow_j = prod_{m != n} A^(m)[idx[j, m], :] — the same gathered
 Khatri-Rao rows as Π^(n), so the Φ reduction machinery is reused through
-:func:`repro_torch.core.phi.krao_reduce_rows`: ``scatter``, ``segment``,
+:func:`repro_torch.core.phi.krao_reduce_rows` and the ``reduce`` of each
+mode's :func:`repro_torch.core.phi.bind_mode`: ``scatter``, ``segment``,
 ``blocked``, ``cuda`` (the MTTKRP kernel; ``"pallas"`` is an alias) and
 ``dense`` (the dense MTTKRP kernel) apply to MTTKRP and CP-ALS unchanged.
 
@@ -33,6 +34,7 @@ inputs, to check the factorisation) and the fit's ``float``.
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import Sequence
 
 import torch
@@ -50,14 +52,9 @@ from ..spans import (
     span,
 )
 from . import resilience
-from .cpapr import (
-    effective_mode_combine,
-    hoisted_mode_inputs,
-    mode_pi_gather,
-    resolve_mode_policies,
-)
+from .cpapr import mode_pi_gather, resolve_mode_policies
 from .layout import GridLayout, ShardedBlockedLayout
-from .phi import canonical_strategy, krao_reduce_rows
+from .phi import bind_mode, canonical_strategy, krao_reduce_rows
 from .pi import pi_rows
 from .sparse_tensor import KTensor, ModeView, SparseTensor, random_ktensor, sort_mode
 
@@ -114,16 +111,18 @@ def mttkrp_mode(
 def _make_als_mode_update(mv: ModeView, rank: int, strategy: str, layout,
                           device: torch.device, local_strategy: str = "blocked",
                           mesh=None, pig=None, combine: str = "psum"):
-    """Per-mode ALS update ``factors -> A_n'``: one Khatri-Rao gather and
-    layout expansion (or, for ``dense``, one set of dense operands), the
-    MTTKRP, then the ridge-regularized Gram solve, each step in its own
-    span.  A sharded mode reduces every shard (``local_strategy``) and
-    meets in one ``combine``; with ``pig`` the shards build their own
-    Khatri-Rao rows."""
-    shard_kw = dict(mesh=mesh, local_strategy=local_strategy, pi_gather=pig,
-                    combine=combine) \
-        if strategy in ("sharded", "grid") else {}
+    """Per-mode ALS update ``factors -> A_n'``: the mode's hoisted inputs
+    (one Khatri-Rao gather and layout expansion, or the dense operands),
+    the MTTKRP, then the ridge-regularized Gram solve, each step in its
+    own span.  The mode's :class:`ModeOps` are bound on its first update,
+    as ``cpapr_mu`` binds them, so a check the binding fails fails the
+    update."""
     n = mv.mode
+    bind = partial(bind_mode, strategy, layout, mv.rows, mv.sorted_vals,
+                   mv.n_rows, idx=mv.sorted_idx, mode=n, mesh=mesh,
+                   local_strategy=local_strategy, pi_gather=pig,
+                   combine=combine, rank=rank, device=device)
+    ops = None
 
     def gram_solve(factors, m_n):
         with span(ALS_ITER_SOLVE):
@@ -137,22 +136,12 @@ def _make_als_mode_update(mv: ModeView, rank: int, strategy: str, layout,
             return torch.linalg.solve(gram + _RIDGE * eye, m_n.T).T
 
     def update(factors):
-        if strategy == "dense":  # the DenseModeData rides the layouts slot
-            with span(ALS_ITER_MTTKRP):
-                m_n = krao_reduce_rows(None, None, None, mv.n_rows,
-                                       strategy="dense", device=device,
-                                       dense=layout, factors=factors)
-        else:
-            with span(ALS_ITER_INPUTS):
-                kr, vals_e, kr_e = hoisted_mode_inputs(mv, factors, strategy,
-                                                       layout, pig)
-            with span(ALS_ITER_MTTKRP):
-                m_n = krao_reduce_rows(mv.rows, mv.sorted_vals, kr,
-                                       mv.n_rows, strategy=strategy,
-                                       layout=layout, vals_e=vals_e,
-                                       kr_e=kr_e, device=device,
-                                       factors=factors if pig is not None
-                                       else None, **shard_kw)
+        nonlocal ops
+        with span(ALS_ITER_INPUTS):
+            ops = ops or bind()
+            operands = ops.inputs(factors)
+        with span(ALS_ITER_MTTKRP):
+            m_n = ops.reduce(operands)
         return gram_solve(factors, m_n)
 
     return update
@@ -228,9 +217,7 @@ def cp_als(
             _make_als_mode_update(
                 mvs[n], rank, strategies[n], layouts[n], dev, locals_[n],
                 mesh if strategies[n] == "sharded" else None, pigs[n],
-                combine=effective_mode_combine(
-                    combine, strategies[n], layouts[n], rank,
-                    itemsize=factors[n].element_size()))
+                combine)
             for n in range(t.ndim)
         ]
 

@@ -9,9 +9,11 @@
           B <- B * Φ
         lam <- e^T B;  A^(n) <- B Lambda^-1
 
-Each inner iteration is the fused :func:`repro_torch.core.phi.phi_mu_step`
-(for ``cuda``, the fused Φ -> MU kernels).  The Π gather and its layout
-expansion are hoisted out of the inner loop: once per mode update.  With
+Each mode's operators are bound once (:func:`repro_torch.core.phi.bind_mode`)
+and one loop runs every kernel family: each inner iteration is the fused
+step of :func:`repro_torch.core.phi.phi_mu_step` (for ``cuda``, the fused
+Φ -> MU kernels).  The Π gather and its layout expansion are hoisted out
+of the inner loop: once per mode update.  With
 ``strategy="dense"`` each mode carries its densified tensor instead, the
 kernel operands ``(x, c, a)`` are hoisted once per mode update, the
 scooch runs the dense Φ kernel and every inner iteration the fused dense
@@ -100,21 +102,21 @@ from .layout import (
     build_shard_pi_gather,
     choose_grid_shape,
     mode_run_stats,
-    owner_partition,
     rebalance_shards,
     shard_blocked_layout,
     shard_stream_cuts,
 )
+from .distributed import mesh_device_count
 from .phi import (
-    _dense_operands,
     _sharded_block_rows,
+    bind_mode,
     canonical_strategy,
+    effective_mode_combine,
     expand_to_grid,
     expand_to_layout,
     expand_to_shards,
     expand_vals_to_shards,
-    phi_from_rows,
-    phi_mu_step,
+    resolve_combine,
 )
 from .pi import pi_rows
 from .policy import PhiPolicy, default_policy
@@ -408,63 +410,8 @@ def poisson_loglik(t: SparseTensor, kt: KTensor, eps: float = 1e-10) -> torch.Te
             - torch.sum(kt.lam))
 
 
-def resolve_combine(combine: str, strategy: str) -> str:
-    """Resolve a (possibly ``"auto"``) combine flavour for one mode.
-
-    ``"auto"`` means reduce-scatter whenever the mode runs sharded;
-    non-sharded modes always resolve to ``"psum"`` (nothing to combine).
-    The grid family has exactly one combine, the reduce-scatter, so
-    ``"grid"`` resolves to ``"reduce_scatter"`` and rejects ``"psum"``.
-    """
-    from .distributed import PHI_COMBINES  # deferred: avoids cycle
-
-    if strategy == "grid":
-        if combine not in ("auto", "reduce_scatter"):
-            raise ValueError(
-                f"combine {combine!r} is not supported for strategy='grid'"
-                " (the grid combine is always the column reduce-scatter)"
-            )
-        return "reduce_scatter"
-    if strategy != "sharded":
-        return "psum"
-    if combine == "auto":
-        return "reduce_scatter"
-    if combine not in PHI_COMBINES:
-        raise ValueError(
-            f"unknown combine {combine!r}; expected 'auto' or one of "
-            f"{PHI_COMBINES}"
-        )
-    return combine
-
-
-def effective_mode_combine(combine: str, strategy: str, layout, rank: int,
-                           *, itemsize: int = 4) -> str:
-    """Per-mode combine after the wire-aware ``"auto"`` demotion.
-
-    ``"auto"`` prefers the reduce-scatter epilogue but consults
-    :func:`repro_torch.core.distributed.preferred_combine` on the mode's
-    sharded layout: a heavily block-skewed split pads the owner slots past
-    the all-reduce's wire, and ``"auto"`` then keeps the all-reduce.  An
-    explicit ``"reduce_scatter"`` is never demoted.  ``itemsize`` is the
-    factor element width in bytes.
-    """
-    eff = resolve_combine(combine, strategy)
-    if isinstance(layout, GridLayout):
-        # the 1-D or N-D pick happened when the layout was resolved
-        # (choose_grid_shape); a grid has exactly one combine
-        return "reduce_scatter"
-    if (combine == "auto" and eff == "reduce_scatter"
-            and isinstance(layout, ShardedBlockedLayout)):
-        from .distributed import preferred_combine  # deferred: avoids cycle
-
-        eff = preferred_combine(layout, rank, itemsize=itemsize)
-    return eff
-
-
 def _effective_shard_count(mesh, n_shards, device: torch.device) -> int:
     if mesh is not None:
-        from .distributed import mesh_device_count  # deferred: avoids cycle
-
         return mesh_device_count(mesh)
     if n_shards is not None:
         return int(n_shards)
@@ -753,193 +700,55 @@ def _restore_mode_layouts(mvs, strategies, policies, shape,
     return layouts
 
 
-def _hoisted_steps(mv: ModeView, cfg: CPAPRConfig, strategy: str, layout,
-                   device: torch.device, factors, local_strategy: str,
-                   pig: "ShardedPiGather | None") -> tuple:
-    """The mode update's ``(phi, step)`` callables of B, over inputs
-    hoisted once per mode update and shared by the scooch Φ and every
-    fused inner iteration: the Π gather and its layout expansion, or for
-    ``dense`` the kernel operands ``(x, c, a)`` with ``x`` cast to the
-    tier's dtype (``layout`` is then the mode's DenseModeData)."""
-    if strategy == "dense":
-        from ..kernels.dense import ops as dense_ops
-
-        x, c, a = _dense_operands(layout, factors, factors[mv.mode])
-
-        def phi(b):
-            return dense_ops.phi_dense(x, c, a, b, eps=cfg.eps)
-
-        def step(b):
-            mu, viol = dense_ops.phi_mu_dense(x, c, a, b, eps=cfg.eps)
-            return torch.where(viol > cfg.tol, mu, b), viol
-
-        return phi, step
-    kw = dict(n_rows=mv.n_rows, eps=cfg.eps, strategy=strategy, layout=layout,
-              device=device)
-    if strategy == "sharded":
-        kw.update(mesh=cfg.mesh, local_strategy=local_strategy,
-                  pi_gather=pig, factors=factors if pig is not None else None)
-    pi, vals_e, pi_e = hoisted_mode_inputs(mv, factors, strategy, layout, pig)
-
-    def phi(b):
-        return phi_from_rows(mv.rows, mv.sorted_vals, pi, b, vals_e=vals_e,
-                             pi_e=pi_e, **kw)
-
-    def step(b):
-        return phi_mu_step(mv.rows, mv.sorted_vals, pi, b, tol=cfg.tol,
-                           vals_e=vals_e, pi_e=pi_e, **kw)
-
-    return phi, step
-
-
-def _stacked_mode_update(mv: ModeView, cfg: CPAPRConfig, strategy: str,
-                         layout, pig, stack, unstack, phi_own, step_own):
-    """Per-mode solve on a stacked carry: the scooch and the fused inner
-    MU loop run on ``stack``'s per-device slices of the factor, whose
-    only per-iteration combine is the one inside ``step_own``; the factor
-    is reassembled by ``unstack`` (gathered, under a mesh) and
-    renormalized once, after the inner loop.  ``phi_own`` and
-    ``step_own``, both ``(vals_e, pi_e, b_own, factors)``, are the
-    stacked Φ and fused step."""
-    n = mv.mode
-
-    def update(factors, lam):
-        with span(SWEEP_INPUTS):
-            _, vals_e, pi_e = hoisted_mode_inputs(mv, factors, strategy,
-                                                  layout, pig)
-
-        # --- scooch: lift inadmissible zeros (Alg. 1 line 3), local
-        with span(SWEEP_SCOOCH):
-            a_own = stack(factors[n])
-            lam_b = lam[None, None, :]
-            phi0_own = phi_own(vals_e, pi_e, a_own * lam_b, factors)
-            s = torch.where((a_own < cfg.kappa_tol) & (phi0_own > 1.0),
-                            torch.full_like(a_own, cfg.kappa),
-                            torch.zeros_like(a_own))
-            b_own = (a_own + s) * lam_b
-
-        # --- fused inner MU loop (Alg. 1 lines 5-8), stacked carry
-        i, viol = 0, math.inf
-        while i < cfg.max_inner and viol > cfg.tol:
-            with span(SWEEP_STEP):
-                b_own, viol_t = step_own(vals_e, pi_e, b_own, factors)
-            with span(SWEEP_SYNC):  # decides the next iteration
-                viol = float(viol_t)
-            i += 1
-
-        # --- renormalize (Alg. 1 lines 9-10) on the reassembled factor
-        with span(SWEEP_RENORM):
-            b = unstack(b_own)
-            lam_new = torch.sum(b, dim=0)
-            a_new = b / torch.clamp_min(lam_new, cfg.eps)
-        return a_new, lam_new, viol, i
-
-    return update
-
-
-def _make_owner_mode_update(mv: ModeView, cfg: CPAPRConfig,
-                            layout: ShardedBlockedLayout, local_strategy: str,
-                            pig: "ShardedPiGather | None"):
-    """Owner-partitioned per-mode solve (the reduce-scatter epilogue): the
-    owner-stacked (S, own_rows, R) carry (under a mesh, this rank's
-    (1, own_rows, R) slot), each inner iteration's only combine a
-    reduce-scatter whose per-device output is the owned O(I_n * R / S)
-    slice."""
-    from .distributed import (  # deferred: avoids import cycle
-        owner_stack,
-        owner_unstack,
-        phi_mu_sharded_owner,
-        phi_sharded_owner,
-    )
-
-    mesh = cfg.mesh
-    opart = owner_partition(layout)
-
-    def kw(factors):
-        return dict(eps=cfg.eps, mesh=mesh, local_strategy=local_strategy,
-                    pi_gather=pig,
-                    factors=factors if pig is not None else None)
-
-    return _stacked_mode_update(
-        mv, cfg, "sharded", layout, pig,
-        stack=lambda a: owner_stack(opart, a, mesh),
-        unstack=lambda b: owner_unstack(opart, b, mesh),
-        phi_own=lambda v, p, b, f: phi_sharded_owner(layout, opart, v, p, b,
-                                                     **kw(f)),
-        step_own=lambda v, p, b, f: phi_mu_sharded_owner(
-            layout, opart, v, p, b, tol=cfg.tol, **kw(f)))
-
-
-def _make_grid_mode_update(mv: ModeView, cfg: CPAPRConfig,
-                           glayout: GridLayout, local_strategy: str):
-    """Grid-partitioned per-mode solve (the N-D combine epilogue): the
-    grid-stacked (A*B, sub_rows, R) carry (under a mesh, this rank's
-    (1, sub_rows, R) cell), each inner iteration's only combine the
-    column all-gather + reduce-scatter pair: ``2 (B-1) * sub_rows * R``
-    wire per device, O(I_n * R / A)."""
-    from .distributed import (  # deferred: avoids import cycle
-        grid_stack,
-        grid_unstack,
-        phi_grid_owner,
-        phi_mu_grid_owner,
-    )
-
-    mesh = cfg.mesh
-    kw = dict(eps=cfg.eps, mesh=mesh, local_strategy=local_strategy)
-    return _stacked_mode_update(
-        mv, cfg, "grid", glayout, None,
-        stack=lambda a: grid_stack(glayout, a, mesh),
-        unstack=lambda b: grid_unstack(glayout, b, mesh),
-        phi_own=lambda v, p, b, f: phi_grid_owner(glayout, v, p, b, **kw),
-        step_own=lambda v, p, b, f: phi_mu_grid_owner(
-            glayout, v, p, b, tol=cfg.tol, **kw))
-
-
 def _make_mode_update(mv: ModeView, cfg: CPAPRConfig, strategy: str,
-                      layout: "BlockedLayout | ShardedBlockedLayout | DenseModeData | None",
+                      layout: "BlockedLayout | ShardedBlockedLayout | GridLayout | DenseModeData | None",
                       device: torch.device, local_strategy: str = "blocked",
                       pig: "ShardedPiGather | None" = None):
-    """Per-mode solve: ``update(factors, lam) -> (A_n', lam', viol,
-    n_inner)`` with ``viol`` a host float and ``n_inner`` an int.  A
-    sharded mode whose effective combine is the reduce-scatter runs
-    :func:`_make_owner_mode_update`'s owner-stacked loop; with ``pig``
-    (``shard_pi``) no (nnz, R) Π is built: each shard gathers the factor
-    rows its nonzeros touch and rebuilds its Π rows per inner iteration.
-    A grid mode runs :func:`_make_grid_mode_update`'s grid-stacked loop."""
+    """Alg. 1's mode update for every kernel family: ``update(factors,
+    lam) -> (A_n', lam', viol, n_inner)`` with ``viol`` a host float and
+    ``n_inner`` an int.  The mode's :class:`ModeOps` is bound on its first
+    update, inside the degradation ladder, so a check the binding fails
+    (a served policy naming an unknown strategy) fails the update.  The
+    scooch and the inner loop run on the family's carry (``ops.stack``:
+    the factor, or the owner- or grid-stacked slices whose only
+    per-iteration combine is the one inside ``ops.step``); the factor is
+    reassembled (gathered, under a mesh) and renormalised once, after the
+    inner loop."""
     n = mv.mode
-    if strategy == "grid" and isinstance(layout, GridLayout):
-        return _make_grid_mode_update(mv, cfg, layout, local_strategy)
-    if (strategy == "sharded" and isinstance(layout, ShardedBlockedLayout)
-            and effective_mode_combine(
-                cfg.combine, strategy, layout, cfg.rank,
-                itemsize=mv.sorted_vals.element_size()) == "reduce_scatter"):
-        return _make_owner_mode_update(mv, cfg, layout, local_strategy, pig)
+    bind = partial(bind_mode, strategy, layout, mv.rows, mv.sorted_vals,
+                   mv.n_rows, idx=mv.sorted_idx, mode=n, eps=cfg.eps,
+                   tol=cfg.tol, mesh=cfg.mesh, local_strategy=local_strategy,
+                   pi_gather=pig, combine=cfg.combine, rank=cfg.rank,
+                   device=device)
+    ops = None
 
     def update(factors, lam):
-        a_n = factors[n]
+        nonlocal ops
         with span(SWEEP_INPUTS):
-            phi, step = _hoisted_steps(mv, cfg, strategy, layout, device,
-                                       factors, local_strategy, pig)
+            ops = ops or bind()
+            operands = ops.inputs(factors)
 
         # --- scooch: lift inadmissible zeros (Alg. 1 line 3) --------------
         with span(SWEEP_SCOOCH):
-            phi0 = phi(a_n * lam[None, :])
-            s = torch.where((a_n < cfg.kappa_tol) & (phi0 > 1.0),
-                            torch.full_like(a_n, cfg.kappa),
-                            torch.zeros_like(a_n))
-            b = (a_n + s) * lam[None, :]
+            a = ops.stack(factors[n])
+            phi0 = ops.phi(operands, a * lam)
+            s = torch.where((a < cfg.kappa_tol) & (phi0 > 1.0),
+                            torch.full_like(a, cfg.kappa),
+                            torch.zeros_like(a))
+            b = (a + s) * lam
 
         # --- fused inner MU loop (Alg. 1 lines 5-8) ------------------------
         i, viol = 0, math.inf
         while i < cfg.max_inner and viol > cfg.tol:
             with span(SWEEP_STEP):
-                b, viol_t = step(b)
+                b, viol_t = ops.step(operands, b)
             with span(SWEEP_SYNC):  # decides the next iteration
                 viol = float(viol_t)
             i += 1
 
         # --- renormalize (Alg. 1 lines 9-10) -------------------------------
         with span(SWEEP_RENORM):
+            b = ops.unstack(b)
             lam_new = torch.sum(b, dim=0)
             a_new = b / torch.clamp_min(lam_new, cfg.eps)
         return a_new, lam_new, viol, i

@@ -52,19 +52,27 @@ only; wrong on purpose, for benchmarks):
 
 :func:`phi_mu_step` is the fused inner step — Φ, the KKT check and
 ``B <- B*Φ`` (applied only while viol > tol) — for every strategy.
-``vals_e``/``pi_e`` accept pre-expanded layout tensors so the solver can
-hoist the Π expansion out of the inner loop.
+``vals_e``/``pi_e`` accept pre-expanded layout tensors.
+
+:func:`bind_mode` is where a mode's kernel family is decided: once, from
+the strategy, the layout's type and the effective combine.  It returns
+the mode's :class:`ModeOps` (its hoisted inputs, Φ, fused step, MTTKRP
+and the carry's stack/unstack), which both solvers run and the three
+public entries above call after resolving their per-call layout.
 """
 from __future__ import annotations
 
+import dataclasses
 import warnings
-from typing import Sequence
+from functools import partial
+from typing import Callable, Sequence
 
 import numpy as np
 import torch
 
 from ..device import check_on_device, resolve_device
-from .dense import build_dense_mode, dense_kr_factors
+from . import distributed
+from .dense import DenseModeData, build_dense_mode, dense_kr_factors
 from .layout import (
     BlockedLayout,
     GridLayout,
@@ -73,6 +81,7 @@ from .layout import (
     build_grid_layout,
     choose_grid_shape,
     mode_run_stats,
+    owner_partition,
     pad_rows,
     shard_blocked_layout,
 )
@@ -83,7 +92,10 @@ from .sparse_tensor import ModeView
 __all__ = [
     "ALL_PHI_STRATEGIES",
     "PHI_STRATEGIES",
+    "ModeOps",
+    "bind_mode",
     "canonical_strategy",
+    "effective_mode_combine",
     "expand_to_grid",
     "expand_to_layout",
     "expand_to_shards",
@@ -93,6 +105,7 @@ __all__ = [
     "phi_from_rows",
     "phi_mode",
     "phi_mu_step",
+    "resolve_combine",
 ]
 
 PHI_STRATEGIES = ("scatter", "segment", "blocked", "cuda", "dense")
@@ -250,7 +263,7 @@ def _phi_blocked_padded(layout: BlockedLayout, vals_e, pi_e, b, eps,
 
 
 # ---------------------------------------------------------------------------
-# Public entry points
+# Layout expansion and resolution
 # ---------------------------------------------------------------------------
 
 
@@ -332,9 +345,7 @@ def _default_shard_count(mesh, device: torch.device) -> int:
     every card of this process on the card and 1 on the CPU (where the
     JAX package counts ``jax.device_count()``)."""
     if mesh is not None:
-        from .distributed import mesh_device_count  # deferred: avoids cycle
-
-        return mesh_device_count(mesh)
+        return distributed.mesh_device_count(mesh)
     if device.type == "cuda":
         return max(1, torch.cuda.device_count())
     return 1
@@ -354,11 +365,8 @@ def _resolve_sharded(rows, n_rows, layout, mesh, vals, pi, vals_e, pi_e):
     shards), a warning and the *base* :class:`BlockedLayout` with ``None``
     expansions; callers then run the unsharded path on it.
     """
-    if layout is not None and not isinstance(layout, ShardedBlockedLayout):
-        raise TypeError(
-            "strategy='sharded' needs a ShardedBlockedLayout "
-            f"(got {type(layout).__name__}); use shard_blocked_layout()"
-        )
+    if layout is not None:
+        _check_layout("sharded", layout)
     if layout is None:
         n_shards = _default_shard_count(mesh, pi.device)
         base = build_blocked_layout(
@@ -391,11 +399,8 @@ def _resolve_grid(rows, n_rows, layout, mesh, vals, pi, vals_e, pi_e,
     layout the shape is the mesh's, else :func:`choose_grid_shape`'s for
     the default shard count.
     """
-    if layout is not None and not isinstance(layout, GridLayout):
-        raise TypeError(
-            "strategy='grid' needs a GridLayout "
-            f"(got {type(layout).__name__}); use build_grid_layout()"
-        )
+    if layout is not None:
+        _check_layout("grid", layout)
     if layout is None:
         if mesh is not None:
             shape = (int(mesh.size(0)), int(mesh.size(1)))
@@ -422,10 +427,32 @@ def _resolve_grid(rows, n_rows, layout, mesh, vals, pi, vals_e, pi_e,
     return layout, vals_e, pi_e
 
 
-def _check_grid_args(pi_gather, perturb) -> None:
-    if perturb is not None:
-        raise ValueError("perturb is not supported for strategy='grid'")
-    if pi_gather is not None:
+# the layout each layout-driven strategy runs on, and the function that
+# builds it
+_LAYOUTS = {
+    "blocked": (BlockedLayout, "build_blocked_layout"),
+    "cuda": (BlockedLayout, "build_blocked_layout"),
+    "sharded": (ShardedBlockedLayout, "shard_blocked_layout"),
+    "grid": (GridLayout, "build_grid_layout"),
+}
+
+
+def _check_layout(strategy: str, layout) -> None:
+    want, build = _LAYOUTS[strategy]
+    if not isinstance(layout, want):
+        raise TypeError(
+            f"strategy={strategy!r} needs a {want.__name__} "
+            f"(got {type(layout).__name__}); use {build}()"
+        )
+
+
+def _check_family_args(strategy: str, pi_gather, perturb) -> None:
+    """The perturbations run on the plain strategies only, and the grid
+    builds no shard-local Π."""
+    if perturb is not None and strategy not in ("scatter", "segment",
+                                                "blocked"):
+        raise ValueError(f"perturb is not supported for strategy={strategy!r}")
+    if pi_gather is not None and strategy == "grid":
         raise ValueError(
             "pi_gather is not supported for strategy='grid'; use "
             "strategy='sharded' for the shard-local Pi path"
@@ -438,11 +465,10 @@ def _check_combine(strategy: str, combine: str) -> None:
     ``"reduce_scatter"`` as a no-op alias)."""
     if combine == "psum":
         return
-    from .distributed import PHI_COMBINES  # deferred: avoids import cycle
-
-    if combine not in PHI_COMBINES:
+    if combine not in distributed.PHI_COMBINES:
         raise ValueError(
-            f"unknown combine {combine!r}; expected one of {PHI_COMBINES}"
+            f"unknown combine {combine!r}; expected one of "
+            f"{distributed.PHI_COMBINES}"
         )
     if strategy not in ("sharded", "grid"):
         raise ValueError(
@@ -451,62 +477,26 @@ def _check_combine(strategy: str, combine: str) -> None:
         )
 
 
-def _require_pig_layout(layout, pi_gather, factors) -> ShardedBlockedLayout:
-    """Validate the shard-local-Π argument triple (layout, pig, factors)."""
+def _require_pig_layout(layout, pi_gather) -> None:
+    """Validate the shard-local-Π gather against its layout."""
     if not isinstance(layout, ShardedBlockedLayout):
         raise TypeError(
             "pi_gather needs an explicit ShardedBlockedLayout (the one the "
             f"gather maps were built from); got {type(layout).__name__}"
         )
-    if factors is None:
-        raise ValueError("pi_gather needs the full factors tuple")
     if pi_gather.n_shards != layout.n_shards:
         raise ValueError(
             f"pi_gather has {pi_gather.n_shards} shards but the layout has "
             f"{layout.n_shards}"
         )
-    from .distributed import _validate_pig  # deferred: avoids import cycle
-
-    _validate_pig(layout, pi_gather)
-    return layout
+    distributed._validate_pig(layout, pi_gather)
 
 
-def _multi_device(op: str, strategy: str, rows, vals, pi, b, n_rows, layout,
-                  vals_e, pi_e, mesh, local_strategy, pi_gather, factors,
-                  combine, perturb=None, **kw):
-    """The ``sharded`` and ``grid`` cases of the three entry points:
-    resolve the layout (or take the warned fallback, returned as ``(None,
-    base layout)``) and call ``{op}_{strategy}`` of
-    :mod:`repro_torch.core.distributed` (``op`` is ``phi``, ``phi_mu`` or
-    ``krao``)."""
-    from . import distributed  # deferred: avoids import cycle
-
-    fn = getattr(distributed, f"{op}_{strategy}")
-    if strategy == "grid":
-        _check_grid_args(pi_gather, perturb)
-        glayout, vals_e, pi_e = _resolve_grid(rows, n_rows, layout, mesh,
-                                              vals, pi, vals_e, pi_e,
-                                              int(pi.shape[-1]))
-        if not isinstance(glayout, GridLayout):
-            return None, glayout
-        return fn(glayout, vals_e, pi_e, *([] if b is None else [b]),
-                  mesh=mesh, local_strategy=local_strategy, **kw), None
-    if perturb is not None:
-        raise ValueError("perturb is not supported for strategy='sharded'")
-    if pi_gather is not None:
-        slayout = _require_pig_layout(layout, pi_gather, factors)
-        if vals_e is None:
-            vals_e = expand_vals_to_shards(slayout, vals)
-        return fn(slayout, vals_e, None, *([] if b is None else [b]),
-                  mesh=mesh, local_strategy=local_strategy,
-                  pi_gather=pi_gather, factors=factors, combine=combine,
-                  **kw), None
-    slayout, vals_e, pi_e = _resolve_sharded(rows, n_rows, layout, mesh,
-                                             vals, pi, vals_e, pi_e)
-    if not isinstance(slayout, ShardedBlockedLayout):
-        return None, slayout
-    return fn(slayout, vals_e, pi_e, *([] if b is None else [b]), mesh=mesh,
-              local_strategy=local_strategy, combine=combine, **kw), None
+def _require_dense(dense) -> None:
+    if not isinstance(dense, DenseModeData):
+        raise ValueError(
+            "strategy='dense' needs dense= (a DenseModeData; build one "
+            "with repro_torch.core.dense.build_dense_mode)")
 
 
 def _dense_operands(dense, factors, b=None) -> tuple:
@@ -518,10 +508,7 @@ def _dense_operands(dense, factors, b=None) -> tuple:
     and cast here, so bf16 factors drive the bf16 kernels without a second
     densified copy.
     """
-    if dense is None:
-        raise ValueError(
-            "strategy='dense' needs dense= (a DenseModeData; build one "
-            "with repro_torch.core.dense.build_dense_mode)")
+    _require_dense(dense)
     if factors is None:
         raise ValueError("strategy='dense' needs the full factors tuple")
     c, a = dense_kr_factors(dense, factors)
@@ -532,6 +519,282 @@ def _dense_operands(dense, factors, b=None) -> tuple:
 def _dense_tensors(dense, factors) -> list:
     """The tensors behind ``dense=``/``factors=``, for the device check."""
     return ([] if dense is None else [dense.x]) + list(factors or ())
+
+
+def resolve_combine(combine: str, strategy: str) -> str:
+    """Resolve a (possibly ``"auto"``) combine flavour for one mode.
+
+    ``"auto"`` means reduce-scatter whenever the mode runs sharded;
+    non-sharded modes always resolve to ``"psum"`` (nothing to combine).
+    The grid family has exactly one combine, the reduce-scatter, so
+    ``"grid"`` resolves to ``"reduce_scatter"`` and rejects ``"psum"``.
+    """
+    if strategy == "grid":
+        if combine not in ("auto", "reduce_scatter"):
+            raise ValueError(
+                f"combine {combine!r} is not supported for strategy='grid'"
+                " (the grid combine is always the column reduce-scatter)"
+            )
+        return "reduce_scatter"
+    if strategy != "sharded":
+        return "psum"
+    if combine == "auto":
+        return "reduce_scatter"
+    if combine not in distributed.PHI_COMBINES:
+        raise ValueError(
+            f"unknown combine {combine!r}; expected 'auto' or one of "
+            f"{distributed.PHI_COMBINES}"
+        )
+    return combine
+
+
+def effective_mode_combine(combine: str, strategy: str, layout, rank: int,
+                           *, itemsize: int = 4) -> str:
+    """Per-mode combine after the wire-aware ``"auto"`` demotion.
+
+    ``"auto"`` prefers the reduce-scatter epilogue but consults
+    :func:`repro_torch.core.distributed.preferred_combine` on the mode's
+    sharded layout: a heavily block-skewed split pads the owner slots past
+    the all-reduce's wire, and ``"auto"`` then keeps the all-reduce.  An
+    explicit ``"reduce_scatter"`` is never demoted.  ``itemsize`` is the
+    factor element width in bytes.
+    """
+    eff = resolve_combine(combine, strategy)
+    if isinstance(layout, GridLayout):
+        # the 1-D or N-D pick happened when the layout was resolved
+        # (choose_grid_shape); a grid has exactly one combine
+        return "reduce_scatter"
+    if (combine == "auto" and eff == "reduce_scatter"
+            and isinstance(layout, ShardedBlockedLayout)):
+        eff = distributed.preferred_combine(layout, rank, itemsize=itemsize)
+    return eff
+
+
+# ---------------------------------------------------------------------------
+# One mode's operators, bound once
+# ---------------------------------------------------------------------------
+
+
+def _same(x):
+    return x
+
+
+@dataclasses.dataclass(frozen=True)
+class ModeOps:
+    """One mode's Φ, MU and MTTKRP operators, bound by :func:`bind_mode`.
+
+    ``inputs(factors)`` gives the operands hoisted once per mode update:
+    ``(pi, vals_e, pi_e, factors)`` for the sparse families (None in each
+    slot the family does not read; ``factors`` for the shard-local Π
+    gather), the kernel operands ``(x, c, a)`` for ``dense``.
+    ``phi(operands, b)`` is Φ and ``step(operands, b)`` the fused inner MU
+    step ``(b', viol)``, both on the family's carry, which ``stack(a)``
+    makes from a full (I_n, R) block and ``unstack(b)`` turns back: the
+    block itself, or its owner- or grid-stacked slices.
+    ``reduce(operands)`` is the MTTKRP, a full (I_n, R) block.
+    """
+
+    inputs: Callable
+    phi: Callable
+    step: Callable
+    reduce: Callable
+    stack: Callable = _same
+    unstack: Callable = _same
+
+
+def bind_mode(
+    strategy: str,
+    layout,
+    rows: torch.Tensor,
+    vals: torch.Tensor,
+    n_rows: int,
+    *,
+    idx: torch.Tensor | None = None,
+    mode: int = 0,
+    eps: float = 1e-10,
+    tol: float = 1e-4,
+    mesh=None,
+    local_strategy: str = "blocked",
+    pi_gather=None,
+    combine: str = "psum",
+    rank: int = 0,
+    perturb: str | None = None,
+    device="cuda",
+) -> ModeOps:
+    """Decide one mode's kernel family once and bind its operators.
+
+    The family follows from the strategy, the type of ``layout`` (the
+    mode's resolved layout, its :class:`DenseModeData` for ``dense``,
+    unused by ``scatter``/``segment``) and, for a sharded layout,
+    :func:`effective_mode_combine` of ``combine`` (``rank`` is read only
+    for ``"auto"``).  ``inputs`` gathers Π from the sorted coordinates
+    ``idx`` of ``mode``.  Every check that does not depend on B runs
+    here, once: the device, the strategy's name, the layout's type, the
+    shard-local Π gather, the mesh, the dense data and ``perturb``.  The
+    bound callables run what the public entries run on the same operands.
+    """
+    dev = resolve_device(device)
+    strategy = canonical_strategy(strategy)
+    check_on_device("bind_mode", dev, rows, vals, idx,
+                    *(_dense_tensors(layout, None)
+                      if isinstance(layout, DenseModeData) else ()))
+    _check_family_args(strategy, pi_gather, perturb)
+    eps = float(eps)
+
+    def gathered(expand):
+        def inputs(factors):
+            pi = pi_rows(idx, factors, mode)
+            return (pi, *expand(layout, vals, pi), None)
+        return inputs
+
+    if strategy in ("scatter", "segment"):
+        return ModeOps(
+            inputs=lambda f: (pi_rows(idx, f, mode), None, None, None),
+            phi=lambda o, b: _phi_unblocked(rows, vals, o[0], b, n_rows, eps,
+                                            perturb, strategy),
+            step=lambda o, b: _mu_epilogue(
+                b, _phi_unblocked(rows, vals, o[0], b, n_rows, eps,
+                                  strategy=strategy), tol),
+            reduce=lambda o: _krao_unblocked(rows, vals, o[0], n_rows,
+                                             strategy))
+    if strategy == "dense":
+        _require_dense(layout)
+        from ..kernels.dense import ops as dense_ops
+
+        def dense_step(o, b):
+            mu, viol = dense_ops.phi_mu_dense(*o, b, eps=eps)
+            return torch.where(viol > tol, mu, b), viol
+
+        return ModeOps(
+            inputs=lambda f: _dense_operands(layout, f, f[mode]),
+            phi=lambda o, b: dense_ops.phi_dense(*o, b, eps=eps),
+            step=dense_step, reduce=lambda o: dense_ops.mttkrp_dense(*o))
+    if strategy == "sharded" and pi_gather is not None:
+        _require_pig_layout(layout, pi_gather)
+    _check_layout(strategy, layout)
+    if strategy == "blocked":
+        def blocked_step(o, b):
+            phi_pad = _phi_blocked_padded(layout, o[1], o[2], b, eps)
+            b_new_pad, viol = _mu_epilogue(pad_rows(b, layout.n_rows_pad),
+                                           phi_pad, tol)
+            return b_new_pad[:n_rows], viol
+
+        def blocked_reduce(o):
+            lt = layout.on(o[2].device)
+            return _phi_blocked_core(
+                o[1], o[2], lt.local_rows, lt.grid_rb, None,
+                block_nnz=layout.block_nnz, block_rows=layout.block_rows,
+                n_row_blocks=layout.n_row_blocks, eps=0.0)[:n_rows]
+
+        return ModeOps(
+            inputs=gathered(expand_to_layout),
+            phi=lambda o, b: _phi_blocked_padded(layout, o[1], o[2], b, eps,
+                                                 perturb)[:n_rows],
+            step=blocked_step, reduce=blocked_reduce)
+    if strategy == "cuda":
+        from ..kernels.mttkrp import ops as mttkrp_ops
+        from ..kernels.phi import ops as phi_ops
+
+        def cuda_step(o, b):
+            mu_pad, viol = phi_ops.phi_mu_blocked(layout, o[1], o[2], b, eps)
+            return torch.where(viol > tol, mu_pad[:n_rows], b), viol
+
+        return ModeOps(
+            inputs=gathered(expand_to_layout),
+            phi=lambda o, b: phi_ops.phi_blocked(layout, o[1], o[2], b,
+                                                 eps)[:n_rows],
+            step=cuda_step,
+            reduce=lambda o: mttkrp_ops.mttkrp_blocked(layout, o[1],
+                                                       o[2])[:n_rows])
+    kw = dict(mesh=mesh, local_strategy=local_strategy)
+    if strategy == "grid":
+        distributed._validate_grid_mesh(layout, mesh)
+        return ModeOps(
+            inputs=gathered(expand_to_grid),
+            phi=lambda o, b: distributed.phi_grid_owner(
+                layout, o[1], o[2], b, eps=eps, **kw),
+            step=lambda o, b: distributed.phi_mu_grid_owner(
+                layout, o[1], o[2], b, eps=eps, tol=tol, **kw),
+            reduce=lambda o: distributed.krao_grid(layout, o[1], o[2], **kw),
+            stack=partial(distributed.grid_stack, layout, mesh=mesh),
+            unstack=partial(distributed.grid_unstack, layout, mesh=mesh))
+    distributed._validate_phi_mesh(layout, mesh)
+    if pi_gather is None:
+        inputs = gathered(expand_to_shards)
+    else:
+        def inputs(factors):
+            return None, expand_vals_to_shards(layout, vals), None, factors
+    kw["pi_gather"] = pi_gather
+    combine = effective_mode_combine(combine, "sharded", layout, rank,
+                                     itemsize=vals.element_size())
+    if combine == "psum":
+        on = (layout,)
+        phi_fn, step_fn = distributed.phi_sharded, distributed.phi_mu_sharded
+        stack = unstack = _same
+    else:  # the owner-stacked carry of the reduce-scatter epilogue
+        opart = owner_partition(layout)
+        on = (layout, opart)
+        phi_fn = distributed.phi_sharded_owner
+        step_fn = distributed.phi_mu_sharded_owner
+        stack = partial(distributed.owner_stack, opart, mesh=mesh)
+        unstack = partial(distributed.owner_unstack, opart, mesh=mesh)
+    return ModeOps(
+        inputs=inputs,
+        phi=lambda o, b: phi_fn(*on, o[1], o[2], b, eps=eps, factors=o[3],
+                                **kw),
+        step=lambda o, b: step_fn(*on, o[1], o[2], b, eps=eps, tol=tol,
+                                  factors=o[3], **kw),
+        reduce=lambda o: distributed.krao_sharded(
+            layout, o[1], o[2], factors=o[3], combine=combine, **kw),
+        stack=stack, unstack=unstack)
+
+
+# ---------------------------------------------------------------------------
+# Public entry points
+# ---------------------------------------------------------------------------
+
+
+def _bind_entry(where: str, rows, vals, pi, b, n_rows, strategy, layout,
+                vals_e, pi_e, mesh, local_strategy, pi_gather, factors,
+                combine, dense, device, *, eps=1e-10, tol=1e-4,
+                perturb=None) -> tuple:
+    """``(ModeOps, operands)`` of one call of the public entry ``where``:
+    its checks, the per-call default layout (or the warned single-device
+    fallback of a shard count or grid the mode cannot honour, which runs
+    ``local_strategy`` on the base layout), the layout expansion unless
+    it comes pre-expanded, then :func:`bind_mode`."""
+    dev = resolve_device(device)
+    check_on_device(where, dev, rows, vals, pi, b, vals_e, pi_e,
+                    *_dense_tensors(dense, factors))
+    strategy = canonical_strategy(strategy)
+    _check_combine(strategy, combine)
+    _check_family_args(strategy, pi_gather, perturb)
+    if strategy == "sharded" and pi_gather is not None:
+        _require_pig_layout(layout, pi_gather)
+        if factors is None:
+            raise ValueError("pi_gather needs the full factors tuple")
+        if vals_e is None:
+            vals_e = expand_vals_to_shards(layout, vals)
+        pi_e = None
+    elif strategy == "sharded":
+        layout, vals_e, pi_e = _resolve_sharded(rows, n_rows, layout, mesh,
+                                                vals, pi, vals_e, pi_e)
+    elif strategy == "grid":
+        layout, vals_e, pi_e = _resolve_grid(rows, n_rows, layout, mesh,
+                                             vals, pi, vals_e, pi_e,
+                                             int(pi.shape[-1]))
+    if strategy in ("sharded", "grid") and isinstance(layout, BlockedLayout):
+        strategy = canonical_strategy(local_strategy)
+    if strategy in ("blocked", "cuda"):
+        layout, vals_e, pi_e = _resolve_layout(rows, n_rows, layout, vals, pi,
+                                               vals_e, pi_e)
+    ops = bind_mode(strategy, dense if strategy == "dense" else layout, rows,
+                    vals, n_rows, eps=eps, tol=tol, mesh=mesh,
+                    local_strategy=local_strategy, pi_gather=pi_gather,
+                    combine=combine, perturb=perturb, device=dev)
+    if strategy == "dense":
+        return ops, _dense_operands(dense, factors, b)
+    return ops, (pi, vals_e, pi_e, factors)
 
 
 def phi_from_rows(
@@ -575,42 +838,11 @@ def phi_from_rows(
     (:func:`repro_torch.core.distributed.make_grid_mesh`).  Every tensor
     must lie on ``device``.
     """
-    dev = resolve_device(device)
-    check_on_device("phi_from_rows", dev, rows, vals, pi, b, vals_e, pi_e,
-                    *_dense_tensors(dense, factors))
-    strategy = canonical_strategy(strategy)
-    _check_combine(strategy, combine)
-    eps = float(eps)
-    if strategy in ("sharded", "grid"):
-        out, base = _multi_device("phi", strategy, rows, vals, pi, b, n_rows,
-                                  layout, vals_e, pi_e, mesh, local_strategy,
-                                  pi_gather, factors, combine, perturb,
-                                  eps=eps)
-        if base is None:
-            return out
-        return phi_from_rows(rows, vals, pi, b, n_rows, eps=eps,
-                             strategy=canonical_strategy(local_strategy),
-                             layout=base, device=device)
-    if strategy == "dense":
-        if perturb is not None:
-            raise ValueError("perturb is not supported for strategy='dense'")
-        from ..kernels.dense import ops as dense_ops
-
-        x, c, a = _dense_operands(dense, factors, b)
-        return dense_ops.phi_dense(x, c, a, b, eps=eps)
-    if strategy in ("scatter", "segment"):
-        return _phi_unblocked(rows, vals, pi, b, n_rows, eps, perturb,
-                              strategy)
-    layout, vals_e, pi_e = _resolve_layout(rows, n_rows, layout, vals, pi,
-                                           vals_e, pi_e)
-    if strategy == "blocked":
-        return _phi_blocked_padded(layout, vals_e, pi_e, b, eps,
-                                   perturb)[:n_rows]
-    if perturb is not None:
-        raise ValueError("perturb is not supported for strategy='cuda'")
-    from ..kernels.phi import ops as phi_ops
-
-    return phi_ops.phi_blocked(layout, vals_e, pi_e, b, eps)[:n_rows]
+    ops, operands = _bind_entry(
+        "phi_from_rows", rows, vals, pi, b, n_rows, strategy, layout, vals_e,
+        pi_e, mesh, local_strategy, pi_gather, factors, combine, dense,
+        device, eps=eps, perturb=perturb)
+    return ops.unstack(ops.phi(operands, ops.stack(b)))
 
 
 def _mu_epilogue(b: torch.Tensor, phi: torch.Tensor, tol: float) -> tuple:
@@ -656,42 +888,12 @@ def phi_mu_step(
     or on each owner's rows (``reduce_scatter``), bitwise equal; for
     ``grid`` the epilogue runs on each cell's owned tile.
     """
-    dev = resolve_device(device)
-    check_on_device("phi_mu_step", dev, rows, vals, pi, b, vals_e, pi_e,
-                    *_dense_tensors(dense, factors))
-    strategy = canonical_strategy(strategy)
-    _check_combine(strategy, combine)
-    eps = float(eps)
-    if strategy in ("sharded", "grid"):
-        out, base = _multi_device("phi_mu", strategy, rows, vals, pi, b,
-                                  n_rows, layout, vals_e, pi_e, mesh,
-                                  local_strategy, pi_gather, factors,
-                                  combine, eps=eps, tol=tol)
-        if base is None:
-            return out
-        return phi_mu_step(rows, vals, pi, b, n_rows, eps=eps, tol=tol,
-                           strategy=canonical_strategy(local_strategy), layout=base,
-                           device=device)
-    if strategy == "dense":
-        from ..kernels.dense import ops as dense_ops
-
-        x, c, a = _dense_operands(dense, factors, b)
-        mu, viol = dense_ops.phi_mu_dense(x, c, a, b, eps=eps)
-        return torch.where(viol > tol, mu, b), viol
-    if strategy in ("scatter", "segment"):
-        return _mu_epilogue(b, _phi_unblocked(rows, vals, pi, b, n_rows, eps,
-                                              strategy=strategy), tol)
-    layout, vals_e, pi_e = _resolve_layout(rows, n_rows, layout, vals, pi,
-                                           vals_e, pi_e)
-    if strategy == "blocked":
-        phi_pad = _phi_blocked_padded(layout, vals_e, pi_e, b, eps)
-        b_new_pad, viol = _mu_epilogue(pad_rows(b, layout.n_rows_pad),
-                                       phi_pad, tol)
-        return b_new_pad[:n_rows], viol
-    from ..kernels.phi import ops as phi_ops
-
-    mu_pad, viol = phi_ops.phi_mu_blocked(layout, vals_e, pi_e, b, eps)
-    return torch.where(viol > tol, mu_pad[:n_rows], b), viol
+    ops, operands = _bind_entry(
+        "phi_mu_step", rows, vals, pi, b, n_rows, strategy, layout, vals_e,
+        pi_e, mesh, local_strategy, pi_gather, factors, combine, dense,
+        device, eps=eps, tol=tol)
+    b_new, viol = ops.step(operands, ops.stack(b))
+    return ops.unstack(b_new), viol
 
 
 def krao_reduce_rows(
@@ -739,39 +941,11 @@ def krao_reduce_rows(
     solver), as in :func:`phi_from_rows`.  Non-negativity is not assumed:
     a negative value counts like any other.
     """
-    dev = resolve_device(device)
-    check_on_device("krao_reduce_rows", dev, rows, vals, kr, vals_e, kr_e,
-                    *_dense_tensors(dense, factors))
-    strategy = canonical_strategy(strategy)
-    _check_combine(strategy, combine)
-    if strategy in ("sharded", "grid"):
-        out, base = _multi_device("krao", strategy, rows, vals, kr, None,
-                                  n_rows, layout, vals_e, kr_e, mesh,
-                                  local_strategy, pi_gather, factors,
-                                  combine)
-        if base is None:
-            return out
-        return krao_reduce_rows(rows, vals, kr, n_rows,
-                                strategy=canonical_strategy(local_strategy),
-                                layout=base, device=device)
-    if strategy == "dense":
-        from ..kernels.dense import ops as dense_ops
-
-        x, c, a = _dense_operands(dense, factors)
-        return dense_ops.mttkrp_dense(x, c, a)
-    if strategy in ("scatter", "segment"):
-        return _krao_unblocked(rows, vals, kr, n_rows, strategy)
-    layout, vals_e, kr_e = _resolve_layout(rows, n_rows, layout, vals, kr,
-                                           vals_e, kr_e)
-    if strategy == "blocked":
-        lt = layout.on(kr_e.device)
-        return _phi_blocked_core(
-            vals_e, kr_e, lt.local_rows, lt.grid_rb, None,
-            block_nnz=layout.block_nnz, block_rows=layout.block_rows,
-            n_row_blocks=layout.n_row_blocks, eps=0.0)[:n_rows]
-    from ..kernels.mttkrp import ops as mttkrp_ops
-
-    return mttkrp_ops.mttkrp_blocked(layout, vals_e, kr_e)[:n_rows]
+    ops, operands = _bind_entry(
+        "krao_reduce_rows", rows, vals, kr, None, n_rows, strategy, layout,
+        vals_e, kr_e, mesh, local_strategy, pi_gather, factors, combine,
+        dense, device)
+    return ops.reduce(operands)
 
 
 def phi_mode(

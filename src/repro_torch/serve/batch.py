@@ -165,8 +165,9 @@ def _mode_arrays(idx_pad: np.ndarray, vals_pad: np.ndarray, n: int):
 
 def _make_mode_update(n: int, bucket: Bucket, cfg: CPAPRConfig, grows,
                       gidx, device):
-    """The bucket's batched mode-``n`` update, the ``segment`` path of
-    ``cpapr._make_mode_update`` over all J jobs at once.
+    """The bucket's batched mode-``n`` update: Alg. 1's mode update of
+    ``cpapr._make_mode_update`` for the ``segment`` family, over all J
+    jobs at once, with per-job masks.
 
     ``grows`` are the sorted mode-``n`` rows offset by ``j * I_pad`` and
     flattened (J * nnz_pad,); ``gidx`` the (J * nnz_pad, N) coordinates in

@@ -1,11 +1,15 @@
 """The host spans inside the port's CP-APR solve (``repro_torch.spans``).
 
-A tiny ``cuda`` solve (the kernels' plain versions on the CPU) runs under
-``torch.profiler`` on a 3-mode and a 4-mode tensor: every span name is
-recorded, no span lies inside another, the host-sync span counts one per
-inner iteration, one guard flag per mode and one log-likelihood per
-sweep, and the fitted model is bitwise the one of an unprofiled solve.
+A tiny solve runs under ``torch.profiler`` on a 3-mode and a 4-mode
+tensor in each kernel family one mode-update loop serves: ``cuda`` (the
+kernels' plain versions on the CPU), ``dense``, ``sharded`` (2 emulated
+shards, the reduce-scatter's owner-stacked carry) and ``grid`` (2 x 2
+emulated cells).  Every span name is recorded, no span lies inside
+another, the host-sync span counts one per inner iteration, one guard
+flag per mode and one log-likelihood per sweep, and the fitted model is
+bitwise the one of an unprofiled solve.
 """
+import warnings
 from types import SimpleNamespace
 
 import pytest
@@ -19,6 +23,15 @@ from repro_torch.spans import PREP_SORT, SPANS, SWEEP_STEP, SWEEP_SYNC, span
 
 SHAPES = {"3mode": ((12, 10, 9), 300), "4mode": ((8, 7, 6, 5), 300)}
 RANK = 3
+CUDA = PhiPolicy(strategy="cuda", block_nnz=32, block_rows=4)
+FAMILIES = {
+    "cuda": dict(strategy="cuda", policy=CUDA),
+    "dense": dict(strategy="dense"),
+    "sharded": dict(strategy="sharded", n_shards=2,
+                    combine="reduce_scatter", policy=CUDA),
+    "grid": dict(strategy="grid", n_shards=4, grid_shape=(2, 2),
+                 policy=CUDA),
+}
 
 
 @pytest.fixture(params=sorted(SHAPES))
@@ -28,16 +41,23 @@ def problem(request):
     return t
 
 
-def solve(t):
-    cfg = CPAPRConfig(rank=RANK, max_outer=3, max_inner=4, strategy="cuda",
-                      policy=PhiPolicy(block_nnz=32, block_rows=4))
-    return cpapr_mu(t, RANK, seed=1, config=cfg, device="cpu")
+@pytest.fixture(params=tuple(FAMILIES))
+def family(request):
+    return request.param
 
 
-def profiled_solve(t):
+def solve(t, family):
+    cfg = CPAPRConfig(rank=RANK, max_outer=3, max_inner=4,
+                      **FAMILIES[family])
+    with warnings.catch_warnings():  # every mode runs its family
+        warnings.simplefilter("error")
+        return cpapr_mu(t, RANK, seed=1, config=cfg, device="cpu")
+
+
+def profiled_solve(t, family):
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
-        res = solve(t)
+        res = solve(t, family)
     events = [(e.name(), e.start_ns(), e.end_ns())
               for e in prof.profiler.kineto_results.events()
               if e.name() in SPANS]
@@ -51,28 +71,29 @@ def test_span_is_the_shared_null_context_without_a_profiler(problem):
         assert got is None
 
 
-def test_profiled_solve_records_every_span(problem):
-    _, events = profiled_solve(problem)
+def test_profiled_solve_records_every_span(problem, family):
+    _, events = profiled_solve(problem, family)
     assert {name for name, _, _ in events} == set(SPANS)
 
 
-def test_spans_are_flat(problem):
-    _, events = profiled_solve(problem)
+def test_spans_are_flat(problem, family):
+    _, events = profiled_solve(problem, family)
     events.sort(key=lambda e: e[1])
     for (name0, s0, e0), (name1, s1, e1) in zip(events, events[1:]):
         assert s0 <= e0 <= s1 <= e1, (name0, name1)
 
 
-def test_host_syncs_count_inner_iterations_guards_and_logliks(problem):
-    res, events = profiled_solve(problem)
+def test_host_syncs_count_inner_iterations_guards_and_logliks(problem,
+                                                              family):
+    res, events = profiled_solve(problem, family)
     syncs = sum(name == SWEEP_SYNC for name, _, _ in events)
     n_modes = len(problem.shape)
     assert syncs == sum(res.inner_iters) + res.n_outer * (n_modes + 1)
 
 
-def test_profiler_leaves_the_model_bitwise(problem):
-    plain = solve(problem)
-    traced, _ = profiled_solve(problem)
+def test_profiler_leaves_the_model_bitwise(problem, family):
+    plain = solve(problem, family)
+    traced, _ = profiled_solve(problem, family)
     assert torch.equal(plain.ktensor.lam, traced.ktensor.lam)
     for a, b in zip(plain.ktensor.factors, traced.ktensor.factors):
         assert torch.equal(a, b)
