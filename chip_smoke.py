@@ -27,12 +27,19 @@ Phases (any failure exits nonzero before the last line):
    and timed (not counted) beside their wrappers: device and host ms per
    call of a back-to-back loop, which says where such calls are
    host-bound, and device ms per call inside a CUDA graph (the record's
-   ``direct_ms``), which leaves the host out.
+   ``direct_ms``), which leaves the host out.  (2c) The Π-rows kernel
+   (``pi_gather``), which forms those kernels' operands, the values and
+   Π rows in slot order, once per mode update: on every mode of the
+   tensor, then of FROSTT nell2 at its published size drawn from the
+   seed, bitwise equal to its plain version (PyTorch's ``pi_rows`` then
+   ``expand_to_layout``, also its library yardstick) in f32 and bf16;
+   the kernel's and the plain version's f32 times beside the bound.
+   nell2's calls are printed and checked, not added to the row.
 3. Solve: the launch counts are zeroed, ``cpapr_mu`` runs with
    ``strategy="cuda"`` from the seeded starting model, and the counts are
-   read: ``phi_blocked`` must have run once per mode update and
-   ``phi_mu_blocked`` once per inner iteration.  The same solve with
-   ``strategy="segment"`` on the card is the reference: both
+   read: ``pi_gather`` and ``phi_blocked`` must have run once per mode
+   update and ``phi_mu_blocked`` once per inner iteration.  The same
+   solve with ``strategy="segment"`` on the card is the reference: both
    log-likelihood histories must be finite and nondecreasing and agree.
 4. MTTKRP kernel: on every mode of the same tensor the sparse MTTKRP
    kernel (``mttkrp_blocked``) runs on the starting model's Khatri-Rao
@@ -41,7 +48,8 @@ Phases (any failure exits nonzero before the last line):
    Then, as in phase 2, by direct launch beside the wrapper.
 5. CP-ALS, counted: the counts are zeroed, ``cp_als`` runs with
    ``strategy="cuda"`` for 10 iterations from the seeded starting model,
-   and ``mttkrp_blocked`` must have run once per mode update; its fits
+   and ``mttkrp_blocked`` and ``pi_gather`` must have run once per mode
+   update; its fits
    must be finite and agree with ``cp_als(strategy="segment")`` on the
    card from the same start.
 6. The dense tier at its cap: a near-dense (128, 256, 128) tensor
@@ -110,9 +118,10 @@ Phases (any failure exits nonzero before the last line):
     phase 2 tensor as one tenant: a counted cold ``submit`` from the
     phase's starting model (log-likelihood tracked), then ``append`` of
     APPEND_FRAC of its nonzeros drawn from the planted model, warm
-    started: B2 once per mode update and B1 once per inner iteration in
-    both solves, every mode on ``cuda``, no demotion, log-likelihoods
-    finite and nondecreasing, the warm sweeps within their budget, and
+    started: Π and B2 once per mode update and B1 once per inner
+    iteration in both solves, every mode on ``cuda``, no demotion,
+    log-likelihoods finite and nondecreasing, the warm sweeps within
+    their budget, and
     the JAX package driver's two checks against a cold solve of the
     merged tensor from the same starting model, and the warm solve's
     final log-likelihood at least the cold one's after as many sweeps
@@ -121,9 +130,9 @@ Phases (any failure exits nonzero before the last line):
     above (the JAX package test's construction at the near-dense
     shape): the cold solve runs no dense kernel, the warm one flags the
     stats move and runs B5 once per mode update and B4 once per inner
-    iteration.  (4) A second tenant of the phase 2 problem is served by
-    the shared autotune store (hits, no search).  (5) The dense
-    workspaces stay within ``WORK_MAX`` per stream.
+    iteration, and no Π kernel.  (4) A second tenant of the phase 2
+    problem is served by the shared autotune store (hits, no search).
+    (5) The dense workspaces stay within ``WORK_MAX`` per stream.
 14. The row-sharded tier (run after phase 13), on the phase 2 tensor at
     256 x 256 with the local ``cuda`` kernels (the modes with fewer row
     blocks than shards fall back, with a warning): (1) on each sharded
@@ -136,12 +145,14 @@ Phases (any failure exits nonzero before the last line):
     counted ``cpapr_mu(strategy="sharded", n_shards=N_SHARDS)``
     (``combine="auto"``, ``shard_pi``): a mode hook reads the launch
     counts before each mode update, so each sharded update must launch
-    B2 N_SHARDS x (1 + inner) times and each fallback update B2 once and
-    B1 per inner iteration, summing to the reported inner counts; log-
+    B2 N_SHARDS x (1 + inner) times and no Π kernel, and each fallback
+    update Π and B2 once and B1 per inner iteration, summing to the
+    reported inner counts; log-
     likelihoods within LOGLIK_RTOL of phase 3's ``cuda`` and ``segment``
     solves, no demotion, seconds per sweep beside phase 3's.  (3) A
     counted sharded ``cp_als``: fits within FIT_ATOL of ``segment``, B3
-    N_SHARDS per sharded mode and 1 per fallback mode per iteration.
+    N_SHARDS per sharded mode and 1 per fallback mode per iteration, Π
+    1 per fallback mode per iteration.
     (4) A one-rank NCCL process group (``file://`` rendezvous under
     ``build/chip_smoke/``): ``cpapr_mu(mesh=make_phi_mesh(1))`` with both
     combines and ``dist_cpapr_mu`` on a (1, 1) ``("data", "model")``
@@ -181,12 +192,14 @@ Phases (any failure exits nonzero before the last line):
     ``grid_shape=None`` (the solver's own per-mode pick; modes it cannot
     grid warn and run unsharded) and with ``grid_shape=(1, 4)``: a mode
     hook reads the launch counts, so each grid update must launch B2
-    A*B x (1 + inner) times and B1 never, each fallback update B2 once
-    and B1 per inner iteration; log-likelihoods within LOGLIK_RTOL of
+    A*B x (1 + inner) times and B1 and Π never, each fallback update Π
+    and B2 once and B1 per inner iteration; log-likelihoods within
+    LOGLIK_RTOL of
     phase 3's ``cuda`` and ``segment`` solves, no demotion, seconds per
     sweep beside phases 3 and 14.  (3) A counted grid ``cp_als``: fits
     within FIT_ATOL of ``segment``, B3 A*B per grid mode and 1 per
-    fallback mode per iteration.  (4) A (1, 1) ``make_grid_mesh`` on a
+    fallback mode per iteration, Π 1 per fallback mode per iteration.
+    (4) A (1, 1) ``make_grid_mesh`` on a
     one-rank NCCL group within LOGLIK_RTOL of the emulated 1 x 1 solve.
     (5) Ladder on: ``fail_oom(min_shards=3)`` and
     ``fail_strategy("grid")`` each take the ``grid 2x2->sharded@2`` rung
@@ -293,8 +306,9 @@ Phases (any failure exits nonzero before the last line):
 20. The examples (run after phase 19): each ``examples/*_torch.py``
     through its ``main``, in-process, every launch count zeroed just
     before it and read just after.  (1) quickstart at its own size and
-    (2) decompose_frostt on uber at each EXAMPLE_FROSTT_SCALES: B2 once
-    per mode update and B1 once per inner iteration, no other kernel, no
+    (2) decompose_frostt on uber at each EXAMPLE_FROSTT_SCALES: Π and B2
+    once per mode update and B1 once per inner iteration, no other
+    kernel, no
     demotion, finite nonnegative factors, a finite nondecreasing
     log-likelihood; decompose_frostt's heuristic, given no platform, must
     print the ``cuda`` policy.  (3) serve_lm and (4) train_lm
@@ -318,7 +332,8 @@ strategy would otherwise pass as the kernel; so do phases 13's, 14's,
 15's and 20's.  Phases 7-9 and 11-20 print their own times, and the
 whole run its total.  The line before
 the last is the per-kernel JSON record (``launches`` from the counted
-runs of phases 3-7, ``service_launches`` from phase 13's,
+runs of phases 3-7, ``pi_gather``'s phase 3's and 5's summed,
+``service_launches`` from phase 13's,
 ``sharded_launches`` from phase 14's, ``grid_launches`` from phase
 15's, ``example_launches`` from phase 20's); the last is
 ``{"ok": true, "device": {...}}``.
@@ -451,6 +466,9 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "phi_blocked": ("phi.cu", "src/repro/kernels/phi/kernel.py:139"),
     "phi_mu_blocked": ("phi.cu", "src/repro/kernels/phi/kernel.py:179"),
     "mttkrp_blocked": ("mttkrp.cu", "src/repro/kernels/mttkrp/kernel.py:50"),
+    "pi_gather": ("pi.cu", "none: the JAX package forms the slot-ordered "
+                  "Π rows with plain jnp (core/pi.py pi_rows, core/phi.py "
+                  "expand_to_layout)"),
     "dense_phi_mu": ("dense.cu", "src/repro/kernels/dense/kernel.py:239"),
     "dense_phi": ("dense.cu", "src/repro/kernels/dense/kernel.py:208"),
     "dense_mttkrp": ("dense.cu", "src/repro/kernels/dense/kernel.py:178"),
@@ -805,13 +823,113 @@ def mttkrp_phase(t, init, mvs, layouts, timing_iters: int) -> dict:
     return rows
 
 
-def timed_cp_als(t, init, strategy: str, dev, counts=None, **kw) -> tuple:
+def _bitwise(got, want) -> bool:
+    """Pairs of tensors of one dtype and shape with equal bits."""
+    import torch
+
+    ints = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    return all(g.dtype == w.dtype and g.shape == w.shape
+               and torch.equal(g.view(ints[g.dtype]), w.view(ints[w.dtype]))
+               for g, w in zip(got, want))
+
+
+def pi_modes(rows, what: str, modes, factors, timing_iters: int) -> None:
+    """Phase 2c on one tensor's ``(mode, view, layout)`` triples:
+    ``pi_gather`` against its plain version (bitwise, values and Π rows,
+    f32 and bf16) and timed beside it in f32, each mode's call tallied
+    into ``rows``."""
+    import torch
+
+    from repro_torch.kernels.pi import ops, ref
+    from repro_torch.perf.timing import cuda_ms
+
+    r, n_modes = factors[0].shape[1], len(factors)
+    for n, mv, lay in modes:
+        idx, n_slots = mv.sorted_idx, lay.n_grid * lay.block_nnz
+        ms = {}
+        for dt in (torch.bfloat16, torch.float32):
+            fs = tuple(f.to(dt) for f in factors)
+            vals = mv.sorted_vals.to(dt)
+            got = ops.pi_gather(lay, idx, vals, fs, n)
+            want = ref.pi_gather_ref(lay, idx, vals, fs, n)
+            torch.cuda.synchronize()
+            err = errors(got[1], want[1])
+            same = _bitwise(got, want)
+            check(same, f"pi_gather ({dt}) is not bitwise its plain version "
+                        f"on {what} mode {n}")
+            del got, want
+            ms[dt] = cuda_ms(ops.pi_gather, lay, idx, vals, fs, n,
+                             iters=timing_iters)
+        # f32: per slot its row and value written, its gather and valid
+        # read; per nonzero its value and N-1 coordinates read; the other
+        # modes' factors read once (the rows gathered from them hit L2)
+        esz = vals.element_size()
+        nbytes = (n_slots * ((r + 1) * esz + 8 + 1)
+                  + mv.nnz * (esz + 8 * (n_modes - 1))
+                  + sum(f.numel() * esz for m, f in enumerate(fs) if m != n))
+        plain_ms = cuda_ms(ref.pi_gather_ref, lay, idx, vals, fs, n,
+                           iters=timing_iters)
+        tally(rows, "pi_gather",
+              f"{what} mode {n} (rows {mv.n_rows}, nnz {mv.nnz}, slots "
+              f"{n_slots}; bitwise in f32 and bf16, bf16 kernel "
+              f"{ms[torch.bfloat16]:.4f} ms)",
+              [(err[0], err[1], same)],
+              (ms[torch.float32], plain_ms, plain_ms), nbytes,
+              mv.nnz * r * (n_modes - 1), "plain = library")
+        del idx, vals, fs
+        torch.cuda.empty_cache()
+
+
+def pi_phase(t, init, mvs, layouts, seed: int, timing_iters: int) -> dict:
+    """Phase 2c: the Π-rows kernel on every mode of the phase's tensor
+    (the record's row) and of nell2 at its published size, drawn from
+    the seed (printed and checked, then freed)."""
+    import torch
+
+    from repro_torch.core.layout import build_blocked_layout
+    from repro_torch.core.policy import default_policy
+    from repro_torch.core.sparse_tensor import random_ktensor, sort_mode
+    from repro_torch.data.tensors import make_tensor
+
+    rows = new_rows(("pi_gather",))
+    pi_modes(rows, f"tensor {tuple(t.shape)}",
+             ((n, mv, lay) for n, (mv, lay) in enumerate(zip(mvs, layouts))),
+             init.factors, timing_iters)
+    rows["pi_gather"]["direct_ms"] = None  # no direct launch: not measured
+
+    t0 = time.perf_counter()
+    big, _ = make_tensor("nell2", scale=1.0, rank=RANK, seed=seed,
+                         device=t.device)
+    pol = default_policy(RANK)
+
+    def sorted_modes():
+        for n in range(big.ndim):
+            mv = sort_mode(big, n)
+            yield n, mv, build_blocked_layout(mv.rows, mv.n_rows,
+                                              pol.block_nnz, pol.block_rows)
+
+    nell2 = new_rows(("pi_gather",))
+    pi_modes(nell2, f"nell2 {big.shape}", sorted_modes(),
+             random_ktensor(seed, big.shape, RANK,
+                            device=t.device).normalize().factors,
+             timing_iters)
+    v = nell2["pi_gather"]
+    print(f"2c pi_gather on nell2 {big.shape} (nnz {big.nnz}), summed over "
+          f"the modes: kernel {v['ms']:.4f} ms, plain (= library) "
+          f"{v['plain_ms']:.4f} ms, bound {v['bound_ms']:.4f} ms; "
+          f"{time.perf_counter() - t0:.1f} s")
+    del big
+    torch.cuda.empty_cache()
+    return rows
+
+
+def timed_cp_als(t, init, strategy: str, dev, counts=(), **kw) -> tuple:
     """(fits, steady seconds per iteration, launch counts) of ``cp_als``
     from ``init``.
 
     After an untimed 1-iteration warm-up (first-use costs: library
     loads, the solver's workspaces) the ALS_ITERS solve gives the fits;
-    ``counts`` is the kernel module whose launch counts it is held to,
+    ``counts`` are the kernel modules whose launch counts it is held to,
     zeroed just before it and read just after (None without).  Then a
     1-iteration solve is subtracted from a 1 + TIMED_ITERS one, so
     set-up (mode sorts, layouts, densified modes) is left out and its
@@ -829,30 +947,32 @@ def timed_cp_als(t, init, strategy: str, dev, counts=None, **kw) -> tuple:
         return fits, time.perf_counter() - t0
 
     run(1)
-    if counts is not None:
-        counts.reset_launch_counts()
+    for ops in counts:
+        ops.reset_launch_counts()
     recoveries: list = []
     fits, _ = run(ALS_ITERS, recoveries)
-    launched = None if counts is None else dict(counts.launch_counts)
+    launched = ({k: v for ops in counts for k, v in ops.launch_counts.items()}
+                if counts else None)
     check(recoveries == [],
           f"cp_als {strategy} demoted a mode: {recoveries}")
     secs = [run(n)[1] for n in (1, 1 + TIMED_ITERS)]
     return fits, (secs[1] - secs[0]) / TIMED_ITERS, launched
 
 
-def als_against_segment(t, init, strategy: str, kernel: str, ops,
-                        dev) -> int:
-    """Run ``cp_als(strategy)`` counted, then ``segment``; check the fits
-    and the launch count of ``kernel`` (once per mode update)."""
-    fits, spi, counted = timed_cp_als(t, init, strategy, dev, counts=ops)
-    launches = counted[kernel]
+def als_against_segment(t, init, strategy: str, kernels: tuple, counts,
+                        dev) -> dict:
+    """Run ``cp_als(strategy)`` counted on the kernel modules ``counts``,
+    then ``segment``; check the fits and that each of ``kernels`` ran
+    once per mode update.  Returns their launch counts."""
+    fits, spi, counted = timed_cp_als(t, init, strategy, dev, counts=counts)
+    launches = {k: counted[k] for k in kernels}
     ref_fits, ref_spi, _ = timed_cp_als(t, init, "segment", dev)
     print(f"cp_als {strategy}: fits {fits}, {spi:.6f} s per iteration, "
-          f"{kernel} launches {launches}")
+          f"launches {launches}")
     print(f"cp_als segment: fits {ref_fits}, {ref_spi:.6f} s per iteration")
-    check(launches == ALS_ITERS * t.ndim,
-          f"{kernel} launched {launches} times, expected "
-          f"{ALS_ITERS * t.ndim} (one per mode update)")
+    check(all(v == ALS_ITERS * t.ndim for v in launches.values()),
+          f"launched {launches}, expected {ALS_ITERS * t.ndim} of each (one "
+          f"per mode update)")
     check(all(math.isfinite(f) for f in fits + ref_fits),
           f"non-finite CP-ALS fit: {fits} / {ref_fits}")
     fit_err = max(abs(a - b) for a, b in zip(fits, ref_fits))
@@ -1101,8 +1221,8 @@ def dense_solve_phase(t, init, dev) -> dict:
     print(f"dense vs segment: loglik max rel diff {ll_err:.3e} "
           f"(rtol {LOGLIK_RTOL})")
     check(ll_err <= LOGLIK_RTOL, "dense log-likelihood histories disagree")
-    launches["dense_mttkrp"] = als_against_segment(t, init, "dense",
-                                                   "dense_mttkrp", ops, dev)
+    launches.update(als_against_segment(t, init, "dense", ("dense_mttkrp",),
+                                        (ops,), dev))
     return launches
 
 
@@ -1589,12 +1709,15 @@ def counted_solve(what: str, res, n_modes: int, launches: dict,
                   kernels: tuple, idle: tuple, total: dict) -> None:
     """Hold one counted service solve: ``kernels`` (the per-mode-update
     and the per-inner-iteration kernel) launched as the solve's counts say,
-    the ``idle`` kernels not at all, no demotion, every mode on the
-    kernels' strategy, finite factors.  Adds the counts into ``total``."""
+    on ``cuda`` the Π kernel once per mode update too, the ``idle``
+    kernels not at all, no demotion, every mode on the kernels' strategy,
+    finite factors.  Adds the counts into ``total``."""
     import torch
 
     per_update, per_inner = kernels
     strategy = "dense" if per_update.startswith("dense") else "cuda"
+    if strategy == "cuda":
+        kernels = ("pi_gather",) + kernels
     print(f"{what}: {res.n_outer} sweeps, inner iterations "
           f"{res.inner_iters}, launches {launches}, seconds {res.seconds:.3f}")
     check(res.recoveries is None,
@@ -1603,9 +1726,10 @@ def counted_solve(what: str, res, n_modes: int, launches: dict,
     check(got == [strategy] * n_modes,
           f"{what}: modes resolved to {got}, expected {strategy} on every "
           f"mode (no segment or plain path)")
-    check(launches[per_update] == res.n_outer * n_modes,
-          f"{what}: {per_update} launched {launches[per_update]} times, "
-          f"expected {res.n_outer * n_modes} (one per mode update)")
+    for k in kernels[:-1]:
+        check(launches[k] == res.n_outer * n_modes,
+              f"{what}: {k} launched {launches[k]} times, expected "
+              f"{res.n_outer * n_modes} (one per mode update)")
     check(launches[per_inner] == sum(res.inner_iters) > 0,
           f"{what}: {per_inner} launched {launches[per_inner]} times, "
           f"expected {sum(res.inner_iters)} (one per inner iteration)")
@@ -1620,16 +1744,19 @@ def counted_solve(what: str, res, n_modes: int, launches: dict,
 def _launch_counts() -> dict:
     from repro_torch.kernels.dense import ops as dense_ops
     from repro_torch.kernels.phi import ops as phi_ops
+    from repro_torch.kernels.pi import ops as pi_ops
 
-    return {**phi_ops.launch_counts, **dense_ops.launch_counts}
+    return {**phi_ops.launch_counts, **dense_ops.launch_counts,
+            **pi_ops.launch_counts}
 
 
 def _reset_counts() -> None:
     from repro_torch.kernels.dense import ops as dense_ops
     from repro_torch.kernels.phi import ops as phi_ops
+    from repro_torch.kernels.pi import ops as pi_ops
 
-    phi_ops.reset_launch_counts()
-    dense_ops.reset_launch_counts()
+    for ops in (phi_ops, dense_ops, pi_ops):
+        ops.reset_launch_counts()
 
 
 def bucket_tier_part(dev, seed: int) -> None:
@@ -1840,7 +1967,7 @@ def dense_cut_part(svc, dev, seed: int, total: dict) -> None:
           "flagged as a stats move")
     counted_solve("13.3 dense-cut tenant warm append", warm.result,
                   len(shape), _launch_counts(), dense,
-                  sparse + ("dense_mttkrp",), total)
+                  sparse + ("dense_mttkrp", "pi_gather"), total)
     fills = [round(s.fill_frac, 4) for s in svc.tenant("dense-cut").mode_stats]
     print(f"13.3 dense-cut tenant: {base.nnz} -> "
           f"{svc.tenant('dense-cut').tensor.nnz} nonzeros of {cells} cells "
@@ -2003,15 +2130,31 @@ def sharded_kernel_phase(t, init, mvs, layouts, timing_iters: int) -> dict:
     return mode_steps
 
 
+def _solve_counts() -> dict:
+    """The launch counts a mode hook snapshots: B1, B2 and Π."""
+    from repro_torch.kernels.phi import ops as phi_ops
+    from repro_torch.kernels.pi import ops as pi_ops
+
+    return {**phi_ops.launch_counts, **pi_ops.launch_counts}
+
+
+def _reset_solve_counts() -> None:
+    from repro_torch.kernels.phi import ops as phi_ops
+    from repro_torch.kernels.pi import ops as pi_ops
+
+    phi_ops.reset_launch_counts()
+    pi_ops.reset_launch_counts()
+
+
 def _per_update_launches(events, final) -> list:
-    """(mode, strategy, B1, B2) launched by each mode update, from the
+    """(mode, strategy, B1, B2, Π) launched by each mode update, from the
     counts the mode hook snapshotted before each one and the final ones."""
     out = []
     for i, (mode, strategy, counts) in enumerate(events):
         nxt = events[i + 1][2] if i + 1 < len(events) else final
-        out.append((mode, strategy,
-                    nxt["phi_mu_blocked"] - counts["phi_mu_blocked"],
-                    nxt["phi_blocked"] - counts["phi_blocked"]))
+        out.append((mode, strategy) + tuple(
+            nxt[k] - counts[k]
+            for k in ("phi_mu_blocked", "phi_blocked", "pi_gather")))
     return out
 
 
@@ -2024,22 +2167,21 @@ def sharded_solve_phase(t, init, layouts, res, ref, dev):
 
     from repro_torch.core import resilience
     from repro_torch.core.cpapr import cpapr_mu
-    from repro_torch.kernels.phi import ops
 
     cfg = _sharded_cfg()
     events: list = []
 
     def snapshot(ctx):
-        events.append((ctx["mode"], ctx["strategy"], dict(ops.launch_counts)))
+        events.append((ctx["mode"], ctx["strategy"], _solve_counts()))
 
     resilience.register_mode_hook(snapshot)
     try:
-        ops.reset_launch_counts()
+        _reset_solve_counts()
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
             sh = cpapr_mu(t, RANK, init=init, device=dev, config=cfg)
         torch.cuda.synchronize()
-        final = dict(ops.launch_counts)
+        final = _solve_counts()
     finally:
         resilience.unregister_mode_hook(snapshot)
     fell_back = [str(w.message) for w in caught
@@ -2059,21 +2201,22 @@ def sharded_solve_phase(t, init, layouts, res, ref, dev):
           f"expected a fallback warning for each of the "
           f"{t.ndim - len(shard_modes)} unsharded modes: {fell_back}")
     # each sharded mode update: B2 once per shard for the scooch and once
-    # per shard per inner iteration; each fallback mode: B2 once, B1 once
-    # per inner iteration
+    # per shard per inner iteration, no Π kernel; each fallback mode: Π
+    # and B2 once, B1 once per inner iteration
     per = _per_update_launches(events, final)
     inner = []
-    for mode, strategy, b1, b2 in per:
+    for mode, strategy, b1, b2, pi in per:
         if mode in shard_modes:
-            check(strategy == "sharded" and b1 == 0 and b2 % N_SHARDS == 0
-                  and b2 >= 2 * N_SHARDS,
-                  f"sharded mode {mode} launched B1 {b1} and B2 {b2} times "
-                  f"in one update: not {N_SHARDS} x (1 + inner)")
+            check(strategy == "sharded" and b1 == 0 and pi == 0
+                  and b2 % N_SHARDS == 0 and b2 >= 2 * N_SHARDS,
+                  f"sharded mode {mode} launched B1 {b1}, B2 {b2} and Π {pi} "
+                  f"times in one update: not {N_SHARDS} x (1 + inner) B2")
             inner.append(b2 // N_SHARDS - 1)
         else:
-            check(strategy == "cuda" and b2 == 1 and b1 >= 1,
-                  f"fallback mode {mode} launched B1 {b1} and B2 {b2} times "
-                  f"in one update: not B2 once and B1 per inner iteration")
+            check(strategy == "cuda" and b2 == 1 and pi == 1 and b1 >= 1,
+                  f"fallback mode {mode} launched B1 {b1}, B2 {b2} and Π "
+                  f"{pi} times in one update: not Π and B2 once and B1 per "
+                  f"inner iteration")
             inner.append(b1)
     sweeps = [sum(inner[k * t.ndim:(k + 1) * t.ndim])
               for k in range(sh.n_outer)]
@@ -2095,8 +2238,7 @@ def sharded_solve_phase(t, init, layouts, res, ref, dev):
               f"{kkt_err:.3e} (rtol {KKT_RTOL})")
         check(ll_err <= LOGLIK_RTOL and kkt_err <= KKT_RTOL,
               f"the sharded solve disagrees with the {label} solve")
-    return sh, {"phi_blocked": final["phi_blocked"],
-                "phi_mu_blocked": final["phi_mu_blocked"]}
+    return sh, final
 
 
 def _sharded_cfg(**kw):
@@ -2114,12 +2256,13 @@ def _sharded_cfg(**kw):
     return CPAPRConfig(**base)
 
 
-def sharded_als_phase(t, init, layouts, dev) -> int:
-    """14.3: the counted sharded CP-ALS; returns its B3 launches."""
+def sharded_als_phase(t, init, layouts, dev) -> dict:
+    """14.3: the counted sharded CP-ALS; returns its B3 and Π launches."""
     import warnings
 
     from repro_torch.core.policy import PhiPolicy
     from repro_torch.kernels.mttkrp import ops
+    from repro_torch.kernels.pi import ops as pi_ops
 
     kw = dict(n_shards=N_SHARDS,
               policy=PhiPolicy(strategy="cuda", block_nnz=256,
@@ -2127,25 +2270,31 @@ def sharded_als_phase(t, init, layouts, dev) -> int:
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")  # the fallback modes warn
         fits, spi, counted = timed_cp_als(t, init, "sharded", dev,
-                                          counts=ops, **kw)
+                                          counts=(ops, pi_ops), **kw)
         ref_fits, ref_spi, _ = timed_cp_als(t, init, "segment", dev)
     launches = counted["mttkrp_blocked"]
     shard_modes = _shard_modes(layouts)
     want = ALS_ITERS * sum(N_SHARDS if n in shard_modes else 1
                            for n in range(t.ndim))
+    want_pi = ALS_ITERS * (t.ndim - len(shard_modes))
     print(f"cp_als sharded (S={N_SHARDS}, cuda local): fits {fits}, "
           f"{spi:.6f} s per iteration, mttkrp_blocked launches {launches} "
           f"(expected {want}: {N_SHARDS} per sharded mode {shard_modes} and "
-          f"1 per fallback mode per iteration)")
+          f"1 per fallback mode per iteration; pi_gather "
+          f"{counted['pi_gather']}, expected {want_pi}: 1 per fallback "
+          f"mode per iteration)")
     print(f"cp_als segment: fits {ref_fits}, {ref_spi:.6f} s per iteration")
     check(launches == want, f"mttkrp_blocked launched {launches} times, "
                             f"expected {want}")
+    check(counted["pi_gather"] == want_pi,
+          f"pi_gather launched {counted['pi_gather']} times, expected "
+          f"{want_pi}")
     check(all(math.isfinite(f) for f in fits), f"non-finite fit: {fits}")
     fit_err = max(abs(a - b) for a, b in zip(fits, ref_fits))
     print(f"cp_als sharded vs segment: fit max abs diff {fit_err:.3e} "
           f"(atol {FIT_ATOL})")
     check(fit_err <= FIT_ATOL, "sharded CP-ALS fits disagree")
-    return launches
+    return counted
 
 
 def _ll_rel(a, b) -> float:
@@ -2496,7 +2645,9 @@ def sharded_phase(t, init, mvs, layouts, res, ref, dev, seed: int,
     sh, launches = sharded_solve_phase(t, init, layouts, res, ref, dev)
     print(f"14.2 sharded CP-APR: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    launches["mttkrp_blocked"] = sharded_als_phase(t, init, layouts, dev)
+    als = sharded_als_phase(t, init, layouts, dev)
+    launches["mttkrp_blocked"] = als["mttkrp_blocked"]
+    launches["pi_gather"] += als["pi_gather"]
     print(f"14.3 sharded CP-ALS: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     recorded = nccl_phase(t, init, mvs, layouts, dev)
@@ -2705,24 +2856,23 @@ def grid_solve_phase(t, init, res, ref, sh, grid_shape, dev):
 
     from repro_torch.core import resilience
     from repro_torch.core.cpapr import cpapr_mu
-    from repro_torch.kernels.phi import ops
 
     events: list = []
     grids: dict = {}
 
     def snapshot(ctx):
-        events.append((ctx["mode"], ctx["strategy"], dict(ops.launch_counts)))
+        events.append((ctx["mode"], ctx["strategy"], _solve_counts()))
         grids[ctx["mode"]] = ctx.get("grid")
 
     resilience.register_mode_hook(snapshot)
     try:
-        ops.reset_launch_counts()
+        _reset_solve_counts()
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
             gr = cpapr_mu(t, RANK, init=init, device=dev,
                           config=_grid_cfg(grid_shape=grid_shape))
         torch.cuda.synchronize()
-        final = dict(ops.launch_counts)
+        final = _solve_counts()
     finally:
         resilience.unregister_mode_hook(snapshot)
     fell_back = [str(w.message) for w in caught
@@ -2744,19 +2894,21 @@ def grid_solve_phase(t, init, res, ref, sh, grid_shape, dev):
           f"{n_fallback} modes run unsharded but {len(fell_back)} warned")
     per = _per_update_launches(events, final)
     inner = []
-    for mode, strategy, b1, b2 in per:
+    for mode, strategy, b1, b2, pi in per:
         g = grids[mode]
         if g is not None:
             cells = g[0] * g[1]
-            check(strategy == "grid" and b1 == 0 and b2 % cells == 0
-                  and b2 >= 2 * cells,
-                  f"grid mode {mode} {g} launched B1 {b1} and B2 {b2} times "
-                  f"in one update: not {cells} x (1 + inner) and no B1")
+            check(strategy == "grid" and b1 == 0 and pi == 0
+                  and b2 % cells == 0 and b2 >= 2 * cells,
+                  f"grid mode {mode} {g} launched B1 {b1}, B2 {b2} and Π "
+                  f"{pi} times in one update: not {cells} x (1 + inner) B2 "
+                  f"and no B1 or Π")
             inner.append(b2 // cells - 1)
         else:
-            check(strategy == "cuda" and b2 == 1 and b1 >= 1,
-                  f"fallback mode {mode} launched B1 {b1} and B2 {b2} times "
-                  f"in one update: not B2 once and B1 per inner iteration")
+            check(strategy == "cuda" and b2 == 1 and pi == 1 and b1 >= 1,
+                  f"fallback mode {mode} launched B1 {b1}, B2 {b2} and Π "
+                  f"{pi} times in one update: not Π and B2 once and B1 per "
+                  f"inner iteration")
             inner.append(b1)
     sweeps = [sum(inner[k * t.ndim:(k + 1) * t.ndim])
               for k in range(gr.n_outer)]
@@ -2777,25 +2929,27 @@ def grid_solve_phase(t, init, res, ref, sh, grid_shape, dev):
               f"{kkt_err:.3e} (rtol {KKT_RTOL})")
         check(ll_err <= LOGLIK_RTOL and kkt_err <= KKT_RTOL,
               f"the grid solve ({label}) disagrees with the {name} solve")
-    return gr, {"phi_blocked": final["phi_blocked"],
-                "phi_mu_blocked": final["phi_mu_blocked"]}
+    return gr, final
 
 
-def grid_als_phase(t, init, dev) -> int:
+def grid_als_phase(t, init, dev) -> dict:
     """15.3: the counted grid CP-ALS (each mode's grid from
     choose_grid_shape, as in the JAX package's ``cp_als``); returns its
-    B3 launches."""
+    B3 and Π launches."""
     import warnings
 
     from repro_torch.core import resilience
     from repro_torch.core.policy import PhiPolicy
     from repro_torch.kernels.mttkrp import ops
+    from repro_torch.kernels.pi import ops as pi_ops
 
     cells: dict = {}
+    strategies: dict = {}
 
     def grids(ctx):
         cells[ctx["mode"]] = ctx["n_shards"] if ctx["strategy"] == "grid" \
             else 1
+        strategies[ctx["mode"]] = ctx["strategy"]
 
     kw = dict(n_shards=N_SHARDS,
               policy=PhiPolicy(strategy="cuda", block_nnz=256,
@@ -2805,25 +2959,32 @@ def grid_als_phase(t, init, dev) -> int:
         with warnings.catch_warnings():
             warnings.simplefilter("ignore")  # the fallback modes warn
             fits, spi, counted = timed_cp_als(t, init, "grid", dev,
-                                              counts=ops, **kw)
+                                              counts=(ops, pi_ops), **kw)
     finally:
         resilience.unregister_mode_hook(grids)
     ref_fits, ref_spi, _ = timed_cp_als(t, init, "segment", dev)
     launches = counted["mttkrp_blocked"]
     want = ALS_ITERS * sum(cells[n] for n in range(t.ndim))
+    want_pi = ALS_ITERS * sum(1 for n in range(t.ndim)
+                              if strategies[n] == "cuda")
     print(f"cp_als grid (S={N_SHARDS}, cuda local): fits {fits}, "
           f"{spi:.6f} s per iteration, mttkrp_blocked launches {launches} "
           f"(expected {want}: A*B per grid mode, 1 per fallback mode, per "
-          f"iteration; cells per mode {cells})")
+          f"iteration; cells per mode {cells}); pi_gather "
+          f"{counted['pi_gather']} (expected {want_pi}: 1 per fallback mode "
+          f"per iteration)")
     print(f"cp_als segment: fits {ref_fits}, {ref_spi:.6f} s per iteration")
     check(launches == want, f"mttkrp_blocked launched {launches} times, "
                             f"expected {want}")
+    check(counted["pi_gather"] == want_pi,
+          f"pi_gather launched {counted['pi_gather']} times, expected "
+          f"{want_pi}")
     check(all(math.isfinite(f) for f in fits), f"non-finite fit: {fits}")
     fit_err = max(abs(a - b) for a, b in zip(fits, ref_fits))
     print(f"cp_als grid vs segment: fit max abs diff {fit_err:.3e} "
           f"(atol {FIT_ATOL})")
     check(fit_err <= FIT_ATOL, "grid CP-ALS fits disagree")
-    return launches
+    return counted
 
 
 def grid_nccl_phase(t, init, mvs, layouts, dev) -> list:
@@ -2979,7 +3140,9 @@ def grid_phase(t, init, mvs, layouts, res, ref, sh, dev,
             launches[k] = launches.get(k, 0) + v
     print(f"15.2 grid CP-APR: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    launches["mttkrp_blocked"] = grid_als_phase(t, init, dev)
+    als = grid_als_phase(t, init, dev)
+    launches["mttkrp_blocked"] = als["mttkrp_blocked"]
+    launches["pi_gather"] += als["pi_gather"]
     print(f"15.3 grid CP-ALS: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     recorded = grid_nccl_phase(t, init, mvs, layouts, dev)
@@ -3302,24 +3465,24 @@ def lm_decode_trace(dev, seed: int, steps: int = 8) -> dict:
     return rec
 
 
-def kernel_launch_counts() -> dict:
-    """Every kernel wrapper's launch count (the ten of the record)."""
+def _kernel_modules() -> tuple:
     from repro_torch.kernels.dense import ops as dense_ops
     from repro_torch.kernels.mttkrp import ops as mttkrp_ops
     from repro_torch.kernels.phi import ops as phi_ops
+    from repro_torch.kernels.pi import ops as pi_ops
     from repro_torch.kernels.stream import ops as stream_ops
 
-    return {**phi_ops.launch_counts, **mttkrp_ops.launch_counts,
-            **dense_ops.launch_counts, **stream_ops.launch_counts}
+    return phi_ops, mttkrp_ops, pi_ops, dense_ops, stream_ops
+
+
+def kernel_launch_counts() -> dict:
+    """Every kernel wrapper's launch count (the eleven of the record)."""
+    return {k: v for ops in _kernel_modules()
+            for k, v in ops.launch_counts.items()}
 
 
 def reset_kernel_launch_counts() -> None:
-    from repro_torch.kernels.dense import ops as dense_ops
-    from repro_torch.kernels.mttkrp import ops as mttkrp_ops
-    from repro_torch.kernels.phi import ops as phi_ops
-    from repro_torch.kernels.stream import ops as stream_ops
-
-    for ops in (phi_ops, mttkrp_ops, dense_ops, stream_ops):
+    for ops in _kernel_modules():
         ops.reset_launch_counts()
 
 
@@ -4372,8 +4535,8 @@ def run_example(name: str, argv: list) -> dict:
 
 def example_solve(what: str, run: dict, n_modes: int, card: str,
                   total: dict) -> None:
-    """Hold an example's one CP-APR solve as phase 3 holds its own: B2
-    once per mode update and B1 once per inner iteration, no other
+    """Hold an example's one CP-APR solve as phase 3 holds its own: Π and
+    B2 once per mode update and B1 once per inner iteration, no other
     kernel, no demotion, finite nonnegative factors, a finite
     nondecreasing log-likelihood; print its ms per sweep (median over its
     sweeps) with the card.  Adds the counts read into ``total``."""
@@ -4387,12 +4550,13 @@ def example_solve(what: str, run: dict, n_modes: int, card: str,
           f"{res.inner_iters}, launches {launches}")
     check(res.recoveries is None,
           f"{what}: guard recoveries or demotions: {res.recoveries}")
-    want = {"phi_blocked": res.n_outer * n_modes,
+    want = {"pi_gather": res.n_outer * n_modes,
+            "phi_blocked": res.n_outer * n_modes,
             "phi_mu_blocked": sum(res.inner_iters)}
     check(want["phi_mu_blocked"] > 0, f"{what}: no inner iteration")
     check(launches == {k: want.get(k, 0) for k in launches},
-          f"{what}: expected {want} (B2 once per mode update, B1 once per "
-          f"inner iteration, nothing else), launched {launches}")
+          f"{what}: expected {want} (Π and B2 once per mode update, B1 once "
+          f"per inner iteration, nothing else), launched {launches}")
     check(all(bool(torch.isfinite(f).all() and (f >= 0).all())
               for f in res.ktensor.factors),
           f"{what}: non-finite or negative factor")
@@ -4538,6 +4702,7 @@ def main(argv=None) -> int:
     )
     from repro_torch.kernels import _build
     from repro_torch.kernels.phi import kernel, ops
+    from repro_torch.kernels.pi import ops as pi_ops
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4575,15 +4740,19 @@ def main(argv=None) -> int:
 
     # --- phase 2: the kernels against their plain versions -------------
     rows = kernel_phase(t, init, mvs, layouts, TIMING_ITERS)
+    t0 = time.perf_counter()
+    rows.update(pi_phase(t, init, mvs, layouts, args.seed, TIMING_ITERS))
+    print(f"phase 2c (Π rows): {time.perf_counter() - t0:.1f} s")
 
     # --- phase 3: the main path, counted --------------------------------
     cfg = dict(rank=RANK, max_outer=MAX_OUTER,
                max_inner=MAX_INNER)
     ops.reset_launch_counts()
+    pi_ops.reset_launch_counts()
     res = cpapr_mu(t, RANK, seed=args.seed, device=dev,
                    config=CPAPRConfig(strategy="cuda", **cfg))
     torch.cuda.synchronize()
-    launches = dict(ops.launch_counts)
+    launches = {**ops.launch_counts, **pi_ops.launch_counts}
     n_updates = res.n_outer * t.ndim
     print(f"cuda solve: {res.n_outer} sweeps, inner iterations "
           f"{res.inner_iters}, launches {launches}")
@@ -4592,9 +4761,10 @@ def main(argv=None) -> int:
     print(f"  seconds per sweep {res.sweep_seconds}")
     check(res.recoveries is None,
           f"guard recoveries or demotions: {res.recoveries}")
-    check(launches["phi_blocked"] == n_updates,
-          f"phi_blocked launched {launches['phi_blocked']} times, expected "
-          f"{n_updates} (one per mode update)")
+    for k in ("pi_gather", "phi_blocked"):
+        check(launches[k] == n_updates,
+              f"{k} launched {launches[k]} times, expected {n_updates} (one "
+              f"per mode update)")
     check(launches["phi_mu_blocked"] == sum(res.inner_iters) > 0,
           f"phi_mu_blocked launched {launches['phi_mu_blocked']} times, "
           f"expected {sum(res.inner_iters)} (one per inner iteration)")
@@ -4630,8 +4800,11 @@ def main(argv=None) -> int:
     # --- phase 5: CP-ALS, counted ----------------------------------------
     from repro_torch.kernels.mttkrp import ops as mttkrp_ops
 
-    launches["mttkrp_blocked"] = als_against_segment(
-        t, init, "cuda", "mttkrp_blocked", mttkrp_ops, dev)
+    als = als_against_segment(t, init, "cuda", ("mttkrp_blocked",
+                                                "pi_gather"),
+                              (mttkrp_ops, pi_ops), dev)
+    launches["mttkrp_blocked"] = als["mttkrp_blocked"]
+    launches["pi_gather"] += als["pi_gather"]
 
     # --- phase 6: the dense tier at its cap --------------------------------
     t0 = time.perf_counter()

@@ -585,8 +585,10 @@ class ModeOps:
 
     ``inputs(factors)`` gives the operands hoisted once per mode update:
     ``(pi, vals_e, pi_e, factors)`` for the sparse families (None in each
-    slot the family does not read; ``factors`` for the shard-local Π
-    gather), the kernel operands ``(x, c, a)`` for ``dense``.
+    slot the family does not read: ``cuda`` forms only the slot-ordered
+    ``vals_e`` and ``pi_e``, in one kernel, and builds no ``pi``;
+    ``factors`` for the shard-local Π gather), the kernel operands
+    ``(x, c, a)`` for ``dense``.
     ``phi(operands, b)`` is Φ and ``step(operands, b)`` the fused inner MU
     step ``(b', viol)``, both on the family's carry, which ``stack(a)``
     makes from a full (I_n, R) block and ``unstack(b)`` turns back: the
@@ -628,7 +630,8 @@ def bind_mode(
     unused by ``scatter``/``segment``) and, for a sharded layout,
     :func:`effective_mode_combine` of ``combine`` (``rank`` is read only
     for ``"auto"``).  ``inputs`` gathers Π from the sorted coordinates
-    ``idx`` of ``mode``.  Every check that does not depend on B runs
+    ``idx`` of ``mode`` (``cuda``: straight into slot order with the
+    values, in one kernel).  Every check that does not depend on B runs
     here, once: the device, the strategy's name, the layout's type, the
     shard-local Π gather, the mesh, the dense data and ``perturb``.  The
     bound callables run what the public entries run on the same operands.
@@ -694,13 +697,15 @@ def bind_mode(
     if strategy == "cuda":
         from ..kernels.mttkrp import ops as mttkrp_ops
         from ..kernels.phi import ops as phi_ops
+        from ..kernels.pi import ops as pi_ops
 
         def cuda_step(o, b):
             mu_pad, viol = phi_ops.phi_mu_blocked(layout, o[1], o[2], b, eps)
             return torch.where(viol > tol, mu_pad[:n_rows], b), viol
 
         return ModeOps(
-            inputs=gathered(expand_to_layout),
+            inputs=lambda f: (None, *pi_ops.pi_gather(layout, idx, vals, f,
+                                                      mode), None),
             phi=lambda o, b: phi_ops.phi_blocked(layout, o[1], o[2], b,
                                                  eps)[:n_rows],
             step=cuda_step,

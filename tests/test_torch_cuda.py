@@ -415,7 +415,7 @@ def test_build_is_cached_by_source_hash(card):
 @pytest.mark.cuda
 def test_every_source_builds(card):
     libs = _build.build_all()
-    assert set(libs) == {"dense", "mttkrp", "phi", "stream"}
+    assert set(libs) == {"dense", "mttkrp", "phi", "pi", "stream"}
     assert all(p.exists() for p in libs.values())
 
 
